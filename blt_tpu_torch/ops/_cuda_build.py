@@ -1,0 +1,120 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Every ``blt_tpu_torch/csrc/*.cu`` file is compiled for Hopper (``sm_90a``)
+into one shared library with a plain C interface, in
+``build/blt_tpu_torch/`` at the repository root. The library's name carries
+a hash of the sources and flags, so a source change rebuilds it and an
+unchanged tree reuses it. The build runs at first use (the first kernel
+launch), never at import.
+
+There is no fallback: a missing ``nvcc`` or a failed compile raises. Run
+``python -m blt_tpu_torch.ops._cuda_build`` to build ahead of time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+import uuid
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "blt_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of this process's compile
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(str(CSRC / "*.cu")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+        "the CUDA kernels cannot be built"
+    )
+
+
+def library_path() -> Path:
+    """Path of the library for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        h.update(Path(src).read_bytes())
+    for hdr in sorted(glob.glob(str(CSRC / "*.cuh"))):
+        h.update(Path(hdr).read_bytes())
+    return BUILD_DIR / f"libblt_cuda_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if the library for these sources is missing."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name and rename: a concurrent build never loads
+    # a half-written library
+    tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}.{uuid.uuid4().hex[:8]}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *_sources()]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stderr[-4000:]}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if tmp.exists():
+            tmp.unlink()
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use; raises when it cannot be."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build()))
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.blt_widen.argtypes = [p, p, i64, p]
+        lib.blt_widen.restype = i
+        lib.blt_flat_bpe.argtypes = [p, i, i, i, p, p, p, p, p, p]
+        lib.blt_flat_bpe.restype = i
+        lib.blt_pack_slots.argtypes = [p, i, i, p, p, p, p]
+        lib.blt_pack_slots.restype = i
+        _lib = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launch reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+if __name__ == "__main__":
+    print(build())

@@ -1,0 +1,601 @@
+"""Smoke test of the torch port's main path on one CUDA card.
+
+    python3 chip_smoke.py [--seed N] [--size-mib 1024]
+
+Run from the root of a checkout on a machine with a CUDA device. It
+imports nothing of JAX. One JSON line per phase:
+
+1. device: fails without CUDA; prints ``nvidia-smi``'s name and power limit;
+2. build: compiles ``blt_tpu_torch/csrc/*.cu`` with nvcc;
+3. kernels: each kernel's wrapper against its plain PyTorch version on the
+   same CUDA tensors, exactly (tolerance 0: every value is an integer
+   token), over the edge cases of the flat pass; median times at 16 MiB;
+4. main path: after one small run as set-up (it builds the native host
+   library in a fresh checkout), ``blt_tpu_torch.cli.main(... --engine
+   torch --type text)`` on a 1 GiB Zipf-text corpus in three legs (basic, BPE with the 500 most
+   frequent pairs, BPE with 50k rules), each output's sha256 held against
+   a NumPy reference written here, independent of both packages; the
+   launch counters must equal the number of batches; then each leg once
+   more under ``torch.profiler`` for the device's busy time, idle share
+   and time by kernel and copy;
+5. the CLI as a process, from a 64 MiB stdin pipe, byte for byte, and
+   the seconds a fresh process takes to import the CLI and reach the card;
+6. ``jax`` was never imported.
+
+Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. Any failure raises: the script exits
+nonzero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import hashlib
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+MIB = 1 << 20
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def pallas_line(func: str) -> str:
+    """``file:line`` of a function in the JAX package's Pallas module,
+    read as text (importing it would import JAX)."""
+    rel = "blt_tpu/ops/bpe_pallas.py"
+    with open(os.path.join(ROOT, rel)) as f:
+        for i, line in enumerate(f, 1):
+            if line.startswith(f"def {func}("):
+                return f"{rel}:{i}"
+    fail(f"{func} not found in {rel}")
+
+
+def make_corpus(rng, n: int):
+    """Zipf-ish text bytes, the JAX package's bench recipe (bench.py
+    make_corpus): a 4 MiB base sample, tiled and rotated to ``n`` bytes."""
+    import numpy as np
+
+    alphabet = np.frombuffer(
+        b"etaoinshrdlucmfwypvbgkjqxz ETAOIN,.;:'\"!?0123456789", np.uint8
+    )
+    weights = 1.0 / np.arange(1, len(alphabet) + 1)
+    base_n = 4 * MIB
+    base = rng.choice(alphabet, size=base_n, p=weights / weights.sum()).astype(np.uint8)
+    reps = -(-n // base_n)
+    shift = int(rng.integers(0, base_n))
+    return np.roll(np.tile(base, reps)[:n], shift)
+
+
+def frequent_pairs(corpus, k: int):
+    """The k most frequent byte pairs of the corpus's first 4 MiB."""
+    import numpy as np
+
+    sample = corpus[: 4 * MIB]
+    pairs, counts = np.unique(
+        sample[:-1].astype(np.int32) * 256 + sample[1:].astype(np.int32),
+        return_counts=True,
+    )
+    top = pairs[np.argsort(-counts, kind="stable")][:k]
+    return [(int(p) // 256, int(p) % 256) for p in top]
+
+
+def fifty_k_pairs(rng, first):
+    """``first`` then distinct random pairs, 50,000 in all."""
+    pairs = list(first)
+    seen = set(pairs)
+    for code in rng.permutation(65536):
+        if len(pairs) == 50_000:
+            break
+        p = (int(code) // 256, int(code) % 256)
+        if p not in seen:
+            seen.add(p)
+            pairs.append(p)
+    return pairs
+
+
+def write_merges(path: str, pairs) -> None:
+    with open(path, "w") as f:
+        f.writelines(f"{a} {b}\n" for a, b in pairs)
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    """Median milliseconds of one call, by CUDA events, after warm-up."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def int_err(a, b) -> int:
+    """Max |a - b| over two integer tensors of one shape (0 when equal)."""
+    import torch
+
+    if a.shape != b.shape:
+        fail(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while block := f.read(64 * MIB):
+            h.update(block)
+    return h.hexdigest()
+
+
+def dense_of(merges):
+    """int32[65536] rule value by byte pair ``a * 256 + b``, -1 for no rule
+    (the layout ``blt_tpu_torch.ops.tables.wire_table`` takes)."""
+    import numpy as np
+
+    dense = np.full(65536, -1, np.int32)
+    for (a, b), v in merges.items():
+        dense[a * 256 + b] = v
+    return dense
+
+
+def numbered(pairs):
+    """Merges-file lines in order -> rules: line i makes token 256 + i."""
+    return {p: 256 + i for i, p in enumerate(pairs)}
+
+
+def flat_bpe_reference(data, dense, chunk: int = 16 * MIB):
+    """One flat-BPE pass over ``data`` as u16-BE bytes, in pieces: merge
+    byte pair (i, i+1) when it has a rule and the run of rule pairs it
+    ends began an odd number of positions back (leftmost non-overlapping
+    merges), drop the byte a merge consumed, widen every other byte."""
+    import numpy as np
+
+    n = data.shape[0]
+    last_nonmatch, carry = -1, False
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        d = data[s:e].astype(np.int32)
+        nxt = np.empty_like(d)
+        nxt[:-1] = d[1:]
+        nxt[-1] = data[e] if e < n else 0
+        val = dense[d * 256 + nxt]
+        if e == n:
+            val[-1] = -1  # the last byte has no pair
+        m = val >= 0
+        idx = np.arange(s, e, dtype=np.int32)
+        lz = np.maximum.accumulate(np.where(m, last_nonmatch, idx))
+        start = m & (((idx - lz) & 1) == 1)
+        consumed = np.empty_like(start)
+        consumed[0] = carry
+        consumed[1:] = start[:-1]
+        yield np.where(start, val, d)[~consumed].astype(">u2").tobytes()
+        last_nonmatch, carry = int(lz[-1]), bool(start[-1])
+
+
+def reference_sha(data, dense, header: bytes) -> str:
+    """sha256 of ``header`` + the reference output: basic widen when
+    ``dense`` is None, else one flat-BPE pass."""
+    h = hashlib.sha256(header)
+    if dense is None:
+        for s in range(0, data.shape[0], 64 * MIB):
+            h.update(data[s : s + 64 * MIB].astype(">u2").tobytes())
+    else:
+        for piece in flat_bpe_reference(data, dense):
+            h.update(piece)
+    return h.hexdigest()
+
+
+def device_profile(fn):
+    """Run ``fn`` once under ``torch.profiler`` (CUDA activity). Returns
+    wall seconds, device busy seconds (union of kernel and copy
+    intervals), the idle share, and device ms by kernel or copy name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    if not events:
+        fail("the profiler saw no device activity")
+    by_name = {}
+    for e in events:
+        key = e.name[:48]
+        by_name[key] = by_name.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return {
+        "wall_s": wall, "device_busy_s": busy_us / 1e6,
+        "idle_share": 1 - busy_us / 1e6 / wall,
+        "device_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
+    }
+
+
+def phase_kernels(corpus, merges500, merges50k, rng):
+    """Phase 3: every kernel against its plain version on the card."""
+    import numpy as np
+    import torch
+
+    from blt_tpu_torch.ops import bpe_cuda
+    from blt_tpu_torch.ops.tables import wire_table
+
+    dev = torch.device("cuda", 0)
+
+    def table_of(merges):
+        return wire_table(dense_of(merges), dev)
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    err = {"widen": 0, "flat_bpe": 0, "pack_slots": 0}
+    cases = 0
+
+    def check_flat(data, n, nb, table, carry, prev):
+        nonlocal cases
+        c_in = torch.tensor([[carry]], dtype=torch.int32, device=dev)
+        p_in = torch.tensor(prev, dtype=torch.int32, device=dev)
+        slots, c_out = bpe_cuda.flat_encode_slots(data, n, nb, table, c_in)
+        ref_slots, ref_c = bpe_cuda.flat_slots_plain(data, n, nb, table, c_in)
+        wire, last = bpe_cuda.pack_slots(slots, n, p_in)
+        ref_wire, ref_last = bpe_cuda.pack_slots_plain(ref_slots, n, p_in)
+        torch.cuda.synchronize()
+        e_flat = max(int_err(slots, ref_slots), int_err(c_out, ref_c))
+        e_pack = max(int_err(wire, ref_wire), int_err(last, ref_last))
+        if e_flat or e_pack:
+            fail(f"flat pass n={n} next_byte={nb} carry={carry}: "
+                 f"slot/carry err {e_flat}, wire/last err {e_pack}")
+        err["flat_bpe"] = max(err["flat_bpe"], e_flat)
+        err["pack_slots"] = max(err["pack_slots"], e_pack)
+        cases += 1
+        return wire, c_out, last
+
+    t500 = table_of(merges500)
+    t50k = table_of(merges50k)
+    big = on_dev(corpus[: 16 * MIB])
+
+    # widen: small, 16 MiB, a ragged length, one byte
+    for n in (64 * 1024, 16 * MIB, 16 * MIB + 5, 1):
+        x = on_dev(corpus[:n])
+        e = int_err(bpe_cuda.basic_encode(x), bpe_cuda.widen_plain(x))
+        torch.cuda.synchronize()
+        if e:
+            fail(f"widen n={n}: err {e}")
+        cases += 1
+
+    # 64 KiB and 16 MiB batches of text, 500 and 50k rules
+    small = on_dev(corpus[: 64 * 1024])
+    check_flat(small, 64 * 1024, int(corpus[64 * 1024]), t500, 0, 0)
+    check_flat(big, 16 * MIB, -1, t500, 0, 0)
+    check_flat(big, 16 * MIB, int(corpus[16 * MIB]), t50k, 1, 0x6568)
+    # an all-match run over ~1000 tiles, both carries, odd length
+    run = on_dev(np.full(4 * MIB, 97, np.uint8))
+    t_aa = table_of({(97, 97): 256})
+    for carry in (0, 1):
+        for nb in (97, -1):
+            check_flat(run, 4 * MIB - 3, nb, t_aa, carry, 0)
+    # next_byte -1, 0 and 255 with rules that pair the last byte with them
+    raw = rng.integers(0, 256, 64 * 1024).astype(np.uint8)
+    n = raw.shape[0] - 1000
+    last = int(raw[n - 1])
+    pairs = {(int(a), int(b)) for a, b in rng.integers(0, 256, (300, 2))}
+    pairs |= {(last, 0), (last, 255)}
+    t_nb = table_of({p: 256 + i for i, p in enumerate(sorted(pairs))})
+    for nb in (-1, 0, 255):
+        for carry in (0, 1):
+            check_flat(on_dev(raw), n, nb, t_nb, carry, 0)
+    # the (255,255) rule present and absent, over runs of 0xFF
+    ff = rng.choice(np.array([255, 255, 255, 97], np.uint8), 64 * 1024)
+    for merges in ({(255, 255): 0xFFFF, (97, 255): 256}, {(97, 255): 256}):
+        check_flat(on_dev(ff), ff.shape[0], -1, table_of(merges), 0, 0)
+    # a stale tail of matching bytes past n, and n = 1, and n = 0
+    check_flat(small, 40_000, int(corpus[40_000]), t500, 0, 0)
+    check_flat(small, 40_000, -1, t_aa, 1, 0)
+    for nb in (-1, int(corpus[1])):
+        for carry in (0, 1):
+            check_flat(small, 1, nb, t500, carry, 0)
+    check_flat(small, 0, -1, t500, 1, 0x6100)
+
+    # four 16 MiB batches chained through carry and prev_slot, kernel chain
+    # against plain chain
+    carry_k = carry_p = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    prev_k = prev_p = torch.zeros((), dtype=torch.int32, device=dev)
+    for j in range(4):
+        piece = on_dev(corpus[j * 16 * MIB : (j + 1) * 16 * MIB])
+        nb = int(corpus[(j + 1) * 16 * MIB]) if j < 3 else -1
+        slots, carry_k = bpe_cuda.flat_encode_slots(piece, 16 * MIB, nb, t500, carry_k)
+        wire_k, prev_k = bpe_cuda.pack_slots(slots, 16 * MIB, prev_k)
+        s_p, carry_p = bpe_cuda.flat_slots_plain(piece, 16 * MIB, nb, t500, carry_p)
+        wire_p, prev_p = bpe_cuda.pack_slots_plain(s_p, 16 * MIB, prev_p)
+        torch.cuda.synchronize()
+        e = max(int_err(wire_k, wire_p), int_err(carry_k, carry_p), int_err(prev_k, prev_p))
+        if e:
+            fail(f"chained batch {j}: err {e}")
+        cases += 1
+
+    # times at 16 MiB: kernel and plain on the same tensors
+    c0 = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    p0 = torch.zeros((), dtype=torch.int32, device=dev)
+    slots, _ = bpe_cuda.flat_encode_slots(big, 16 * MIB, -1, t500, c0)
+    ms = {
+        "widen": (
+            cuda_ms(lambda: bpe_cuda.basic_encode(big)),
+            cuda_ms(lambda: bpe_cuda.widen_plain(big)),
+        ),
+        "flat_bpe": (
+            cuda_ms(lambda: bpe_cuda.flat_encode_slots(big, 16 * MIB, -1, t500, c0)),
+            cuda_ms(lambda: bpe_cuda.flat_slots_plain(big, 16 * MIB, -1, t500, c0)),
+        ),
+        "pack_slots": (
+            cuda_ms(lambda: bpe_cuda.pack_slots(slots, 16 * MIB, p0)),
+            cuda_ms(lambda: bpe_cuda.pack_slots_plain(slots, 16 * MIB, p0)),
+        ),
+    }
+    extra = {
+        "flat_bpe_50k_ms": cuda_ms(
+            lambda: bpe_cuda.flat_encode_slots(big, 16 * MIB, -1, t50k, c0)
+        ),
+        "d2d_copy_16mib_ms": cuda_ms(lambda: big.clone()),
+    }
+    emit({
+        "phase": "kernels", "cases": cases, "tolerance": 0,
+        "max_abs_err": err,
+        "ms_16mib": {k: {"kernel": v[0], "plain": v[1]} for k, v in ms.items()},
+        **extra,
+    })
+    return err, ms
+
+
+def phase_main_path(corpus, merges500, merges50k, workdir):
+    """Phase 4: the CLI in process on the full corpus, three legs, each
+    checked, then each traced once."""
+    from blt_tpu_torch import cli
+    from blt_tpu_torch.ops import bpe_cuda
+    from blt_tpu_torch.pipeline.feeder import stage_stats
+    from blt_tpu_torch.pipeline.runner import _device_batch_bytes, _plan_feed_size
+
+    size = corpus.shape[0]
+    inp = os.path.join(workdir, "corpus.bin")
+    t0 = time.perf_counter()
+    corpus.tofile(inp)
+    m500 = os.path.join(workdir, "merges_500.txt")
+    m50k = os.path.join(workdir, "merges_50k.txt")
+    write_merges(m500, merges500)
+    write_merges(m50k, merges50k)
+    t1 = time.perf_counter()
+    # A first small run builds the JAX package's native host library (g++,
+    # at first use, in a fresh checkout), which the engine's pack and drain
+    # stages load; that build is set-up, not part of the first leg.
+    host_lib = os.path.join(ROOT, "blt_tpu", "native", "libbltnative.so")
+    prebuilt = os.path.exists(host_lib)
+    small = os.path.join(workdir, "small.bin")
+    corpus[: 64 * 1024].tofile(small)
+    t2 = time.perf_counter()
+    if cli.main(["-i", small, "-o", small + ".out", "--engine", "torch"]) != 0:
+        fail("the first small run failed")
+    emit({"phase": "setup", "input_bytes": size, "write_s": t1 - t0,
+          "host_lib_in_checkout": prebuilt,
+          "host_lib_built": os.path.exists(host_lib),
+          "first_run_s": time.perf_counter() - t2})
+    chunk = 16 * MIB
+    batches = -(-size // _plan_feed_size(size, chunk, _device_batch_bytes()))
+    header = (0xFF01).to_bytes(2, "big")  # the text content-type token
+
+    legs = [("basic", None, None, "widen"),
+            ("bpe_500", m500, merges500, "flat_bpe"),
+            ("bpe_50k", m50k, merges50k, "flat_bpe")]
+
+    def out_of(name):
+        return os.path.join(workdir, f"out_{name}.bin")
+
+    def run_leg(name, merges):
+        argv = ["-i", inp, "-o", out_of(name), "--engine", "torch",
+                "--type", "text", "--chunksize", "16MB"]
+        rc = cli.main(argv + (["--merges", merges] if merges else []))
+        if rc != 0:
+            fail(f"leg {name}: cli.main returned {rc}")
+
+    totals = {k: 0 for k in bpe_cuda.launches}
+    bpe_cuda.reset_launches()  # counts from here on are the main path's
+    for name, merges, pairs, kernel in legs:
+        out = out_of(name)
+        before = dict(bpe_cuda.launches)
+        stage_stats(reset=True)
+        t0 = time.perf_counter()
+        run_leg(name, merges)
+        seconds = time.perf_counter() - t0
+        stages = stage_stats(reset=True)
+        got = {k: bpe_cuda.launches[k] - before[k] for k in before}
+        if got[kernel] != batches or (merges and got["pack_slots"] != batches):
+            fail(f"leg {name}: launches {got}, expected {batches} batches")
+        for k, v in got.items():
+            totals[k] += v
+        sha = sha256_file(out)
+        out_bytes = os.path.getsize(out)
+        os.unlink(out)
+        t1 = time.perf_counter()
+        ref = reference_sha(corpus, dense_of(numbered(pairs)) if pairs else None, header)
+        ref_seconds = time.perf_counter() - t1
+        if sha != ref:
+            fail(f"leg {name}: sha256 {sha} != reference {ref}")
+        emit({
+            "phase": "main_path", "leg": name, "input_bytes": size,
+            "output_bytes": out_bytes, "batches": batches, "launches": got,
+            "seconds": seconds, "MB_per_s": size / seconds / 1e6,
+            "sha256": sha, "reference_sha256": ref,
+            "reference_seconds": ref_seconds,
+            # per pipeline stage: seconds producing, blocked handing on, and
+            # the consumer's seconds waiting for it
+            "stages": {k: {m: round(v, 4) for m, v in st.items()}
+                       for k, st in stages.items()},
+        })
+    if not all(totals.values()):
+        fail(f"a kernel of the path was never launched: {totals}")
+
+    # where the time goes: each leg once more, traced (counts already read)
+    for name, merges, _, _ in legs:
+        trace = device_profile(functools.partial(run_leg, name, merges))
+        os.unlink(out_of(name))
+        emit({"phase": "trace", "leg": name, **trace})
+    return inp, m500, totals
+
+
+def phase_process(inp, m500, merges500):
+    """Phase 5: the CLI module as a process, 64 MiB through a stdin pipe,
+    and what a fresh process spends before its first batch."""
+    import numpy as np
+
+    data = np.fromfile(inp, dtype=np.uint8, count=64 * MIB)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "blt_tpu_torch.cli", "--engine", "torch",
+         "--merges", m500],
+        input=data.tobytes(), capture_output=True, env=env, cwd=ROOT,
+        timeout=600,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"cli process exited {proc.returncode}: {proc.stderr.decode()[-2000:]}")
+    ref = b"".join(flat_bpe_reference(data, dense_of(numbered(merges500))))
+    if proc.stdout != ref:
+        fail(f"cli process output ({len(proc.stdout)} bytes) != reference "
+             f"({len(ref)} bytes)")
+    # a fresh process: seconds to import the CLI, then to bring up the card
+    probe = (
+        "import json, time; t0 = time.perf_counter(); import blt_tpu_torch.cli; "
+        "t1 = time.perf_counter(); import torch; torch.zeros(1, device='cuda'); "
+        "torch.cuda.synchronize(); t2 = time.perf_counter(); "
+        "print(json.dumps({'import_cli_s': t1 - t0, 'cuda_init_s': t2 - t1}))"
+    )
+    t1 = time.perf_counter()
+    startup = subprocess.run(
+        [sys.executable, "-c", probe], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=300, check=True,
+    )
+    startup = {**json.loads(startup.stdout.strip().splitlines()[-1]),
+               "process_s": time.perf_counter() - t1}
+    emit({"phase": "process", "input_bytes": int(data.shape[0]),
+          "output_bytes": len(proc.stdout), "seconds": seconds, "equal": True,
+          "fresh_process": startup})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--size-mib", type=int, default=1024,
+                    help="corpus size of the main-path legs (default 1 GiB)")
+    args = ap.parse_args()
+
+    # 1. device
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, ROOT)
+    from blt_tpu_torch.ops import _cuda_build  # fails outside a checkout
+
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib = _cuda_build.build()
+    _cuda_build.load()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "compiled": _cuda_build.build_seconds is not None,
+          "library": os.path.relpath(lib, ROOT)})
+
+    rng = np.random.default_rng(args.seed)
+    corpus = make_corpus(rng, max(args.size_mib, 80) * MIB)
+    merges500 = frequent_pairs(corpus, 500)
+    merges50k = fifty_k_pairs(rng, merges500)
+
+    # 3. kernels against their plain versions
+    err, ms = phase_kernels(
+        corpus,
+        numbered(merges500),
+        numbered(merges50k),
+        rng,
+    )
+
+    # 4-5. the main path, in process and as a process
+    workdir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        inp, m500, launches = phase_main_path(corpus, merges500, merges50k, workdir)
+        phase_process(inp, m500, merges500)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # 6. no JAX anywhere in this process
+    if "jax" in sys.modules:
+        fail("jax was imported")
+    emit({"phase": "no_jax", "jax_in_sys_modules": False})
+
+    replaces = {
+        "widen": pallas_line("basic_encode_pallas"),
+        "flat_bpe": pallas_line("_flat_encode_pallas_call"),
+        "pack_slots": pallas_line("_pack_slots_core"),
+    }
+    sources = {
+        "widen": "blt_tpu_torch/csrc/widen.cu",
+        "flat_bpe": "blt_tpu_torch/csrc/flat_bpe.cu",
+        "pack_slots": "blt_tpu_torch/csrc/flat_bpe.cu",
+    }
+    emit({"kernels": [
+        {"name": k, "route": "cuda", "source": sources[k], "replaces": replaces[k],
+         "launches": launches[k], "max_abs_err": err[k],
+         "ms": ms[k][0], "plain_ms": ms[k][1]}
+        for k in ("widen", "flat_bpe", "pack_slots")
+    ]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
