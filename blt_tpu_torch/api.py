@@ -2,9 +2,10 @@
 ``blt_tpu/api.py``).
 
 Same constructor validation and methods as the JAX package's tokenizer;
-``engine`` is ``"auto"``, ``"torch"`` or ``"numpy"``. ``tokenize_file``
+``engine`` is ``"torch"`` (the default: the CUDA kernels, which need a CUDA
+device), ``"numpy"`` (the host engine) or ``"auto"``. ``tokenize_file``
 runs the port's runner; ``tokenize_bytes``, ``detokenize_bytes`` and
-``detokenize_file`` are host code shared with the JAX package.
+``detokenize_file`` are host code (decode is host-only by design).
 """
 
 from __future__ import annotations
@@ -14,8 +15,8 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 
-from blt_tpu.config import ContentType, CoreConfig, Engine
-from blt_tpu.merges import MergeTable
+from blt_tpu_torch.config import ContentType, CoreConfig, Engine
+from blt_tpu_torch.merges import MergeTable
 from blt_tpu_torch.pipeline.engines import ENGINES
 from blt_tpu_torch.pipeline.runner import run_tokenizer
 
@@ -30,7 +31,7 @@ class ByteTokenizer:
         threads: Optional[int] = None,
         chunk_size: Optional[str] = None,
         memory_cap: Optional[int] = None,
-        engine: str = "auto",
+        engine: str = "torch",
     ):
         if memory_cap is not None and not (0 <= memory_cap <= 100):
             raise ValueError("memory_cap must be between 0 and 100")
@@ -62,7 +63,7 @@ class ByteTokenizer:
             chunksize=self.chunk_size,
             memcap=self.memory_cap,
             passthrough=False,  # the Python API never uses passthrough
-            engine=Engine.AUTO,  # the port's choice goes to the runner
+            engine=Engine(self.engine),
         )
         if self.merges is not None:
             config.with_merges(self.merges)
@@ -70,17 +71,17 @@ class ByteTokenizer:
 
     def tokenize_file(self, input_path: str, output_path: str) -> None:
         """Tokenize input_path into output_path (u16-BE token stream)."""
-        run_tokenizer(self._config(input_path, output_path), engine=self.engine)
+        run_tokenizer(self._config(input_path, output_path))
 
     def detokenize_file(self, input_path: str, output_path: str) -> None:
         """Invert a token stream this tokenizer produced (host decode)."""
         config = self._config(input_path, output_path)
         config.decode_mode = True
-        run_tokenizer(config, engine=self.engine)
+        run_tokenizer(config)
 
     def detokenize_bytes(self, data: bytes) -> bytes:
         """In-memory inverse of the wire form: u16-BE -> bytes."""
-        from blt_tpu.ops.decode import (
+        from blt_tpu_torch.ops.decode import (
             build_expansion_table,
             decode_wire,
             odd_trailing_error,
@@ -94,7 +95,7 @@ class ByteTokenizer:
 
     def tokenize_bytes(self, data: bytes) -> np.ndarray:
         """In-memory tokenization: bytes -> int32 token ids (host code)."""
-        from blt_tpu.ops import bpe_numpy
+        from blt_tpu_torch.ops import bpe_numpy
 
         arr = np.frombuffer(data, dtype=np.uint8)
         if self.merges is None:

@@ -1,14 +1,16 @@
 """Command-line interface of the torch port (port of ``blt_tpu/cli.py``).
 
-Same flags as ``blt``; ``--engine`` chooses auto, torch or numpy:
+Same flags as ``blt``; ``--engine`` chooses torch (the default: the CUDA
+kernels), numpy (the host engine) or auto:
 
     python -m blt_tpu_torch.cli [-i FILE] [-o FILE] [--merges FILE]
         [--passthrough] [--decode] [--type text|audio|bin|video]
         [--threads N] [--memcap PCT] [--chunksize SIZE]
-        [--engine auto|torch|numpy]
+        [--engine torch|numpy|auto]
 
 Errors print ``Error running tokenizer: ...`` on stderr and exit 1; that
-includes ``--engine torch`` on a machine without a CUDA device.
+includes the default ``--engine torch`` on a machine without a CUDA device
+(decode is host-only by design and needs none).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import sys
 from pathlib import Path
 from typing import Optional, Sequence
 
-from blt_tpu._version import __version__
+from blt_tpu_torch._version import __version__
 from blt_tpu_torch.pipeline.engines import ENGINES
 
 
@@ -69,16 +71,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Max RAM usage fraction (e.g., 70 for 70%%)")
     p.add_argument("--chunksize", metavar="SIZE", default=None,
                    help="Min/Max chunk size (e.g. 4MB, 256KB).")
-    p.add_argument("--engine", default="auto", choices=list(ENGINES),
-                   help="Compute backend (default: auto; torch = the CUDA "
-                        "kernels, which needs a CUDA device)")
+    p.add_argument("--engine", default="torch", choices=list(ENGINES),
+                   help="Compute backend (default: torch, the CUDA kernels, "
+                        "which need a CUDA device; numpy = the host engine)")
     p.add_argument("--version", action="version", version=f"blt {__version__}")
     return p
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    from blt_tpu.config import ContentType, CoreConfig, Engine
-    from blt_tpu.utils.logging import configure
+    from blt_tpu_torch.config import ContentType, CoreConfig, Engine
+    from blt_tpu_torch.utils.logging import configure
     from blt_tpu_torch.pipeline.runner import run_tokenizer
 
     configure()
@@ -96,9 +98,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             memcap=args.memcap,
             passthrough=args.passthrough,
             decode=args.decode,
-            engine=Engine.AUTO,  # the port's own choice goes to the runner
+            engine=Engine(args.engine),
         )
-        run_tokenizer(config, engine=args.engine)
+        run_tokenizer(config)
     except (OSError, ValueError, RuntimeError) as e:
         print(f"Error running tokenizer: {e}", file=sys.stderr)
         return 1

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``blt_tpu_torch/csrc/*.cu`` file is compiled for Hopper (``sm_90a``)
-into one shared library with a plain C interface, in
+Every ``blt_tpu_torch/csrc/*.cu`` file is compiled for Hopper (``sm_90a``),
+one nvcc process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, in
 ``build/blt_tpu_torch/`` at the repository root. The library's name carries
 a hash of the sources and flags, so a source change rebuilds it and an
 unchanged tree reuses it. The build runs at first use (the first kernel
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "blt_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -65,6 +66,21 @@ def library_path() -> Path:
     return BUILD_DIR / f"libblt_cuda_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with the first failure's output."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    failed = None
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err[-4000:]}"
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build() -> Path:
     """Compile the kernels if the library for these sources is missing."""
     global build_seconds
@@ -72,22 +88,22 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name and rename: a concurrent build never loads
+    # compile to private names and rename: a concurrent build never loads
     # a half-written library
-    tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}.{uuid.uuid4().hex[:8]}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *_sources()]
+    tag = f"tmp.{os.getpid()}.{uuid.uuid4().hex[:8]}"
+    tmp = out.with_name(f"{out.name}.{tag}")
+    objs = [BUILD_DIR / f"{Path(src).stem}.{tag}.o" for src in _sources()]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr[-4000:]}"
-            )
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), src]
+              for src, obj in zip(_sources(), objs)])
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, out)
     finally:
-        if tmp.exists():
-            tmp.unlink()
+        for f in (tmp, *objs):
+            if f.exists():
+                f.unlink()
     build_seconds = time.perf_counter() - t0
     return out
 
@@ -106,6 +122,11 @@ def load() -> ctypes.CDLL:
         lib.blt_flat_bpe.restype = i
         lib.blt_pack_slots.argtypes = [p, i, i, p, p, p, p]
         lib.blt_pack_slots.restype = i
+        u = ctypes.c_uint
+        lib.blt_token_pass.argtypes = [p, i, i, p, p, p, p, i, u, u, i, p, p, p]
+        lib.blt_token_pass.restype = i
+        lib.blt_token_pass_gap.argtypes = [p, i, p, p, p, p, i, u, u, i, p, p, p, p]
+        lib.blt_token_pass_gap.restype = i
         _lib = lib
         return lib
 

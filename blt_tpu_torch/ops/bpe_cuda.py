@@ -26,7 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from blt_tpu.merges import MergeTable
+from blt_tpu_torch.merges import MergeTable
 from blt_tpu_torch.ops import _cuda_build
 from blt_tpu_torch.ops.tables import wire_table
 

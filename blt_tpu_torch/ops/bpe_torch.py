@@ -8,17 +8,27 @@ batch, and ``next_byte`` is a one-byte halo from the following batch.
 compaction becomes ``scatter_`` into a buffer with one trash slot, so no
 step waits on the host.
 
-This module serves two purposes: it is the torch engine's route for flat
-tables that the kernel encoder rejects (rule values below 256), and it is a
-second CPU reference, independent of the kernels' plain versions.
-General-table multipass is not ported yet (ROADMAP.md).
+``multipass_encode`` is the whole-sequence loop for general tables
+(hierarchical rules, values that collide with bytes), exact reference
+per-chunk semantics: ``jnp.searchsorted`` over the sorted pair keys becomes
+``torch.searchsorted``, and ``lax.while_loop`` a Python loop that reads
+"any merge, and at least two tokens left" on the host once per pass.
+
+This module serves two purposes: it is the torch engine's twin route for
+tables that the kernel encoders reject (flat tables with rule values below
+256; general tables that cuckoo32 cannot place, or ``BLT_MULTIPASS=xla``),
+and it is a second CPU reference, independent of the kernels' plain
+versions.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
-from blt_tpu.merges import NO_RULE
+from blt_tpu_torch.merges import NO_RULE, MergeTable
 
 _NEG_INF32 = -(2**31) + 1
 
@@ -36,12 +46,13 @@ def tokens_to_be_bytes_device(tokens: torch.Tensor) -> torch.Tensor:
     return swapped.to(torch.uint16)
 
 
-def _compact(vals: torch.Tensor, keep: torch.Tensor):
-    """Stream compaction: kept vals to the front; returns (out, count)."""
+def _compact(vals: torch.Tensor, keep: torch.Tensor, fill: int = 0):
+    """Stable stream compaction: kept vals to the front in order, ``fill``
+    after them; returns (out, count)."""
     n = vals.shape[0]
     pos = torch.cumsum(keep.to(torch.int64), 0) - 1
     scatter_idx = torch.where(keep, pos, torch.full_like(pos, n))
-    out = torch.zeros(n + 1, dtype=vals.dtype, device=vals.device)
+    out = torch.full((n + 1,), fill, dtype=vals.dtype, device=vals.device)
     out.scatter_(0, scatter_idx, vals)
     return out[:n], keep.sum(dtype=torch.int32)
 
@@ -92,3 +103,69 @@ def flat_encode(
     if emit_bytes:
         return tokens, count, carry_out, tokens_to_be_bytes_device(tokens)
     return tokens, count, carry_out
+
+
+def _sparse_lookup(
+    tokens: torch.Tensor,
+    next_tok: torch.Tensor,
+    keys: torch.Tensor,
+    vals: torch.Tensor,
+    valid_pair: torch.Tensor,
+):
+    """Sorted-key binary search for general (u16,u16) rule keys; the keys
+    are uint32 values ``a << 16 | b`` held in int64."""
+    k = ((tokens.to(torch.int64) << 16) | next_tok.to(torch.int64)) & 0xFFFFFFFF
+    pos = torch.searchsorted(keys, k)
+    pos_c = torch.clamp(pos, max=keys.shape[0] - 1)
+    v = vals[pos_c]
+    hit = (keys[pos_c] == k) & valid_pair & (v != NO_RULE)
+    return torch.where(hit, v, NO_RULE), hit
+
+
+def multipass_encode(
+    data: torch.Tensor,  # uint8[N] padded
+    length: int,  # valid bytes
+    keys: torch.Tensor,  # int64[R] sorted pair keys (a<<16 | b)
+    vals: torch.Tensor,  # int32[R] merge values (NO_RULE entries are ignored)
+):
+    """Whole-sequence passes until quiescence (tokenizer.rs:63-86 semantics).
+
+    Exact for arbitrary tables including hierarchical rules. State is a
+    fixed-size token buffer plus a length; each pass is the same lookup ->
+    parity-scan -> compaction pipeline as ``flat_encode``. Returns (tokens
+    int32[N], the token count as an int32 tensor).
+    """
+    n = data.shape[0]
+    dev = data.device
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    tokens = data.to(torch.int32)
+    cur_len = torch.tensor(length, dtype=torch.int32, device=dev)
+    go = length >= 2  # lax.while_loop's cond before the first pass
+    while go:
+        nxt = torch.roll(tokens, -1)
+        valid_pair = idx < (cur_len - 1)
+        pv, match = _sparse_lookup(tokens, nxt, keys, vals, valid_pair)
+        lnm = torch.cummax(torch.where(match, _NEG_INF32, idx), 0).values
+        starts = match & (((idx - torch.clamp(lnm, min=-1)) & 1) == 1)
+        consumed = torch.roll(starts, 1)
+        consumed[0] = False
+        out_vals = torch.where(starts, pv, tokens)
+        keep = (~consumed) & (idx < cur_len)
+        tokens, cur_len = _compact(out_vals, keep)
+        go = bool(starts.any() & (cur_len >= 2))  # one host read per pass
+    return tokens, cur_len
+
+
+def sparse_table_device(table: MergeTable, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The table's sorted pair keys (int64) and values (int32) on ``device``."""
+    keys = table.sparse_keys
+    vals = table.sparse_vals
+    if keys is None or len(keys) == 0:
+        # Keep shapes non-empty; the NO_RULE value guarantees the
+        # placeholder entry can never register as a hit.
+        keys = np.array([0xFFFFFFFF], dtype=np.uint32)
+        vals = np.array([NO_RULE], dtype=np.int32)
+    return (
+        torch.from_numpy(keys.astype(np.int64)).to(device),
+        torch.from_numpy(np.ascontiguousarray(vals, dtype=np.int32)).to(device),
+    )

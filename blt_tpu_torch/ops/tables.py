@@ -1,18 +1,26 @@
-"""Merge tables and stream state carried over from the JAX package.
+"""Merge tables on the device, and state carried over from the JAX package.
 
-The Pallas flat kernel ships a merge table in one of four lookup layouts
-(chd, perfect, cuckoo, direct; ``blt_tpu/ops/bpe_pallas.py``), because a
-TPU vector gather is 128 lanes wide. All four compute one function: the
-pre-byteswapped rule value of a byte pair, or "no rule". On the card one
-dense 64K-entry u16 table (128 KB) computes it for every table size.
+Flat tables: the Pallas flat kernel ships a merge table in one of four
+lookup layouts (chd, perfect, cuckoo, direct; ``blt_tpu/ops/bpe_pallas.py``),
+because a TPU vector gather is 128 lanes wide. All four compute one
+function: the pre-byteswapped rule value of a byte pair, or "no rule". On
+the card one dense 64K-entry u16 table (128 KB) computes it for every table
+size (``wire_table``).
+
+General tables: keys are any (u16, u16) pair, too many for a dense table,
+so the token passes keep the JAX package's two-plane cuckoo32 layout
+(``MergeTable.build_cuckoo32``): four int32 planes of ``slots`` entries and
+two hash multipliers (``CuckooPlanes``).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from blt_tpu.merges import NO_RULE
+from blt_tpu_torch.merges import NO_RULE, MergeTable
 
 
 def wire_table(dense: np.ndarray, device=None) -> torch.Tensor:
@@ -45,3 +53,47 @@ def state_from_jax(carry, prev_slot, device=None):
     c = torch.tensor(np.asarray(carry, dtype=np.int32).reshape(1, 1), device=device)
     p = torch.tensor(int(np.asarray(prev_slot)), dtype=torch.int32, device=device)
     return c, p
+
+
+@dataclass(frozen=True)
+class CuckooPlanes:
+    """A general table's cuckoo32 planes on a device.
+
+    ``k1, v1, k2, v2`` are int32[slots] (slots a power of two; an empty
+    slot holds value -1); a pair's key ``p = a * 65536 + b`` wrapped to
+    int32 sits at ``((p * a_j) >> shift) & (slots - 1)`` in plane j.
+    """
+
+    k1: torch.Tensor
+    v1: torch.Tensor
+    k2: torch.Tensor
+    v2: torch.Tensor
+    a1: int
+    a2: int
+    shift: int
+
+    @property
+    def slots(self) -> int:
+        return self.k1.numel()
+
+
+def planes_from_jax(k1, v1, k2, v2, a1, a2, device=None) -> CuckooPlanes:
+    """The JAX ``PallasTokenEncoder``'s planes and hash constants (numpy
+    arrays of shape (slots/128, 128) or (slots,), and ints) -> the port's
+    ``CuckooPlanes`` on ``device``. ``shift = 32 - log2(slots)``, as
+    ``bpe_pallas.py`` computes it."""
+    planes = [np.array(x, dtype=np.int32).reshape(-1) for x in (k1, v1, k2, v2)]
+    slots = planes[0].shape[0]
+    if slots < 1 or slots & (slots - 1) or any(p.shape[0] != slots for p in planes):
+        raise ValueError(f"cuckoo32 planes must share a power-of-two size, got "
+                         f"{[p.shape[0] for p in planes]}")
+    t = [torch.from_numpy(p).to(device) for p in planes]
+    return CuckooPlanes(*t, a1=int(a1), a2=int(a2),
+                        shift=32 - (slots.bit_length() - 1))
+
+
+def cuckoo_planes(table: MergeTable, device=None):
+    """``table.build_cuckoo32()`` on ``device``, or None when the table
+    cannot be placed (more rules than slots, or every seed failed)."""
+    built = table.build_cuckoo32()
+    return None if built is None else planes_from_jax(*built, device=device)

@@ -1,10 +1,13 @@
-"""The torch engine (port of ``blt_tpu/pipeline/engines.py::JaxEngine``)
+"""The engines of the torch port (port of ``blt_tpu/pipeline/engines.py``)
 and the engine choice.
 
 ``TorchEngine(device)`` streams batches through the kernel encoders of
-``blt_tpu_torch/ops/bpe_cuda.py`` on an explicit ``torch.device``. The
-encoders dispatch by the tensor alone (kernel on CUDA, plain version on the
-CPU), so the CPU tests drive the same stream code that runs on the card.
+``blt_tpu_torch/ops/bpe_cuda.py`` (basic, flat BPE) and
+``blt_tpu_torch/ops/multipass_cuda.py`` (general tables) on an explicit
+``torch.device``. The encoders dispatch by the tensor alone (kernel on
+CUDA, plain version on the CPU), so the CPU tests drive the same stream
+code that runs on the card. ``NumpyEngine`` is a copy of the JAX package's
+host engine: the way a caller asks for the CPU.
 
 Pipelining is the JAX engine's: feed (pack into a pinned buffer, upload,
 launch), device-to-host copy, and host drain each run on their own thread
@@ -23,35 +26,121 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
-from blt_tpu.merges import MergeTable
-from blt_tpu.pipeline.engines import AUTO_DEVICE_THRESHOLD, NumpyEngine
-from blt_tpu.utils.chunking import align_up
-from blt_tpu.utils.logging import get_logger
-from blt_tpu_torch.ops import bpe_torch
+from blt_tpu_torch import native
+from blt_tpu_torch.merges import MergeTable
+from blt_tpu_torch.ops import bpe_numpy, bpe_torch
 from blt_tpu_torch.ops.bpe_cuda import (
     CudaBasicEncoder,
     CudaFlatEncoder,
     unpack_slots_host,
 )
-from blt_tpu_torch.pipeline.feeder import pinned_buffer, prefetch_iter
-from blt_tpu_torch.utils.device import cuda_device, require_cuda
-
-log = get_logger("torch_engine")
-
-_MULTIPASS_TODO = (
-    "general (non-flat) merge tables need the multipass engine, which the "
-    "torch port does not have yet (ROADMAP.md: K3 with the multipass engine "
-    "path); use --engine numpy"
+from blt_tpu_torch.ops.multipass_cuda import (
+    CudaTokenEncoder,
+    expand_gap_wire_host,
+    mp_compact_mode,
 )
+from blt_tpu_torch.pipeline.feeder import pinned_buffer, prefetch_iter
+from blt_tpu_torch.utils.chunking import align_up
+from blt_tpu_torch.utils.device import cuda_device, require_cuda
+from blt_tpu_torch.utils.logging import get_logger
+
+log = get_logger("engine")
+
+# AUTO's size rule (the JAX package's): inputs below this run on the host
+AUTO_DEVICE_THRESHOLD = 32 * 1024 * 1024
 
 
 def _batches(chunks: Iterable[np.ndarray], capacity: int) -> Iterator[np.ndarray]:
-    """The chunks cut into non-empty batches of at most ``capacity`` bytes.
-    A pipe may read a chunk longer than the hint; no output depends on
-    where the stream is cut, because the BPE state crosses every cut."""
+    """The chunks cut into non-empty batches of at most ``capacity`` bytes,
+    for the flat and basic streams only: their output does not depend on
+    where the stream is cut, because the BPE state crosses every cut. A
+    general table's output does, so its chunks are never cut."""
     for chunk in chunks:
         for i in range(0, chunk.shape[0], capacity):
             yield chunk[i : i + capacity]
+
+
+def _whole_chunks(chunks: Iterable[np.ndarray], capacity: int) -> Iterator[np.ndarray]:
+    """The non-empty chunks of a general-table stream; one longer than the
+    encoder's capacity raises (the output depends on where chunks end)."""
+    for chunk in chunks:
+        if chunk.shape[0] > capacity:
+            raise ValueError(
+                f"chunk of {chunk.shape[0]} bytes exceeds the multipass capacity "
+                f"{capacity}: a general table's chunks are never cut"
+            )
+        if chunk.shape[0]:
+            yield chunk
+
+
+class NumpyEngine:
+    """Vectorized host engine (copy of the JAX package's ``NumpyEngine``).
+
+    Uses the native C++ library (multithreaded widen / flat-BPE scan) when
+    built, falling back to pure NumPy; ``threads`` carries the CLI
+    --threads / num_cpus policy (utils.rs:79-97).
+    """
+
+    name = "numpy"
+
+    def __init__(self, threads: int = 0):
+        self.threads = threads if threads > 0 else (os.cpu_count() or 1)
+        self._native = native if native.available() else None
+
+    def basic_stream(
+        self, chunks: Iterable[np.ndarray], chunk_hint: int
+    ) -> Iterator[bytes]:
+        for chunk in chunks:
+            if self._native is not None:
+                yield self._native.widen_be(chunk, self.threads)
+            else:
+                yield chunk.astype(">u2")  # fresh array; writer takes the buffer
+
+    def passthrough_stream(
+        self, chunks: Iterable[np.ndarray], chunk_hint: int
+    ) -> Iterator[bytes]:
+        for chunk in chunks:
+            yield memoryview(np.ascontiguousarray(chunk)).cast("B")
+
+    def bpe_stream(
+        self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
+    ) -> Iterator[bytes]:
+        if table.flat:
+            yield from self._bpe_flat_stream(chunks, table)
+        else:
+            # General tables: independent per-chunk multipass, which is the
+            # reference's own chunked behavior (BPE output then depends on
+            # chunk size exactly as the reference's does, SURVEY.md 2.1.6).
+            for chunk in chunks:
+                toks = bpe_numpy.bpe_encode_multipass(chunk, table)
+                yield toks.astype(">u2")
+
+    def _bpe_flat_stream(
+        self, chunks: Iterable[np.ndarray], table: MergeTable
+    ) -> Iterator[bytes]:
+        carry = False
+        prev: Optional[np.ndarray] = None
+
+        def encode(data: np.ndarray, carry_in: bool, next_byte: int):
+            if self._native is not None:
+                return self._native.flat_bpe(
+                    data, table.dense, carry_in, next_byte, self.threads
+                )
+            toks, c = bpe_numpy.bpe_encode_flat_carry(
+                data, table, carry_in, next_byte
+            )
+            return toks.astype(">u2"), c
+
+        for chunk in chunks:
+            if chunk.shape[0] == 0:
+                continue
+            if prev is not None:
+                wire, carry = encode(prev, carry, int(chunk[0]))
+                yield wire
+            prev = chunk
+        if prev is not None:
+            wire, _ = encode(prev, carry, -1)
+            yield wire
 
 
 class TorchEngine:
@@ -98,8 +187,8 @@ class TorchEngine:
         self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
     ) -> Iterator:
         if not table.flat:
-            raise NotImplementedError(_MULTIPASS_TODO)
-        if CudaFlatEncoder.supports(table):
+            yield from self._bpe_multipass_stream(chunks, table, chunk_hint)
+        elif CudaFlatEncoder.supports(table):
             encoder = CudaFlatEncoder(
                 table, self.device, capacity_bytes=max(chunk_hint, 1)
             )
@@ -112,8 +201,6 @@ class TorchEngine:
     ) -> Iterator:
         """Flat BPE through K2 and the packed wire (``_bpe_pallas_stream``
         in its default packed mode)."""
-        from blt_tpu import native
-
         use_native = native.available()
         threads = self.threads
         cap = encoder.capacity
@@ -200,6 +287,100 @@ class TorchEngine:
         while pending:
             yield drain()
 
+    def _bpe_multipass_stream(
+        self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
+    ) -> Iterator:
+        """General (non-flat) tables, per-chunk semantics (port of the JAX
+        engine's ``_bpe_multipass_stream``). The kernel route when cuckoo32
+        places the table; the plain-torch twin (``bpe_torch.multipass_encode``)
+        for tables it cannot place and under ``BLT_MULTIPASS=xla`` (the JAX
+        package's name for its plain route). The table chooses, never a
+        failure."""
+        if os.environ.get("BLT_MULTIPASS", "pallas") != "xla" and (
+            CudaTokenEncoder.supports(table)
+        ):
+            yield from self._bpe_multipass_kernel_stream(chunks, table, chunk_hint)
+        else:
+            yield from self._bpe_multipass_twin_stream(chunks, table, chunk_hint)
+
+    def _bpe_multipass_kernel_stream(
+        self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
+    ) -> Iterator[np.ndarray]:
+        """The device-resident loop per chunk (``_bpe_multipass_pallas_stream``):
+        upload, K3 rounds with a compaction every third round, and the gap
+        wire (the u16-BE image plus an alive-flag plane) down; the host drops
+        the tombstones. ``BLT_MP_COMPACT=sort`` runs the K4 loop and ships the
+        compacted prefix. Feed, D2H and drain each run on a ``prefetch_iter``
+        stage, ``depth`` chunks in flight. The encoder is sized from the
+        chunk size, and a chunk is never cut."""
+        enc = CudaTokenEncoder(
+            table, self.device, capacity_tokens=align_up(max(chunk_hint, 1))
+        )
+        staging = pinned_buffer(enc.padded_bytes, self.device)
+        sort_mode = mp_compact_mode() == "sort"
+        threads = self.threads
+
+        def feed():
+            for chunk in _whole_chunks(chunks, enc.capacity):
+                dev, n = enc.upload(chunk, staging, threads)
+                dev = dev.reshape(-1)[:n]
+                if sort_mode:
+                    toks, m = enc.encode_resident_dispatch(dev)
+                    yield bpe_torch.tokens_to_be_bytes_device(toks), m, None
+                else:
+                    yield enc.encode_resident_wire_dispatch(dev)
+
+        def d2h(items):
+            for out, m, capacity in items:
+                yield out.cpu().numpy(), int(m), capacity
+
+        def drain(items):
+            for host, m, capacity in items:
+                if capacity is None:
+                    # uint16 LE image == u16-BE stream; copy the valid part
+                    yield host[:m].copy()
+                    continue
+                toks = expand_gap_wire_host(host, capacity)
+                if toks.shape[0] != m:
+                    raise RuntimeError(f"{toks.shape[0]} alive tokens, count says {m}")
+                yield toks
+
+        yield from prefetch_iter(
+            drain(
+                prefetch_iter(
+                    d2h(prefetch_iter(feed(), self.depth, "feed")),
+                    self.depth,
+                    "d2h",
+                )
+            ),
+            self.depth,
+            "drain",
+        )
+
+    def _bpe_multipass_twin_stream(
+        self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
+    ) -> Iterator[np.ndarray]:
+        """Plain torch ops on the engine's device (the JAX engine's
+        ``_bpe_multipass_xla_stream``)."""
+        keys, vals = bpe_torch.sparse_table_device(table, self.device)
+        n_static = align_up(max(chunk_hint, 1))
+        pending: collections.deque = collections.deque()
+
+        def drain() -> np.ndarray:
+            count, be = pending.popleft()
+            return be[: int(count)].cpu().numpy()
+
+        for chunk in _whole_chunks(chunks, n_static):
+            buf = np.zeros(n_static, np.uint8)
+            buf[: chunk.shape[0]] = chunk
+            dev = torch.from_numpy(buf).to(self.device)
+            toks, count = bpe_torch.multipass_encode(dev, chunk.shape[0], keys, vals)
+            pending.append((count, bpe_torch.tokens_to_be_bytes_device(toks)))
+            if len(pending) > self.depth:
+                yield drain()
+        while pending:
+            yield drain()
+
 
 def _probe_device_engine(threads: int = 0) -> Optional[TorchEngine]:
     """The torch engine on the first CUDA device, or None without one."""
@@ -280,7 +461,10 @@ def select_engine(
         return TorchEngine(require_cuda(), threads=threads)
     if input_size is None:
         return AutoStreamEngine(threads, mem_budget=mem_budget)
-    if input_size < AUTO_DEVICE_THRESHOLD:
-        return NumpyEngine(threads)
-    engine = _probe_device_engine(threads)
-    return engine if engine is not None else NumpyEngine(threads)
+    engine = None
+    if input_size >= AUTO_DEVICE_THRESHOLD:
+        engine = _probe_device_engine(threads)
+    if engine is None:
+        engine = NumpyEngine(threads)
+    log.info("AUTO picked the %s engine for %d bytes", engine.name, input_size)
+    return engine

@@ -1,9 +1,10 @@
-"""Host-to-device upload for the torch engine (port of
-``blt_tpu/pipeline/feeder.py::upload_owned``).
+"""Pipeline stages and host-to-device upload for the torch engine (port of
+``blt_tpu/pipeline/feeder.py``).
 
-The pipeline stages themselves (``prefetch_iter`` and its ``stage_stats``)
-and the multithreaded pack (``pack_into``) are the JAX package's own,
-imported. What changes is the upload: each encoder packs into one pinned
+``prefetch_iter`` (a generator on a worker thread behind a bounded queue),
+its per-stage accounting ``stage_stats`` and the multithreaded ``pack_into``
+are copies of the JAX package's. What changes is the upload
+(``upload_owned`` there): each encoder packs into one pinned
 host staging buffer, the copy is asynchronous on a side stream, and
 ``upload`` returns only after a CUDA event recorded after the copy has
 completed. So the staging buffer can be refilled at once: without that
@@ -13,12 +14,140 @@ flight.
 
 from __future__ import annotations
 
+import os
+import queue
+import threading
+import time
+from typing import Iterable, Iterator, TypeVar
+
 import numpy as np
 import torch
 
-from blt_tpu.pipeline.feeder import pack_into, prefetch_iter, stage_stats
+T = TypeVar("T")
 
-__all__ = ["pack_into", "pinned_buffer", "prefetch_iter", "stage_stats", "upload"]
+_SENTINEL = object()
+
+# Per-stage occupancy accounting (chip_smoke.py prints it per leg to
+# attribute stalls): for each named stage, cumulative seconds the worker spent
+# producing items (src_time), blocked handing off (put_wait), and the
+# consumer spent waiting on it (get_wait). Cheap (a few perf_counter
+# calls per *batch*), so always on.
+_STATS_LOCK = threading.Lock()
+_STAGE_STATS: dict = {}
+
+
+def _stat(name: str):
+    with _STATS_LOCK:
+        return _STAGE_STATS.setdefault(
+            name,
+            {"items": 0, "src_time": 0.0, "put_wait": 0.0, "get_wait": 0.0},
+        )
+
+
+def stage_stats(reset: bool = False) -> dict:
+    """Snapshot (and optionally reset) cumulative per-stage timings."""
+    with _STATS_LOCK:
+        snap = {k: dict(v) for k, v in _STAGE_STATS.items()}
+        if reset:
+            _STAGE_STATS.clear()
+    return snap
+
+
+class _Failure:
+    __slots__ = ("exc",)
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+def prefetch_iter(it: Iterable[T], depth: int = 2, name: str = "feeder") -> Iterator[T]:
+    """Run ``it`` on a worker thread, yielding up to ``depth`` items ahead.
+
+    Exceptions raised by the source re-raise at the consumer exactly once,
+    at the position they occurred (never silently truncating the stream).
+    If the consumer abandons the iterator early (generator close), the
+    worker is unblocked and exits.
+    """
+    q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+    abandoned = threading.Event()
+
+    def worker() -> None:
+        try:
+            src = iter(it)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(src)
+                except StopIteration:
+                    break
+                t1 = time.perf_counter()
+                while not abandoned.is_set():
+                    try:
+                        q.put(item, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                t2 = time.perf_counter()
+                # re-resolve the dict each time: stage_stats(reset=True)
+                # swaps the registry under live pipelines
+                stats = _stat(name)
+                with _STATS_LOCK:
+                    stats["items"] += 1
+                    stats["src_time"] += t1 - t0
+                    stats["put_wait"] += t2 - t1
+                if abandoned.is_set():
+                    return
+        except BaseException as e:  # propagate to consumer
+            item = _Failure(e)
+            while not abandoned.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    continue
+            return
+        while not abandoned.is_set():
+            try:
+                q.put(_SENTINEL, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    t = threading.Thread(target=worker, name=f"blt-{name}", daemon=True)
+    t.start()
+    try:
+        while True:
+            t0 = time.perf_counter()
+            item = q.get()
+            stats = _stat(name)
+            with _STATS_LOCK:
+                stats["get_wait"] += time.perf_counter() - t0
+            if item is _SENTINEL:
+                return
+            if isinstance(item, _Failure):
+                raise item.exc
+            yield item
+    finally:
+        abandoned.set()
+
+
+def pack_into(dst, src, threads: int = 0) -> None:
+    """Copy ``src`` bytes into the head of ``dst`` (reused padded buffer).
+
+    Uses the native multithreaded copy when built (the host-bandwidth
+    analog of the reference's mmap zero-copy feed, io_handler.rs:54-56);
+    tail bytes beyond len(src) are left stale — every kernel masks by
+    explicit length, so no memset is needed.
+    """
+    from blt_tpu_torch import native
+
+    n = src.shape[0]
+    if n == 0:
+        return
+    if native.available() and n >= (1 << 22):
+        native.copy_into(src, dst, threads if threads > 0 else (os.cpu_count() or 1))
+    else:
+        dst[:n] = src
 
 
 def pinned_buffer(nbytes: int, device: torch.device) -> torch.Tensor:

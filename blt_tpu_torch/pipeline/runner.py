@@ -1,43 +1,59 @@
 """The tokenizer run loop for the torch port (port of
 ``blt_tpu/pipeline/runner.py::run_tokenizer``).
 
-I/O setup, chunk planning, decode and the ordered writer are the JAX
-package's own helpers, imported. What differs: the engine is the port's
-(``engines.select_engine`` or an engine object the caller passes), and
-there is no multi-host branch, warm-up or profiling yet (ROADMAP.md).
+I/O setup, chunk planning, decode and the ordered writer are copies of the
+JAX package's helpers. What differs: the engine is the port's
+(``config.engine``, an engine name, or an engine object the caller passes),
+and there is no multi-host branch, warm-up or profiling yet (ROADMAP.md).
+
+Chunk-feed sizing (as the JAX runner):
+- passthrough / basic / flat-BPE outputs are chunk-size invariant, so the
+  device engine is fed large batches (``_device_batch_bytes``) whatever the
+  CLI chunk size, which then only caps host memory;
+- general (non-flat) BPE keeps the reference's per-chunk semantics, so its
+  chunks are exactly the effective chunk size.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
+from typing import Iterator, Optional
 
-from blt_tpu.config import CoreConfig, Mode
-from blt_tpu.io.sources import kernel_copy
-from blt_tpu.pipeline.runner import (
-    _decode_stream,
-    _device_batch_bytes,
-    _drain_to_writer,
-    _plan_feed_size,
-    get_effective_chunk_size,
-    setup_io,
-)
-from blt_tpu.utils.chunking import mem_budget_bytes
-from blt_tpu.utils.logging import get_logger
+import numpy as np
+
+from blt_tpu_torch.config import CoreConfig, Mode
+from blt_tpu_torch.io.sources import OutputWriter, kernel_copy, setup_io
 from blt_tpu_torch.pipeline.engines import (
     AutoStreamEngine,
     TorchEngine,
     select_engine,
 )
+from blt_tpu_torch.utils.chunking import get_effective_chunk_size, mem_budget_bytes
+from blt_tpu_torch.utils.logging import get_logger, span
 
-log = get_logger("torch_runner")
+log = get_logger("runner")
+
+DEVICE_BATCH_BYTES = 16 * 1024 * 1024
+
+
+def _device_batch_bytes() -> int:
+    """Device feed batch size; env-tunable (tests use small batches)."""
+    return int(os.environ.get("BLT_DEVICE_BATCH_BYTES", DEVICE_BATCH_BYTES))
+
+
+def _plan_feed_size(chunk: int, dev: int) -> int:
+    """Device feed size for size-invariant modes: full ``dev``-sized
+    batches; an explicit larger ``--chunksize`` raises it."""
+    return max(dev, chunk)
 
 
 def run_tokenizer(config: CoreConfig, engine=None) -> None:
     """Execute one tokenization run.
 
-    ``engine`` is ``"auto"`` (the default), ``"torch"`` or ``"numpy"``, or
-    an engine object. ``config.engine`` is not read: the JAX package's
-    ``Engine`` enum has no torch member.
+    ``engine`` is an engine name (``"torch"``, ``"numpy"`` or ``"auto"``)
+    or an engine object; None reads ``config.engine`` (``torch`` unless
+    the caller chose otherwise).
     """
     log.info("Starting tokenizer")
     mode = config.mode
@@ -49,7 +65,7 @@ def run_tokenizer(config: CoreConfig, engine=None) -> None:
     src, writer = setup_io(config.input, config.output)
     try:
         if mode == Mode.DECODE:
-            from blt_tpu.ops.decode import build_expansion_table
+            from blt_tpu_torch.ops.decode import build_expansion_table
 
             table = build_expansion_table(config.bpe_data)
             results = _decode_stream(
@@ -69,7 +85,7 @@ def run_tokenizer(config: CoreConfig, engine=None) -> None:
 
         if engine is None or isinstance(engine, str):
             engine = select_engine(
-                engine or "auto",
+                engine or config.engine.value,
                 src.size,
                 config.num_threads,
                 mem_budget=mem_budget_bytes(config.mem_cap_percent),
@@ -81,9 +97,7 @@ def run_tokenizer(config: CoreConfig, engine=None) -> None:
             mode == Mode.BPE and config.table().flat
         )
         if isinstance(engine, (TorchEngine, AutoStreamEngine)) and invariant_output:
-            feed_size = _plan_feed_size(
-                src.size, effective_chunk_size, _device_batch_bytes()
-            )
+            feed_size = _plan_feed_size(effective_chunk_size, _device_batch_bytes())
 
         chunks = src.chunks(feed_size)
         if mode == Mode.PASSTHROUGH:
@@ -109,3 +123,66 @@ def run_tokenizer(config: CoreConfig, engine=None) -> None:
     finally:
         writer.close()
     log.info("Tokenizer run completed successfully")
+
+
+def _decode_stream(
+    chunks, table, content_type, threads: int = 0
+) -> Iterator[np.ndarray]:
+    """Stream u16-BE wire chunks through the detokenizer.
+
+    Chunk boundaries may split a token (stream short reads are odd-length
+    at will, io/sources.py), so a sub-token byte carries to the next chunk.
+    With a content type configured, the leading header token is verified
+    and stripped — the exact inverse of the encoder's prepend.
+    """
+    from blt_tpu_torch.ops.decode import (
+        decode_wire,
+        header_mismatch_error,
+        missing_header_error,
+        odd_trailing_error,
+    )
+
+    carry = np.empty(0, dtype=np.uint8)
+    header_pending = content_type is not None
+    for chunk in chunks:
+        if chunk.shape[0] == 0:
+            continue
+        data = np.concatenate([carry, chunk]) if carry.size else chunk
+        if header_pending:
+            if data.shape[0] < 2:
+                carry = data.copy()
+                continue
+            tok = (int(data[0]) << 8) | int(data[1])
+            if tok != content_type.token_value:
+                raise header_mismatch_error(content_type, tok)
+            data = data[2:]
+            header_pending = False
+        n = data.shape[0] & ~1
+        if n:
+            yield decode_wire(data[:n], table, threads)
+        carry = data[n:].copy()
+    if header_pending:
+        # the encoder emits the header even for empty input, so a stream
+        # ending first (even mid-header: a lone byte) is this error, not
+        # the generic odd-trailing-byte one
+        raise missing_header_error()
+    if carry.size:
+        raise odd_trailing_error()
+
+
+def _drain_to_writer(results: Iterator, writer: OutputWriter) -> None:
+    """Write ordered results, overlapping disk writes with compute.
+
+    The per-chunk debug spans are the analog of the reference's
+    ``process_chunk_task`` tracing spans (pipeline.rs:148,348).
+    """
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        prev: Optional[concurrent.futures.Future] = None
+        for chunk_id, data in enumerate(results):
+            nbytes = getattr(data, "nbytes", None) or len(data)
+            with span(log, "drain_chunk", chunk_id=chunk_id, bytes=nbytes):
+                if prev is not None:
+                    prev.result()
+                prev = pool.submit(writer.write, data)
+        if prev is not None:
+            prev.result()

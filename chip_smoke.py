@@ -3,24 +3,35 @@
     python3 chip_smoke.py [--seed N] [--size-mib 1024]
 
 Run from the root of a checkout on a machine with a CUDA device. It
-imports nothing of JAX. One JSON line per phase:
+imports nothing of JAX or of the JAX package. One JSON line per phase:
 
 1. device: fails without CUDA; prints ``nvidia-smi``'s name and power limit;
-2. build: compiles ``blt_tpu_torch/csrc/*.cu`` with nvcc;
+2. build: compiles ``blt_tpu_torch/csrc/*.cu`` with nvcc (one process per
+   source, in parallel); builds the 8000-rule hierarchical table of leg 4
+   and checks on the host that cuckoo32 places it at 8192 slots;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    same CUDA tensors, exactly (tolerance 0: every value is an integer
-   token), over the edge cases of the flat pass; median times at 16 MiB;
+   token), over the edge cases of the flat pass and of the token passes;
+   median times at 16 MiB (16 Mi tokens for the token passes) beside the
+   least time the card could take (bytes over 3.35 TB/s);
 4. main path: after one small run as set-up (it builds the native host
    library in a fresh checkout), ``blt_tpu_torch.cli.main(... --engine
    torch --type text)`` on a 1 GiB Zipf-text corpus in three legs (basic, BPE with the 500 most
    frequent pairs, BPE with 50k rules), each output's sha256 held against
    a NumPy reference written here, independent of both packages; the
-   launch counters must equal the number of batches; then each leg once
-   more under ``torch.profiler`` for the device's busy time, idle share
-   and time by kernel and copy;
-5. the CLI as a process, from a 64 MiB stdin pipe, byte for byte, and
+   launch counters, set to 0 before each leg, must equal the number of
+   batches; then each leg once more under ``torch.profiler`` for the
+   device's busy time, idle share and time by kernel and copy;
+5. general-table BPE through ``blt_tpu_torch.ByteTokenizer(merges=...,
+   engine="torch", chunk_size="16MB").tokenize_file``: leg 4 on the 1 GiB
+   corpus (K3 rounds, the default loop), leg 5 on its first 256 MiB under
+   ``BLT_MP_COMPACT=sort`` (K4 rounds); each sha256 held against a NumPy
+   multipass reference written here, run per 16 MiB chunk on a process
+   pool; the launches must equal the rounds the loop counted; each leg
+   traced once more;
+6. the CLI as a process, from a 64 MiB stdin pipe, byte for byte, and
    the seconds a fresh process takes to import the CLI and reach the card;
-6. ``jax`` was never imported.
+7. neither ``jax`` nor ``blt_tpu`` was ever imported.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -119,6 +130,20 @@ def write_merges(path: str, pairs) -> None:
         f.writelines(f"{a} {b}\n" for a, b in pairs)
 
 
+def all_launches() -> dict:
+    """Every kernel's launch count, by name."""
+    from blt_tpu_torch.ops import bpe_cuda, multipass_cuda
+
+    return {**bpe_cuda.launches, **multipass_cuda.launches}
+
+
+def reset_all_launches() -> None:
+    from blt_tpu_torch.ops import bpe_cuda, multipass_cuda
+
+    bpe_cuda.reset_launches()
+    multipass_cuda.reset_launches()
+
+
 def cuda_ms(fn, reps: int = 10) -> float:
     """Median milliseconds of one call, by CUDA events, after warm-up."""
     import torch
@@ -212,6 +237,93 @@ def reference_sha(data, dense, header: bytes) -> str:
         for piece in flat_bpe_reference(data, dense):
             h.update(piece)
     return h.hexdigest()
+
+
+def multipass_reference(data, keys, vals):
+    """General-table BPE of one chunk: merge passes until one merges
+    nothing. In a pass the pair (t[i], t[i+1]) merges when the table has a
+    rule for it and the run of rule pairs it ends began an odd number of
+    positions back (leftmost non-overlapping merges); the pair's second
+    token is dropped. ``keys``: sorted int64 ``a << 16 | b``; ``vals``:
+    int64 rule values in the same order. Returns int64 tokens."""
+    import numpy as np
+
+    t = np.asarray(data, dtype=np.int64)
+    while t.shape[0] >= 2:
+        k = (t[:-1] << 16) | t[1:]
+        pos = np.minimum(np.searchsorted(keys, k), keys.shape[0] - 1)
+        match = keys[pos] == k
+        if not match.any():
+            break
+        idx = np.arange(k.shape[0])
+        last_nonmatch = np.maximum.accumulate(np.where(match, -1, idx))
+        start = match & (((idx - last_nonmatch) & 1) == 1)
+        out = t.copy()
+        out[:-1] = np.where(start, vals[pos], t[:-1])
+        keep = np.ones(t.shape[0], bool)
+        keep[1:] = ~start
+        t = out[keep]
+    return t
+
+
+def _reference_chunk(args) -> bytes:
+    data, keys, vals = args
+    return multipass_reference(data, keys, vals).astype(">u2").tobytes()
+
+
+def rule_arrays(rules):
+    """Rules -> (sorted int64 keys ``a << 16 | b``, int64 values)."""
+    import numpy as np
+
+    items = sorted(((a << 16) | b, v) for (a, b), v in rules.items())
+    return (np.array([k for k, _ in items], np.int64),
+            np.array([v for _, v in items], np.int64))
+
+
+def hierarchical_rules(corpus, rounds: int = 16, per_round: int = 500):
+    """A general table built from the corpus: ``rounds`` rounds, each adding
+    the ``per_round`` most frequent token pairs of the first 1 MiB after
+    the rounds before (new tokens 256, 257, ...), so later rules merge
+    merged tokens."""
+    import numpy as np
+
+    toks = corpus[:MIB].astype(np.int64)
+    rules = {}
+    for _ in range(rounds):
+        pairs, counts = np.unique((toks[:-1] << 16) | toks[1:], return_counts=True)
+        for p in pairs[np.argsort(-counts, kind="stable")][:per_round]:
+            rules[(int(p) >> 16, int(p) & 0xFFFF)] = 256 + len(rules)
+        toks = multipass_reference(toks, *rule_arrays(rules))
+    return rules
+
+
+def reference_multipass_shas(corpus, rules, chunk: int, first: int):
+    """sha256 of the per-chunk multipass reference over the whole corpus,
+    and over its first ``first`` chunks, on a process pool (general-table
+    chunks are independent)."""
+    import concurrent.futures
+    import multiprocessing
+
+    keys, vals = rule_arrays(rules)
+    h_all, h_first = hashlib.sha256(), hashlib.sha256()
+    jobs = ((corpus[s : s + chunk], keys, vals) for s in range(0, corpus.shape[0], chunk))
+    with concurrent.futures.ProcessPoolExecutor(
+        os.cpu_count(), mp_context=multiprocessing.get_context("spawn")
+    ) as pool:
+        for j, piece in enumerate(pool.map(_reference_chunk, jobs)):
+            h_all.update(piece)
+            if j < first:
+                h_first.update(piece)
+    return h_all.hexdigest(), h_first.hexdigest()
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+
+
+def bound_ms(*tensors) -> float:
+    """Least time for a function that reads its inputs and writes its
+    outputs once each: their bytes over the card's memory rate."""
+    return sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S * 1e3
 
 
 def device_profile(fn):
@@ -353,7 +465,13 @@ def phase_kernels(corpus, merges500, merges50k, rng):
     # times at 16 MiB: kernel and plain on the same tensors
     c0 = torch.zeros((1, 1), dtype=torch.int32, device=dev)
     p0 = torch.zeros((), dtype=torch.int32, device=dev)
-    slots, _ = bpe_cuda.flat_encode_slots(big, 16 * MIB, -1, t500, c0)
+    slots, c1 = bpe_cuda.flat_encode_slots(big, 16 * MIB, -1, t500, c0)
+    wire, last = bpe_cuda.pack_slots(slots, 16 * MIB, p0)
+    bounds = {
+        "widen": bound_ms(big, bpe_cuda.basic_encode(big)),
+        "flat_bpe": bound_ms(big, t500, c0, slots, c1),
+        "pack_slots": bound_ms(slots, p0, wire, last),
+    }
     ms = {
         "widen": (
             cuda_ms(lambda: bpe_cuda.basic_encode(big)),
@@ -377,17 +495,130 @@ def phase_kernels(corpus, merges500, merges50k, rng):
     emit({
         "phase": "kernels", "cases": cases, "tolerance": 0,
         "max_abs_err": err,
-        "ms_16mib": {k: {"kernel": v[0], "plain": v[1]} for k, v in ms.items()},
+        "ms_16mib": {k: {"kernel": v[0], "plain": v[1], "bound": bounds[k]}
+                     for k, v in ms.items()},
         **extra,
     })
-    return err, ms
+    return err, ms, bounds
+
+
+def phase_multipass_kernels(corpus, rules, rng):
+    """Phase 3, general tables: K3 and K4 against their plain versions on
+    the card, exactly, then times at a 16 Mi-token capacity."""
+    import numpy as np
+    import torch
+
+    from blt_tpu_torch.merges import MergeTable
+    from blt_tpu_torch.ops import multipass_cuda as mc
+    from blt_tpu_torch.ops.tables import cuckoo_planes
+
+    dev = torch.device("cuda", 0)
+
+    def planes_of(merges):
+        planes = cuckoo_planes(MergeTable.build(merges), dev)
+        if planes is None:
+            fail(f"cuckoo32 cannot place a {len(merges)}-rule table")
+        return planes
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+    err = {"token_pass_gap": 0, "token_pass": 0}
+    cases = 0
+
+    def check(toks, n, planes, what, gap=None):
+        """K4 on toks[:n], and K3 on ``gap`` (default: toks with -1 past
+        n); returns K3's output, to chain rounds."""
+        nonlocal cases
+        t = on_dev(toks)
+        if gap is None:
+            gap = np.array(toks, np.int32)
+            gap[n:] = -1
+        g = on_dev(gap)
+        e4 = int_err(mc.token_pass(t, n, planes), mc.token_pass_plain(t, n, planes))
+        out, count = mc.token_pass_gap(g, planes)
+        ref, ref_count = mc.token_pass_gap_plain(g, planes)
+        torch.cuda.synchronize()
+        e3 = max(int_err(out, ref), int_err(count, ref_count))
+        if e3 or e4:
+            fail(f"token passes, {what} (n={n}): K3 err {e3}, K4 err {e4}")
+        err["token_pass_gap"] = max(err["token_pass_gap"], e3)
+        err["token_pass"] = max(err["token_pass"], e4)
+        cases += 1
+        return out.cpu().numpy()
+
+    chain = planes_of({(97, 97): 256, (256, 256): 257, (257, 257): 258, (258, 258): 259})
+    high = planes_of({(0xFFFF, 97): 40000, (40000, 0xFFFF): 0xFFFF, (97, 0xFFFF): 32768,
+                      (32768, 32768): 50000, (0xFFFF, 0xFFFF): 0xFFFE})
+    table8k = planes_of(rules)
+    if table8k.slots != 8192:
+        fail(f"the 8000-rule table placed at {table8k.slots} slots, not 8192")
+
+    # empty, one and two tokens
+    a = np.full(4096, 97, np.int32)
+    for n in (0, 1, 2):
+        check(a, n, chain, "short")
+    # a hierarchical chain over tile edges, four rounds fed back through K3
+    gap = np.full(3 * 4096 + 128, 97, np.int32)
+    for _ in range(4):
+        gap = check(gap, gap.shape[0], chain, "chain round", gap=gap)
+    # tokens >= 32768 with 0xFFFF: the int32 wrap of the key and the hash
+    hi = rng.choice(np.array([97, 0xFFFF, 32768, 40000], np.int32), 64 * 1024)
+    check(hi, hi.shape[0], high, "high tokens")
+    check(hi, 40_001, high, "high tokens, stale tail")
+    # the 8192-slot table on the corpus at the main path's shape, two rounds
+    cap = 16 * MIB
+    toks = corpus[:cap].astype(np.int32)
+    round1 = check(toks, cap, table8k, "8192 slots")
+    check(round1, cap, table8k, "8192 slots, round 2", gap=round1)
+    # runs of 1 to 5 tombstones across a tile edge, in a tombstoned round
+    for run in range(1, 6):
+        g = round1[: 64 * 1024].copy()
+        for edge in range(4096, g.shape[0], 4096):
+            start = edge - (run + 1) // 2
+            g[start : start + run] = -1
+        check(g, g.shape[0], table8k, f"tombstone runs of {run}", gap=g)
+
+    # times at a 16 Mi-token capacity: the first round of leg 4's table
+    t = on_dev(toks)
+    g_out, g_count = mc.token_pass_gap(t, table8k)
+    k_out = mc.token_pass(t, cap, table8k)
+    planes = (table8k.k1, table8k.v1, table8k.k2, table8k.v2)
+    bounds = {
+        "token_pass_gap": bound_ms(t, *planes, g_out, g_count),
+        "token_pass": bound_ms(t, *planes, k_out),
+    }
+    ms = {
+        "token_pass_gap": (cuda_ms(lambda: mc.token_pass_gap(t, table8k)),
+                           cuda_ms(lambda: mc.token_pass_gap_plain(t, table8k))),
+        "token_pass": (cuda_ms(lambda: mc.token_pass(t, cap, table8k)),
+                       cuda_ms(lambda: mc.token_pass_plain(t, cap, table8k))),
+    }
+
+    # what the loop's one host read per round costs: 8 chained K3 rounds
+    # with and without reading the count after each
+    def rounds(read: bool):
+        b = t
+        for _ in range(8):
+            b, c = mc.token_pass_gap(b, table8k)
+            if read:
+                int(c)
+
+    host_read_ms = (cuda_ms(lambda: rounds(True)) - cuda_ms(lambda: rounds(False))) / 8
+    emit({
+        "phase": "multipass_kernels", "cases": cases, "tolerance": 0,
+        "max_abs_err": err, "slots": table8k.slots,
+        "ms_16mi_tokens": {k: {"kernel": v[0], "plain": v[1], "bound": bounds[k]}
+                           for k, v in ms.items()},
+        "host_read_ms_per_round": host_read_ms,
+    })
+    return err, ms, bounds
 
 
 def phase_main_path(corpus, merges500, merges50k, workdir):
     """Phase 4: the CLI in process on the full corpus, three legs, each
     checked, then each traced once."""
     from blt_tpu_torch import cli
-    from blt_tpu_torch.ops import bpe_cuda
     from blt_tpu_torch.pipeline.feeder import stage_stats
     from blt_tpu_torch.pipeline.runner import _device_batch_bytes, _plan_feed_size
 
@@ -400,10 +631,12 @@ def phase_main_path(corpus, merges500, merges50k, workdir):
     write_merges(m500, merges500)
     write_merges(m50k, merges50k)
     t1 = time.perf_counter()
-    # A first small run builds the JAX package's native host library (g++,
-    # at first use, in a fresh checkout), which the engine's pack and drain
+    # A first small run builds the port's native host library (g++, at
+    # first use, in a fresh checkout), which the engine's pack and drain
     # stages load; that build is set-up, not part of the first leg.
-    host_lib = os.path.join(ROOT, "blt_tpu", "native", "libbltnative.so")
+    from blt_tpu_torch.native.build import library_path
+
+    host_lib = library_path()
     prebuilt = os.path.exists(host_lib)
     small = os.path.join(workdir, "small.bin")
     corpus[: 64 * 1024].tofile(small)
@@ -415,7 +648,7 @@ def phase_main_path(corpus, merges500, merges50k, workdir):
           "host_lib_built": os.path.exists(host_lib),
           "first_run_s": time.perf_counter() - t2})
     chunk = 16 * MIB
-    batches = -(-size // _plan_feed_size(size, chunk, _device_batch_bytes()))
+    batches = -(-size // _plan_feed_size(chunk, _device_batch_bytes()))
     header = (0xFF01).to_bytes(2, "big")  # the text content-type token
 
     legs = [("basic", None, None, "widen"),
@@ -432,17 +665,16 @@ def phase_main_path(corpus, merges500, merges50k, workdir):
         if rc != 0:
             fail(f"leg {name}: cli.main returned {rc}")
 
-    totals = {k: 0 for k in bpe_cuda.launches}
-    bpe_cuda.reset_launches()  # counts from here on are the main path's
+    totals = {k: 0 for k in all_launches()}
     for name, merges, pairs, kernel in legs:
         out = out_of(name)
-        before = dict(bpe_cuda.launches)
+        reset_all_launches()  # the counts of this leg alone
         stage_stats(reset=True)
         t0 = time.perf_counter()
         run_leg(name, merges)
         seconds = time.perf_counter() - t0
         stages = stage_stats(reset=True)
-        got = {k: bpe_cuda.launches[k] - before[k] for k in before}
+        got = all_launches()
         if got[kernel] != batches or (merges and got["pack_slots"] != batches):
             fail(f"leg {name}: launches {got}, expected {batches} batches")
         for k, v in got.items():
@@ -466,7 +698,7 @@ def phase_main_path(corpus, merges500, merges50k, workdir):
             "stages": {k: {m: round(v, 4) for m, v in st.items()}
                        for k, st in stages.items()},
         })
-    if not all(totals.values()):
+    if not all(totals[k] for k in ("widen", "flat_bpe", "pack_slots")):
         fail(f"a kernel of the path was never launched: {totals}")
 
     # where the time goes: each leg once more, traced (counts already read)
@@ -477,8 +709,83 @@ def phase_main_path(corpus, merges500, merges50k, workdir):
     return inp, m500, totals
 
 
+def phase_multipass(corpus, inp, rules, workdir, chunk: int = 16 * MIB,
+                    head_bytes: int = 256 * MIB):
+    """Phase 5: general-table BPE through the API in ``chunk``-byte chunks.
+    Leg 4: the whole corpus, default loop (K3). Leg 5: its first
+    ``head_bytes`` under ``BLT_MP_COMPACT=sort`` (K4). Each checked against
+    the NumPy multipass reference, then traced once more."""
+    import blt_tpu_torch
+    from blt_tpu_torch.ops import multipass_cuda
+    from blt_tpu_torch.pipeline.feeder import stage_stats
+
+    part = os.path.join(workdir, "corpus_head.bin")
+    head = corpus[:head_bytes]
+    head.tofile(part)
+    out = os.path.join(workdir, "out_multipass.bin")
+    legs = [("multipass_gap", inp, corpus.shape[0], "gap", "token_pass_gap"),
+            ("multipass_sort", part, head.shape[0], "sort", "token_pass")]
+
+    def run_leg(src, mode):
+        os.environ["BLT_MP_COMPACT"] = mode
+        try:
+            tok = blt_tpu_torch.ByteTokenizer(merges=rules, engine="torch",
+                                              chunk_size=f"{chunk // 1024}KB")
+            tok.tokenize_file(src, out)
+        finally:
+            del os.environ["BLT_MP_COMPACT"]
+
+    results, totals = {}, {}
+    for name, src, size, mode, kernel in legs:
+        reset_all_launches()  # the counts of this leg alone
+        stage_stats(reset=True)
+        t0 = time.perf_counter()
+        run_leg(src, mode)
+        seconds = time.perf_counter() - t0
+        stages = stage_stats(reset=True)
+        got = all_launches()
+        loops = list(multipass_cuda.loop_log)
+        rounds = [r for r, _ in loops]
+        chunks = -(-size // chunk)
+        if len(loops) != chunks or got[kernel] != sum(rounds) or not got[kernel]:
+            fail(f"leg {name}: launches {got}, {len(loops)} loops of {sum(rounds)} "
+                 f"rounds, expected {chunks} chunks")
+        totals[kernel] = got[kernel]
+        results[name] = (sha256_file(out), os.path.getsize(out))
+        os.unlink(out)
+        emit({
+            "phase": "multipass", "leg": name, "compact": mode, "input_bytes": size,
+            "output_bytes": results[name][1], "chunks": chunks, "launches": got,
+            "rounds_per_chunk": {"min": min(rounds), "max": max(rounds),
+                                 "mean": sum(rounds) / len(rounds)},
+            "compactions_per_chunk": sum(c for _, c in loops) / len(loops),
+            "host_reads": sum(rounds),  # one 4-byte read of the count per round
+            "seconds": seconds, "MB_per_s": size / seconds / 1e6,
+            "sha256": results[name][0],
+            "stages": {k: {m: round(v, 4) for m, v in st.items()}
+                       for k, st in stages.items()},
+        })
+
+    # the reference, per chunk on a process pool, after the timed legs
+    t0 = time.perf_counter()
+    ref_all, ref_head = reference_multipass_shas(corpus, rules, chunk, -(-head_bytes // chunk))
+    ref_seconds = time.perf_counter() - t0
+    for name, ref in (("multipass_gap", ref_all), ("multipass_sort", ref_head)):
+        if results[name][0] != ref:
+            fail(f"leg {name}: sha256 {results[name][0]} != reference {ref}")
+    emit({"phase": "multipass_reference", "equal": True, "seconds": ref_seconds,
+          "processes": os.cpu_count(), "sha256": {"multipass_gap": ref_all,
+                                                  "multipass_sort": ref_head}})
+
+    for name, src, _, mode, _ in legs:
+        trace = device_profile(functools.partial(run_leg, src, mode))
+        os.unlink(out)
+        emit({"phase": "trace", "leg": name, **trace})
+    return totals
+
+
 def phase_process(inp, m500, merges500):
-    """Phase 5: the CLI module as a process, 64 MiB through a stdin pipe,
+    """Phase 6: the CLI module as a process, 64 MiB through a stdin pipe,
     and what a fresh process spends before its first batch."""
     import numpy as np
 
@@ -549,47 +856,61 @@ def main() -> int:
           "library": os.path.relpath(lib, ROOT)})
 
     rng = np.random.default_rng(args.seed)
-    corpus = make_corpus(rng, max(args.size_mib, 80) * MIB)
+    corpus = make_corpus(rng, max(args.size_mib, 256) * MIB)
     merges500 = frequent_pairs(corpus, 500)
     merges50k = fifty_k_pairs(rng, merges500)
+    # leg 4's general table, placed on the host before the card sees it
+    from blt_tpu_torch.merges import MergeTable
+
+    t0 = time.perf_counter()
+    rules = hierarchical_rules(corpus)
+    table = MergeTable.build(rules)
+    built = table.build_cuckoo32()
+    if table.flat or built is None or built[0].shape[0] != 8192:
+        fail(f"the {len(rules)}-rule table is flat or not placed at 8192 slots")
+    emit({"phase": "table", "rules": len(rules), "flat": table.flat,
+          "max_value": max(rules.values()), "cuckoo32_slots": built[0].shape[0],
+          "seconds": time.perf_counter() - t0})
 
     # 3. kernels against their plain versions
-    err, ms = phase_kernels(
+    err, ms, bounds = phase_kernels(
         corpus,
         numbered(merges500),
         numbered(merges50k),
         rng,
     )
+    for d, part in zip((err, ms, bounds), phase_multipass_kernels(corpus, rules, rng)):
+        d.update(part)
 
-    # 4-5. the main path, in process and as a process
+    # 4-6. the main path, in process and as a process
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     try:
         inp, m500, launches = phase_main_path(corpus, merges500, merges50k, workdir)
+        launches.update(phase_multipass(corpus, inp, rules, workdir))
         phase_process(inp, m500, merges500)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    # 6. no JAX anywhere in this process
-    if "jax" in sys.modules:
-        fail("jax was imported")
-    emit({"phase": "no_jax", "jax_in_sys_modules": False})
+    # 7. nothing of JAX or the JAX package anywhere in this process
+    bad = sorted(k for k in sys.modules if k == "blt_tpu" or k.startswith(("blt_tpu.", "jax")))
+    if bad:
+        fail(f"imported {bad}")
+    emit({"phase": "no_jax", "jax_or_blt_tpu_in_sys_modules": False})
 
-    replaces = {
-        "widen": pallas_line("basic_encode_pallas"),
-        "flat_bpe": pallas_line("_flat_encode_pallas_call"),
-        "pack_slots": pallas_line("_pack_slots_core"),
-    }
-    sources = {
-        "widen": "blt_tpu_torch/csrc/widen.cu",
-        "flat_bpe": "blt_tpu_torch/csrc/flat_bpe.cu",
-        "pack_slots": "blt_tpu_torch/csrc/flat_bpe.cu",
+    rows = {  # name: (source, the Pallas function it replaces)
+        "widen": ("widen.cu", "basic_encode_pallas"),
+        "flat_bpe": ("flat_bpe.cu", "_flat_encode_pallas_call"),
+        "pack_slots": ("flat_bpe.cu", "_pack_slots_core"),
+        "token_pass_gap": ("token_pass_gap.cu", "_token_pass_gap_call"),
+        "token_pass": ("token_pass.cu", "_token_pass_call"),
     }
     emit({"kernels": [
-        {"name": k, "route": "cuda", "source": sources[k], "replaces": replaces[k],
-         "launches": launches[k], "max_abs_err": err[k],
-         "ms": ms[k][0], "plain_ms": ms[k][1]}
-        for k in ("widen", "flat_bpe", "pack_slots")
+        {"name": k, "route": "cuda", "source": f"blt_tpu_torch/csrc/{src}",
+         "replaces": pallas_line(func), "launches": launches[k],
+         "max_abs_err": err[k], "ms": ms[k][0], "plain_ms": ms[k][1],
+         "bound_ms": bounds[k], "bound_by": "bytes", "library_ms": None}
+        for k, (src, func) in rows.items()
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -20,8 +20,8 @@ import torch
 import blt_tpu
 import blt_tpu_torch
 from blt_tpu import cli as jax_cli
-from blt_tpu.config import CoreConfig
 from blt_tpu_torch import cli as port_cli
+from blt_tpu_torch.config import ContentType, CoreConfig
 from blt_tpu_torch.pipeline.engines import TorchEngine
 from blt_tpu_torch.pipeline.runner import run_tokenizer
 
@@ -91,7 +91,8 @@ def test_cli_files_and_decode_roundtrip(tmp_path, merges, monkeypatch):
     src.write_bytes(b"ab c ab" * 100)
     for main, name in ((jax_cli.main, "jax"), (port_cli.main, "port")):
         rc, _, _ = _run(main, ["-i", str(src), "-o", str(tmp_path / f"{name}.bin"),
-                               "--merges", merges, "--type", "text"], b"", monkeypatch)
+                               "--merges", merges, "--type", "text",
+                               "--engine", "numpy"], b"", monkeypatch)
         assert rc == 0
     enc = (tmp_path / "port.bin").read_bytes()
     assert enc == (tmp_path / "jax.bin").read_bytes()
@@ -100,16 +101,22 @@ def test_cli_files_and_decode_roundtrip(tmp_path, merges, monkeypatch):
     assert rc == 0 and out == src.read_bytes()
 
 
-def test_engine_torch_without_cuda_exits_1(tmp_path, monkeypatch):
+@pytest.mark.parametrize("engine_args", [["--engine", "torch"], []])
+def test_engine_torch_without_cuda_exits_1(engine_args, tmp_path, monkeypatch):
+    """``--engine torch``, and the default, which is the same: without a
+    CUDA device the run fails naming CUDA, never quietly on the host."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = tmp_path / "out.bin"
     src = tmp_path / "in.bin"
     src.write_bytes(b"hello")
-    rc, stdout, err = _run(port_cli.main, ["-i", str(src), "-o", str(out),
-                                           "--engine", "torch"], b"", monkeypatch)
+    rc, stdout, err = _run(port_cli.main, ["-i", str(src), "-o", str(out)] + engine_args,
+                           b"", monkeypatch)
     assert rc == 1 and stdout == b""
     assert err.startswith("Error running tokenizer: ") and "CUDA" in err
     assert not out.exists()  # a failed run leaves no partial output
+    if not engine_args:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            blt_tpu_torch.ByteTokenizer().tokenize_file(str(src), str(out))
 
 
 @pytest.mark.parametrize("mode", ["basic", "bpe", "passthrough", "decode"])
@@ -140,7 +147,7 @@ def test_runner_with_torch_engine_on_cpu_equals_jax_cli(mode, ctype, tmp_path, m
     ns = parser.parse_args(args + ["-o", str(out)])
     config = CoreConfig.new_from_cli(
         input=ns.input, output=ns.output, merges=ns.merges,
-        content_type=None if not ctype else blt_tpu.ContentType.from_cli(ctype),
+        content_type=None if not ctype else ContentType.from_cli(ctype),
         chunksize=ns.chunksize, passthrough=ns.passthrough, decode=ns.decode,
     )
     run_tokenizer(config, engine=TorchEngine(torch.device("cpu")))
@@ -183,7 +190,7 @@ def test_main_path_imports_no_jax(tmp_path):
     code = f"""
 import sys, torch
 import blt_tpu_torch
-from blt_tpu.config import CoreConfig
+from blt_tpu_torch.config import CoreConfig
 from blt_tpu_torch import cli
 from blt_tpu_torch.pipeline.engines import TorchEngine
 from blt_tpu_torch.pipeline.runner import run_tokenizer

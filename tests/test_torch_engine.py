@@ -16,11 +16,12 @@ from blt_tpu.merges import MergeTable
 from blt_tpu.ops.bpe_numpy import bpe_encode_flat
 from blt_tpu.ops.bpe_oracle import bpe_encode_oracle, tokens_to_be_bytes
 from blt_tpu.ops.bpe_pallas import PallasFlatEncoder
-from blt_tpu.pipeline.engines import JaxEngine, NumpyEngine
-from blt_tpu_torch.ops import bpe_cuda
+from blt_tpu.pipeline.engines import JaxEngine
+from blt_tpu_torch.ops import bpe_cuda, multipass_cuda
 from blt_tpu_torch.pipeline import engines as torch_engines
 from blt_tpu_torch.pipeline.engines import (
     AutoStreamEngine,
+    NumpyEngine,
     TorchEngine,
     select_engine,
 )
@@ -95,11 +96,21 @@ def test_twin_route_for_tables_the_kernel_rejects():
     assert got == tokens_to_be_bytes(bpe_encode_oracle(data.tobytes(), merges))
 
 
-def test_general_tables_raise_not_implemented():
-    table = MergeTable.build({(97, 98): 256, (256, 99): 257})
+def test_general_tables_stream():
+    """The table that used to raise NotImplementedError now streams through
+    the multipass encoder, chunk by chunk (per-chunk semantics)."""
+    merges = {(97, 98): 256, (256, 99): 257}
+    table = MergeTable.build(merges)
     assert not table.flat
-    with pytest.raises(NotImplementedError, match="multipass"):
-        next(iter(TorchEngine(CPU).bpe_stream(iter([_data(1, 10)]), table, HINT)))
+    chunks = _chunks(_data(1, 3 * HINT + 10), HINT)
+    multipass_cuda.reset_launches()
+    got = _join(TorchEngine(CPU).bpe_stream(iter(chunks), table, HINT))
+    assert multipass_cuda.launches == {"token_pass_gap": 0, "token_pass": 0}
+    assert len(multipass_cuda.loop_log) == len(chunks)
+    expected = b"".join(
+        tokens_to_be_bytes(bpe_encode_oracle(c.tobytes(), merges)) for c in chunks
+    )
+    assert got == expected
 
 
 def test_upload_returns_a_copy_the_buffer_can_be_reused():

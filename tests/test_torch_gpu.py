@@ -2,8 +2,9 @@
 
 Each kernel's wrapper is held against its plain PyTorch version on the same
 CUDA tensors, exactly, and the engine and CLI against the host engine. This
-file imports no JAX, so it runs on a machine that has only the port's
-dependencies; tests/conftest.py imports JAX, so skip it there:
+file imports nothing of JAX or the JAX package, so it runs on a machine that
+has only the port's dependencies; tests/conftest.py imports JAX, so skip it
+there:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -12,11 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from blt_tpu.merges import MergeTable
-from blt_tpu.ops.bpe_numpy import bpe_encode_flat
 from blt_tpu_torch import cli
-from blt_tpu_torch.ops import bpe_cuda
-from blt_tpu_torch.ops.tables import wire_table
+from blt_tpu_torch.merges import MergeTable
+from blt_tpu_torch.ops import bpe_cuda, multipass_cuda
+from blt_tpu_torch.ops.bpe_numpy import bpe_encode_flat, bpe_encode_multipass
+from blt_tpu_torch.ops.tables import cuckoo_planes, wire_table
 from blt_tpu_torch.pipeline.engines import TorchEngine
 
 pytestmark = pytest.mark.gpu
@@ -97,3 +98,60 @@ def test_cli_engine_torch_equals_engine_numpy(cuda, tmp_path, monkeypatch):
             assert cli.main(argv + extra) == 0
             outs.append(out.read_bytes())
         assert outs[0] == outs[1]
+
+
+GENERAL = {(97, 98): 256, (256, 99): 257, (257, 257): 300, (97, 97): 301,
+           (301, 301): 302, (0xFFFF, 97): 40000, (40000, 0xFFFF): 0xFFFF,
+           (32768, 32768): 50000, (120, 121): 90, (90, 122): 0}
+
+
+def _big_table(seed=3, n=7000):
+    rng = np.random.default_rng(seed)
+    keys = rng.permutation(600 * 600)[:n]
+    return MergeTable.build({(int(k) // 600, int(k) % 600): 600 + i for i, k in enumerate(keys)})
+
+
+def test_token_passes_equal_plain_versions(cuda):
+    """K3 and K4 against their plain versions: empty, one and two tokens,
+    tombstone runs of 1 to 5 across a tile edge, a hierarchical chain,
+    tokens >= 32768 with 0xFFFF, and a table placed at 8192 slots."""
+    rng = np.random.default_rng(20)
+    tables = [MergeTable.build(GENERAL), _big_table()]
+    assert cuckoo_planes(tables[1]).slots == 8192
+    cap = 3 * 4096 + 256
+    for table in tables:
+        planes = cuckoo_planes(table, cuda)
+        alphabet = np.array(sorted({x for p in table.merges for x in p})[:600]
+                            + [97, 98, 99, 0xFFFF, 32768, 40000], np.int32)
+        toks = rng.choice(alphabet, cap).astype(np.int32)
+        toks[4000:4200] = 97  # a chain across the tile edge at 4096
+        for n in (0, 1, 2, 4095, 4097, cap):
+            t = torch.from_numpy(toks).to(cuda)
+            assert torch.equal(multipass_cuda.token_pass(t, n, planes),
+                               multipass_cuda.token_pass_plain(t, n, planes)), n
+            for run in range(1, 6):
+                gap = toks.copy()
+                gap[n:] = -1
+                start = 4096 - (run + 1) // 2
+                gap[start : start + run] = -1  # a run across the tile edge
+                g = torch.from_numpy(gap).to(cuda)
+                out, count = multipass_cuda.token_pass_gap(g, planes)
+                ref, ref_count = multipass_cuda.token_pass_gap_plain(g, planes)
+                assert torch.equal(out, ref) and int(count) == int(ref_count), (n, run)
+
+
+@pytest.mark.parametrize("mode", ["gap", "sort"])
+def test_multipass_engine_on_the_card(cuda, mode, monkeypatch):
+    monkeypatch.setenv("BLT_MP_COMPACT", mode)
+    table = MergeTable.build(GENERAL)
+    hint = 64 * 1024
+    data = _text(13, 5 * hint + 17, alphabet=b"aaaabbc xyz")
+    chunks = [data[i : i + hint] for i in range(0, data.shape[0], hint)]
+    multipass_cuda.reset_launches()
+    got = _join(TorchEngine(cuda).bpe_stream(iter(chunks), table, hint))
+    expected = b"".join(bpe_encode_multipass(c, table).astype(">u2").tobytes() for c in chunks)
+    assert got == expected
+    rounds = sum(r for r, _ in multipass_cuda.loop_log)
+    kernel = "token_pass" if mode == "sort" else "token_pass_gap"
+    assert len(multipass_cuda.loop_log) == len(chunks)
+    assert multipass_cuda.launches[kernel] == rounds > 0

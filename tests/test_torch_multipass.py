@@ -1,0 +1,374 @@
+"""General-table (multipass) BPE of the torch port against the JAX package,
+on the CPU.
+
+On the CPU the port's wrappers run their kernels' plain PyTorch versions
+(``token_pass_plain``, ``token_pass_gap_plain``); the JAX side runs the
+Pallas token passes in interpret mode at 8 rows per block (1024 positions),
+so a 4096-token buffer spans four Pallas blocks and exercises the block
+carry. Every comparison is exact (tolerance 0): every value is an integer
+token, count or wire byte. Inputs come from numpy ``default_rng(seed)``.
+The CUDA kernels themselves are held against the plain versions by
+tests/test_torch_gpu.py and by ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from blt_tpu.config import CoreConfig as JaxCoreConfig
+from blt_tpu.config import Engine as JaxEngineName
+from blt_tpu.merges import MergeTable as JaxMergeTable
+from blt_tpu.ops import bpe_jax
+from blt_tpu.ops import bpe_pallas as bp
+from blt_tpu.ops.bpe_numpy import bpe_encode_multipass
+from blt_tpu.ops.bpe_oracle import bpe_encode_oracle, tokens_to_be_bytes
+from blt_tpu.pipeline.engines import JaxEngine
+from blt_tpu.pipeline.engines import NumpyEngine as JaxNumpyEngine
+from blt_tpu.pipeline.runner import run_tokenizer as jax_run_tokenizer
+from blt_tpu_torch.config import CoreConfig
+from blt_tpu_torch.merges import MergeTable
+from blt_tpu_torch.ops import bpe_torch, multipass_cuda
+from blt_tpu_torch.ops.multipass_cuda import (
+    CudaTokenEncoder,
+    expand_gap_wire_host,
+    token_pass,
+    token_pass_gap,
+    token_pass_gap_plain,
+    token_pass_plain,
+)
+from blt_tpu_torch.ops.tables import cuckoo_planes, planes_from_jax
+from blt_tpu_torch.pipeline.engines import NumpyEngine, TorchEngine
+from blt_tpu_torch.pipeline.runner import run_tokenizer
+
+RPB = 8  # Pallas rows per block: 1024-token blocks
+CAP = 4096
+CPU = torch.device("cpu")
+
+HIER = {(97, 98): 256, (256, 99): 257, (257, 257): 300,
+        (120, 121): 90, (90, 122): 0, (0, 97): 400}
+# tokens >= 32768 and 0xFFFF: d * 65536 wraps int32 in the key and the hash
+HIGH = {(0xFFFF, 97): 40000, (40000, 0xFFFF): 0xFFFF, (97, 0xFFFF): 32768,
+        (32768, 32768): 50000, (97, 98): 256, (256, 256): 0xFFFE}
+CHAIN = {(97, 97): 256, (256, 256): 257, (257, 257): 258, (258, 258): 259}
+
+
+def _big_table_merges(seed=3, n=7000):
+    """Random rules over tokens 0..599, placed by cuckoo32 at 8192 slots."""
+    rng = np.random.default_rng(seed)
+    keys = rng.permutation(600 * 600)[:n]
+    return {(int(k) // 600, int(k) % 600): 600 + i for i, k in enumerate(keys)}
+
+
+TABLES = {"hier": HIER, "high": HIGH, "chain": CHAIN, "big": _big_table_merges()}
+
+
+def _alphabet(merges):
+    members = sorted({x for pair in merges for x in pair} | set(merges.values()))
+    return np.array(members + [97, 98, 99], np.int32)
+
+
+def _jax_planes(merges):
+    k1, v1, k2, v2, a1, a2 = JaxMergeTable.build(merges).build_cuckoo32()
+    shift = 32 - (k1.shape[0].bit_length() - 1)
+    planes = [jnp.asarray(x.reshape(-1, 128)) for x in (k1, v1, k2, v2)]
+    return planes, (a1, a2, shift)
+
+
+def _port_planes(merges):
+    planes = cuckoo_planes(MergeTable.build(merges), CPU)
+    assert planes is not None
+    return planes
+
+
+def _pallas_token_pass(merges, toks, n):
+    planes, (a1, a2, shift) = _jax_planes(merges)
+    buf = np.zeros(toks.shape[0] + 8 * 128, np.int32)  # + the 8 halo rows
+    buf[: toks.shape[0]] = toks
+    params = jnp.asarray(np.array([n, a1, a2, shift, 0, 0, 0, 0], np.int32))
+    out = bp._token_pass_call(params, jnp.asarray(buf.reshape(-1, 128)), *planes,
+                              interpret=True, rows_per_block=RPB)
+    return np.asarray(out).reshape(-1)
+
+
+def _pallas_gap_pass(merges, toks):
+    planes, (a1, a2, shift) = _jax_planes(merges)
+    params = jnp.asarray(np.array([0, a1, a2, shift, 0, 0, 0, 0], np.int32))
+    out, counts = bp._token_pass_gap_call(
+        params, jnp.asarray(toks.reshape(-1, 128)), *planes,
+        interpret=True, rows_per_block=RPB,
+    )
+    return np.asarray(out).reshape(-1), int(np.asarray(counts).sum())
+
+
+# --- K4 ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(TABLES))
+def test_token_pass_plain_equals_pallas(name):
+    merges = TABLES[name]
+    rng = np.random.default_rng(1)
+    planes = _port_planes(merges)
+    toks = rng.choice(_alphabet(merges), CAP).astype(np.int32)
+    toks[1000:1100] = 97  # a match run across nothing in CHAIN, parity
+    toks[2000:2200] = 97  # ...and one across a Pallas block edge (2048)
+    for n in (0, 1, 2, 3, 1023, 1025, 3001, CAP):
+        got = token_pass_plain(torch.from_numpy(toks.copy()), n, planes)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (CAP,)
+        # the whole buffer: past n both return the token unchanged
+        assert np.array_equal(got.numpy(), _pallas_token_pass(merges, toks, n)), (name, n)
+
+
+# --- K3 ---------------------------------------------------------------------
+
+
+def _tombstoned(rng, alphabet, max_run):
+    """Random tokens with tombstone runs of 1..max_run, -1 padding at the end."""
+    toks = rng.choice(alphabet, CAP).astype(np.int32)
+    i = int(rng.integers(0, 8))
+    while i < CAP:
+        run = int(rng.integers(1, max_run + 1))
+        toks[i : i + run] = -1
+        i += run + int(rng.integers(1, 12))
+    toks[CAP - int(rng.integers(0, 300)) :] = -1
+    return toks
+
+
+@pytest.mark.parametrize("max_run", [1, 3, 4, 7])
+@pytest.mark.parametrize("name", sorted(TABLES))
+def test_token_pass_gap_plain_equals_pallas(name, max_run):
+    """Random tombstone patterns, including runs of 4 and more, which break
+    a pair (the look-ahead is four positions): tokens and the alive count."""
+    merges = TABLES[name]
+    rng = np.random.default_rng(max_run)
+    planes = _port_planes(merges)
+    for case in range(2):
+        toks = _tombstoned(rng, _alphabet(merges), max_run)
+        if case:
+            toks[1020:1030] = [97, -1, -1, -1, 97, -1, -1, -1, -1, 97]  # across a block edge
+        got, count = token_pass_gap_plain(torch.from_numpy(toks), planes)
+        ref, ref_count = _pallas_gap_pass(merges, toks)
+        assert np.array_equal(got.numpy(), ref), (name, max_run, case)
+        assert int(count) == ref_count == int((got >= 0).sum())
+
+
+def test_token_pass_gap_edges():
+    """Empty, one token, two tokens, and all-padding buffers."""
+    planes = _port_planes(CHAIN)
+    for alive in (0, 1, 2, 5):
+        toks = np.full(CAP, -1, np.int32)
+        toks[:alive] = 97
+        got, count = token_pass_gap_plain(torch.from_numpy(toks), planes)
+        ref, ref_count = _pallas_gap_pass(CHAIN, toks)
+        assert np.array_equal(got.numpy(), ref) and int(count) == ref_count
+
+
+def test_wrappers_dispatch_on_the_tensor_device_only():
+    planes = _port_planes(HIER)
+    toks = torch.full((CAP,), 97, dtype=torch.int32)
+    multipass_cuda.reset_launches()
+    token_pass(toks, CAP, planes)
+    token_pass_gap(toks, planes)
+    assert multipass_cuda.launches == {"token_pass_gap": 0, "token_pass": 0}
+    with pytest.raises(ValueError, match="int32"):
+        token_pass(toks.to(torch.int64), CAP, planes)
+    with pytest.raises(ValueError, match="do not fit"):
+        token_pass(toks, CAP + 1, planes)
+    with pytest.raises(ValueError, match="CUDA or all-CPU"):
+        token_pass_gap(toks.to("meta"), planes)
+
+
+# --- the encoder ------------------------------------------------------------
+
+
+def _encoders(merges, capacity=CAP):
+    jax_enc = bp.PallasTokenEncoder(JaxMergeTable.build(merges), interpret=True,
+                                    capacity_tokens=capacity, rows_per_block=RPB)
+    port = CudaTokenEncoder(MergeTable.build(merges), CPU, capacity_tokens=capacity)
+    return jax_enc, port
+
+
+def _bytes(rng, n, alphabet=b"abcabcxyzaxyz"):
+    return rng.choice(np.frombuffer(alphabet, np.uint8), size=n).astype(np.uint8)
+
+
+@pytest.mark.parametrize("name", ["hier", "chain"])
+def test_encoder_encode_and_encode_pass_equal_pallas(name):
+    merges = TABLES[name]
+    jax_enc, port = _encoders(merges)
+    rng = np.random.default_rng(5)
+    for n in (0, 1, 2, 777, CAP):
+        data = _bytes(rng, n, b"aaaab" if name == "chain" else b"abcabcxyzaxyz")
+        toks = data.astype(np.int32)
+        assert np.array_equal(port.encode_pass(toks), jax_enc.encode_pass(toks))
+        got = port.encode(data)
+        assert got.tolist() == jax_enc.encode(data).tolist()
+        assert got.tolist() == bpe_encode_multipass(data, JaxMergeTable.build(merges)).tolist()
+
+
+@pytest.mark.parametrize("mode", ["gap", "sort"])
+def test_encode_resident_equals_pallas(mode, monkeypatch):
+    monkeypatch.setenv("BLT_MP_COMPACT", mode)
+    jax_enc, port = _encoders(HIER)
+    rng = np.random.default_rng(7)
+    multipass_cuda.reset_launches()
+    for n in (0, 1, 2, 777, CAP):
+        data = _bytes(rng, n)
+        got = port.encode_resident(data)
+        assert got.tolist() == jax_enc.encode_resident(data).tolist(), (mode, n)
+        assert got.tolist() == bpe_encode_multipass(data, JaxMergeTable.build(HIER)).tolist()
+    toks, m = port.encode_resident_dispatch(_bytes(rng, CAP))
+    assert toks.dtype == torch.int32 and tuple(toks.shape) == (CAP,) and int(m) > 0
+    # every dispatch logged its rounds; the gap loop compacts at most every
+    # third round, the sort loop after every round
+    assert len(multipass_cuda.loop_log) == 4
+    for rounds, compactions in multipass_cuda.loop_log:
+        assert rounds >= 1
+        assert compactions == rounds if mode == "sort" else compactions <= rounds // 3
+
+
+def test_resident_gap_tokens_and_wire_equal_pallas():
+    """The gap loop's tombstoned buffer, its count and the wire, whole."""
+    jax_enc, port = _encoders(CHAIN)
+    rng = np.random.default_rng(9)
+    for data in (np.full(CAP - 5, 97, np.uint8), _bytes(rng, 3000, b"aaab"),
+                 np.zeros(0, np.uint8)):
+        j_toks, j_m = jax_enc.encode_resident_dispatch(data)
+        p_toks, p_m = port.encode_resident_dispatch(data)
+        assert np.array_equal(p_toks.numpy(), np.asarray(j_toks)) and int(p_m) == int(j_m)
+        j_wire, j_m, j_cap = jax_enc.encode_resident_wire_dispatch(data)
+        p_wire, p_m, p_cap = port.encode_resident_wire_dispatch(data)
+        assert p_cap == j_cap == CAP and p_wire.dtype == torch.uint8
+        assert np.array_equal(p_wire.numpy(), np.asarray(j_wire))
+        expanded = expand_gap_wire_host(p_wire.numpy(), p_cap)
+        assert expanded.shape[0] == int(p_m)
+        assert np.array_equal(expanded, bp.expand_gap_wire_host(np.asarray(j_wire), j_cap))
+
+
+def test_planes_from_jax_continues_a_jax_encoder():
+    """Rounds started by the JAX encoder and finished by the port on the
+    JAX encoder's own planes equal a run done entirely in either."""
+    jax_enc, port = _encoders(HIGH)
+    planes = planes_from_jax(np.asarray(jax_enc.k1), np.asarray(jax_enc.v1),
+                             np.asarray(jax_enc.k2), np.asarray(jax_enc.v2),
+                             jax_enc.a1, jax_enc.a2)
+    assert planes.shift == jax_enc.shift and planes.slots == jax_enc.k1.size
+    assert all(p.dtype == torch.int32 for p in (planes.k1, planes.v1, planes.k2, planes.v2))
+    rng = np.random.default_rng(11)
+    data = rng.choice(_alphabet(HIGH), 3000).astype(np.int32)
+    out = jax_enc.encode_pass(data)  # round 1 on the JAX side
+    toks = out[out != -1]
+    while True:  # the rest through the port's K4 on the carried planes
+        out = token_pass_plain(torch.from_numpy(toks), toks.shape[0], planes).numpy()
+        kept = out[out != -1]
+        if kept.shape[0] == toks.shape[0]:
+            break
+        toks = kept
+    assert toks.tolist() == jax_enc.encode(data).tolist() == port.encode(data).tolist()
+    with pytest.raises(ValueError, match="power-of-two"):
+        planes_from_jax(np.zeros(100, np.int32), np.zeros(100, np.int32),
+                        np.zeros(100, np.int32), np.zeros(100, np.int32), 1, 1)
+
+
+# --- bpe_torch.multipass_encode (the twin) ----------------------------------
+
+
+@pytest.mark.parametrize("name", ["hier", "high", "chain"])
+def test_bpe_torch_multipass_equals_bpe_jax(name):
+    merges = TABLES[name]
+    jt = JaxMergeTable.build(merges)
+    keys_j, vals_j = bpe_jax.sparse_table_device(jt)
+    keys_t, vals_t = bpe_torch.sparse_table_device(MergeTable.build(merges))
+    rng = np.random.default_rng(13)
+    buf = _bytes(rng, 2048, b"aaabcxyz")
+    for length in (0, 1, 2, 1500, 2048):
+        j_toks, j_len = bpe_jax.multipass_encode(jnp.asarray(buf), jnp.int32(length), keys_j, vals_j)
+        t_toks, t_len = bpe_torch.multipass_encode(torch.from_numpy(buf.copy()), length, keys_t, vals_t)
+        assert np.array_equal(t_toks.numpy(), np.asarray(j_toks)), (name, length)
+        assert int(t_len) == int(j_len)
+    empty = bpe_torch.sparse_table_device(MergeTable.build({}))
+    assert empty[0].tolist() == [0xFFFFFFFF] and empty[1].tolist() == [-1]
+
+
+# --- the engine and the runner ----------------------------------------------
+
+HINT = 4096
+
+
+def _join(results) -> bytes:
+    return b"".join(bytes(memoryview(r).cast("B")) for r in results)
+
+
+def _chunks(data, size):
+    return [data[i : i + size] for i in range(0, data.shape[0], size)]
+
+
+@pytest.mark.parametrize("mode", ["gap", "sort", "twin"])
+@pytest.mark.parametrize("name", ["hier", "chain"])
+def test_torch_engine_multipass_stream_equals_jax_numpy_and_oracle(name, mode, monkeypatch):
+    if mode == "twin":
+        monkeypatch.setenv("BLT_MULTIPASS", "xla")
+    else:
+        monkeypatch.setenv("BLT_MP_COMPACT", mode)
+    merges = TABLES[name]
+    rng = np.random.default_rng(17)
+    data = _bytes(rng, 3 * HINT + 77, b"aaaab" if name == "chain" else b"abcabcxyzaxyz")
+    chunks = _chunks(data, HINT)
+    multipass_cuda.reset_launches()
+    port = _join(TorchEngine(CPU, depth=2).bpe_stream(iter(chunks), MergeTable.build(merges), HINT))
+    assert len(multipass_cuda.loop_log) == (0 if mode == "twin" else len(chunks))
+    jt = JaxMergeTable.build(merges)
+    jax_out = _join(JaxEngine().bpe_stream(iter(chunks), jt, HINT))
+    host = _join(NumpyEngine(1).bpe_stream(iter(chunks), MergeTable.build(merges), HINT))
+    jax_host = _join(JaxNumpyEngine(1).bpe_stream(iter(chunks), jt, HINT))
+    oracle = b"".join(tokens_to_be_bytes(bpe_encode_oracle(c.tobytes(), merges)) for c in chunks)
+    assert port == jax_out == host == jax_host == oracle
+
+
+def test_engine_routes_by_table_never_by_failure():
+    """More rules than 8192 slots cannot be placed: the twin route, chosen
+    by the table. A chunk longer than the capacity is never cut."""
+    merges = _big_table_merges(seed=4, n=9000)
+    table = MergeTable.build(merges)
+    assert not CudaTokenEncoder.supports(table)
+    assert CudaTokenEncoder.supports(MergeTable.build(TABLES["big"]))
+    assert cuckoo_planes(MergeTable.build(TABLES["big"])).slots == 8192
+    rng = np.random.default_rng(19)
+    data = rng.integers(0, 600, 2 * HINT).astype(np.uint8)
+    chunks = _chunks(data, HINT)
+    multipass_cuda.reset_launches()
+    got = _join(TorchEngine(CPU).bpe_stream(iter(chunks), table, HINT))
+    assert multipass_cuda.loop_log == []
+    assert got == b"".join(bpe_encode_multipass(c, table).astype(">u2").tobytes() for c in chunks)
+    with pytest.raises(ValueError, match="never cut"):
+        _join(TorchEngine(CPU).bpe_stream(iter([data]), MergeTable.build(HIER), HINT))
+    with pytest.raises(ValueError, match="placement failed"):
+        CudaTokenEncoder(table, CPU)
+
+
+def test_run_tokenizer_general_table_equals_jax_runner(tmp_path):
+    """The port's runner with config.with_merges: three 256 KiB chunks, each
+    encoded on its own, through TorchEngine on the CPU."""
+    rng = np.random.default_rng(23)
+    src = tmp_path / "in.bin"
+    src.write_bytes(_bytes(rng, 600_000).tobytes())
+    outs = {}
+    for side, make, run, engine in (
+        ("port", CoreConfig, run_tokenizer, TorchEngine(CPU)),
+        ("jax", JaxCoreConfig, jax_run_tokenizer, None),
+    ):
+        out = tmp_path / f"{side}.bin"
+        config = make.new_from_cli(input=src, output=out, chunksize="256KB").with_merges(HIER)
+        if engine is None:
+            config.engine = JaxEngineName.NUMPY
+            run(config)
+        else:
+            run(config, engine=engine)
+        outs[side] = out.read_bytes()
+    assert outs["port"] == outs["jax"]
+    data = np.frombuffer(src.read_bytes(), np.uint8)
+    expected = b"".join(
+        bpe_encode_multipass(c, JaxMergeTable.build(HIER)).astype(">u2").tobytes()
+        for c in _chunks(data, 256 * 1024)
+    )
+    assert outs["port"] == expected
