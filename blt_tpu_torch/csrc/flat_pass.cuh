@@ -1,0 +1,258 @@
+// One flat-BPE pass as reduce / tile max-scan / emit, templated on what the
+// pass computes, for K2 (flat_bpe.cu) and for its cost split T8
+// (flat_parts.cu).
+//
+// Per position i of a batch with n valid bytes (the function of the Pallas
+// _kernel_body when kLookup, kScan and !kSwap):
+//   nxt   = data[i+1], or max(next_byte, 0) at i == n-1
+//   valid = i < n-1 || (i == n-1 && next_byte >= 0)
+//   kLookup:  val = table[d*256 + nxt] (pre-byteswapped u16, 0 = no rule),
+//             m = valid && val != 0
+//   !kLookup: val = d*256 + nxt, m = valid && (nxt & 7) == 0
+//             (tools/exp_parts.py's stand-in for the lookup)
+//   kScan:    lz = max(-1 - carry_in, last j <= i with !m[j]),
+//             start = m && ((i - lz) & 1) (leftmost-first, non-overlapping)
+//   !kScan:   start = m
+//   consumed = start[i-1], or carry_in at i == 0
+//   slot  = consumed ? 0 : (start ? (kSwap ? bswap16(val) : val) : d << 8)
+//   carry_out = n > 0 ? start[n-1] : carry_in
+//
+// Design: the Pallas kernel carries the block-to-block state in SMEM because
+// a TPU grid runs in order. CUDA blocks run in no order, so the prefix
+// maximum is split into three launches on one stream, with no host sync:
+//   1. tile_reduce: each 4096-position tile records its last non-match
+//      index (or kNeg);
+//   2. tile_scan: one block takes the exclusive max-scan over the tiles,
+//      seeded with the sentinel -1 - carry_in;
+//   3. tile_emit: each tile recomputes its pairs, scans within the tile
+//      (warp shuffles), writes its slots with 16-byte stores, and the thread
+//      that owns n-1 writes carry_out.
+// Without the scan (kScan false) the pass is tile_emit alone: a start needs
+// only its own match bit. The table is the dense 64K-entry wire table
+// (ops/tables.py), read through the read-only data cache. Each thread owns
+// 16 consecutive positions, loaded as one uint4.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kPer = 16;                // positions per thread
+constexpr int kTile = kThreads * kPer;  // positions per block
+constexpr int kScanThreads = 1024;
+constexpr int kNeg = -2147483647;       // -(2^31) + 1, the Pallas _NEG
+
+struct Batch {
+  const uint8_t* data;
+  const uint16_t* table;
+  int cap;        // positions in the buffer (a multiple of 16)
+  int n;          // valid positions
+  int next_byte;  // first byte of the next batch, -1 at end of stream
+};
+
+// Does a merge candidate start at position i (byte d, next byte nx)? Sets
+// val to the value a start there emits (before any swap).
+template <bool kLookup>
+__device__ __forceinline__ bool pair_at(const Batch& b, int i, int d, int nx,
+                                        int& val) {
+  if (i < b.n - 1) {
+    // the pair lies inside the batch
+  } else if (i == b.n - 1 && b.next_byte >= 0) {
+    nx = b.next_byte;
+  } else {
+    val = 0;
+    return false;
+  }
+  if (kLookup) {
+    val = __ldg(b.table + ((d << 8) | nx));
+    return val != 0;
+  }
+  val = (d << 8) | nx;
+  return (nx & 7) == 0;
+}
+
+// Loads the 16 bytes at i0 and evaluates their 16 pairs: bit k of the
+// result is m[i0 + k]. False past cap.
+template <bool kLookup>
+__device__ __forceinline__ bool load_pairs(const Batch& b, int i0,
+                                           int d[kPer], int val[kPer],
+                                           uint32_t& match) {
+  match = 0;
+  if (i0 >= b.cap) return false;
+  uint4 x = *reinterpret_cast<const uint4*>(b.data + i0);
+  uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) d[k] = (w[k >> 2] >> (8 * (k & 3))) & 0xFF;
+  int after = i0 + kPer < b.cap ? b.data[i0 + kPer] : 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    bool m = pair_at<kLookup>(b, i0 + k, d[k], k + 1 < kPer ? d[k + 1] : after,
+                              val[k]);
+    match |= (uint32_t)m << k;
+  }
+  return true;
+}
+
+// Last non-match position among the 16 at i0 (kNeg if all match).
+__device__ __forceinline__ int last_nonmatch(int i0, uint32_t match) {
+  uint32_t non = ~match & 0xFFFFu;
+  return non ? i0 + 31 - __clz(non) : kNeg;
+}
+
+// Exclusive max-scan across the threads of a block of N threads.
+template <int N>
+__device__ __forceinline__ int block_excl_max(int v, int* warp_tot) {
+  int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl = max(incl, y);
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  int prefix = kNeg;
+  for (int w = 0; w < warp; ++w) prefix = max(prefix, warp_tot[w]);
+  int excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = kNeg;
+  return max(prefix, excl);
+}
+
+template <bool kLookup>
+__global__ void __launch_bounds__(kThreads)
+    tile_reduce(Batch b, int* __restrict__ tile_lnm) {
+  __shared__ int warp_max[kThreads / 32];
+  int i0 = blockIdx.x * kTile + threadIdx.x * kPer;
+  int d[kPer], val[kPer];
+  uint32_t match;
+  int mx = load_pairs<kLookup>(b, i0, d, val, match) ? last_nonmatch(i0, match)
+                                                     : kNeg;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mx = max(mx, __shfl_down_sync(0xffffffffu, mx, o));
+  }
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int m = kNeg;
+    for (int w = 0; w < kThreads / 32; ++w) m = max(m, warp_max[w]);
+    tile_lnm[blockIdx.x] = m;
+  }
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+    tile_scan(const int* __restrict__ tile_lnm, int* __restrict__ tile_excl,
+              int nt, const int* __restrict__ carry_in) {
+  __shared__ int warp_tot[kScanThreads / 32];
+  int per = (nt + kScanThreads - 1) / kScanThreads;
+  int lo = threadIdx.x * per;
+  int hi = min(nt, lo + per);
+  int local = kNeg;
+  for (int j = lo; j < hi; ++j) local = max(local, tile_lnm[j]);
+  int run = max(block_excl_max<kScanThreads>(local, warp_tot), -1 - carry_in[0]);
+  for (int j = lo; j < hi; ++j) {
+    tile_excl[j] = run;
+    run = max(run, tile_lnm[j]);
+  }
+}
+
+template <bool kLookup, bool kScan, bool kSwap>
+__global__ void __launch_bounds__(kThreads)
+    tile_emit(Batch b, const int* __restrict__ tile_excl,
+              const int* __restrict__ carry_in, uint16_t* __restrict__ slots,
+              int* __restrict__ carry_out) {
+  __shared__ int warp_tot[kThreads / 32];
+  __shared__ unsigned char last_start[kThreads];
+  int t = threadIdx.x;
+  int tile0 = blockIdx.x * kTile;
+  int i0 = tile0 + t * kPer;
+  int d[kPer], val[kPer];
+  uint32_t match;
+  bool live = load_pairs<kLookup>(b, i0, d, val, match);
+  uint32_t starts = match;
+  int tile_prefix = kNeg;
+  if (kScan) {
+    tile_prefix = tile_excl[blockIdx.x];  // holds the sentinel too
+    int mx = live ? last_nonmatch(i0, match) : kNeg;
+    int run = max(tile_prefix, block_excl_max<kThreads>(mx, warp_tot));
+    starts = 0;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      int i = i0 + k;
+      if (!((match >> k) & 1u)) {
+        run = i;
+      } else if ((i - run) & 1) {
+        starts |= 1u << k;
+      }
+    }
+  }
+  last_start[t] = (starts >> (kPer - 1)) & 1u;
+  __syncthreads();
+  if (!live) return;
+
+  // was position i0 - 1 a merge start?
+  uint32_t prev_start;
+  if (t > 0) {
+    prev_start = last_start[t - 1];
+  } else if (blockIdx.x == 0) {
+    prev_start = carry_in[0] != 0;
+  } else {
+    // the previous tile's last position; under the scan its lz is this
+    // tile's prefix
+    int ip = tile0 - 1;
+    int v;
+    bool m = pair_at<kLookup>(b, ip, b.data[ip], b.data[tile0], v);
+    prev_start = m && (!kScan || ((ip - tile_prefix) & 1));
+  }
+  uint32_t consumed = (starts << 1) | prev_start;
+
+  uint32_t w[kPer / 2];
+#pragma unroll
+  for (int j = 0; j < kPer / 2; ++j) {
+    uint32_t s[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int k = 2 * j + h;
+      uint32_t v = (uint32_t)val[k] & 0xFFFFu;
+      if (kSwap) v = ((v & 0xFFu) << 8) | (v >> 8);
+      s[h] = ((consumed >> k) & 1u) ? 0u
+             : ((starts >> k) & 1u) ? v
+                                    : (uint32_t)d[k] << 8;
+    }
+    w[j] = s[0] | (s[1] << 16);
+  }
+  uint4* out = reinterpret_cast<uint4*>(slots + i0);
+  out[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  out[1] = make_uint4(w[4], w[5], w[6], w[7]);
+
+  int last = b.n - 1;
+  if (last >= i0 && last < i0 + kPer) carry_out[0] = (starts >> (last - i0)) & 1u;
+  if (b.n == 0 && i0 == 0) carry_out[0] = carry_in[0];
+}
+
+// The pass's launches on one stream. scratch: 2 * ceil(cap / 4096) int32
+// (unused without the scan). Returns the first nonzero cudaGetLastError().
+template <bool kLookup, bool kScan, bool kSwap>
+int launch_flat_pass(const Batch& b, const int* carry_in, uint16_t* slots,
+                     int* carry_out, int* scratch, cudaStream_t s) {
+  int nt = (b.cap + kTile - 1) / kTile;
+  int* tile_lnm = scratch;
+  int* tile_excl = kScan ? scratch + nt : nullptr;
+  if (kScan) {
+    tile_reduce<kLookup><<<nt, kThreads, 0, s>>>(b, tile_lnm);
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+    tile_scan<<<1, kScanThreads, 0, s>>>(tile_lnm, tile_excl, nt, carry_in);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  tile_emit<kLookup, kScan, kSwap><<<nt, kThreads, 0, s>>>(
+      b, tile_excl, carry_in, slots, carry_out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -122,6 +122,10 @@ def load() -> ctypes.CDLL:
         lib.blt_flat_bpe.restype = i
         lib.blt_pack_slots.argtypes = [p, i, i, p, p, p, p]
         lib.blt_pack_slots.restype = i
+        lib.blt_chain.argtypes = [i, p, p, i64, p, p, p, i, i, i, p]
+        lib.blt_chain.restype = i
+        lib.blt_flat_parts.argtypes = [i, p, i, i, i, p, p, p, p, p, p]
+        lib.blt_flat_parts.restype = i
         u = ctypes.c_uint
         lib.blt_token_pass.argtypes = [p, i, i, p, p, p, p, i, u, u, i, p, p, p]
         lib.blt_token_pass.restype = i

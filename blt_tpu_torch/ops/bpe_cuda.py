@@ -1,11 +1,18 @@
 """The main path's kernels and their encoders (port of the Pallas flat and
 basic encoders in ``blt_tpu/ops/bpe_pallas.py``).
 
-Three wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
+Four wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
 
 - ``basic_encode``: the widen, K1 (``widen.cu``);
-- ``flat_encode_slots``: one flat-BPE pass, K2 (``flat_bpe.cu``);
-- ``pack_slots``: K2's packed-wire epilogue (``flat_bpe.cu``).
+- ``flat_encode_slots``: one flat-BPE pass, K2 (``flat_bpe.cu``), or with
+  ``variant`` one of the device-rate tools' cost-split variants of it, T8
+  (``flat_parts.cu``);
+- ``pack_slots``: K2's packed-wire epilogue (``flat_bpe.cu``);
+- ``chain_encode``: a copy or widen launched k times through a token
+  (``chain.cu``): K5 (``basic_encode_chained``, what ``bench.py`` times)
+  and the device-rate tools' T1 and T7.
+
+``flat_encode_chained`` runs K2 k times through its device carry.
 
 Each has a plain PyTorch version of the same function beside it
 (``*_plain``). Dispatch is by the tensor alone: a CUDA tensor launches the
@@ -31,10 +38,22 @@ from blt_tpu_torch.ops import _cuda_build
 from blt_tpu_torch.ops.tables import wire_table
 
 LANES = 128  # capacity granularity: slots come back as (capacity // 128, 128)
-_TILE = 4096  # positions per CUDA block in flat_bpe.cu
+_TILE = 4096  # positions per CUDA block in csrc/flat_pass.cuh
+
+# chain.cu's users, by launch counter: (widen, one CUDA block per grid step)
+CHAINS = {
+    "basic_chained": (True, False),  # K5
+    "chain_copy": (False, False),  # T1 copy_chain
+    "chain_widen": (True, False),  # T1 widen_chain
+    "copy_sweep": (False, True),  # T7 copy_pallas
+}
+# flat_parts.cu's variants of the flat pass (T8), in its order: (lookup, scan)
+FLAT_VARIANTS = {"emit": (False, False), "noscan": (True, False),
+                 "nolookup": (False, True), "full": (True, True)}
 
 # kernel launches made by the wrappers below, by kernel name
-launches = {"widen": 0, "flat_bpe": 0, "pack_slots": 0}
+launches = {"widen": 0, "flat_bpe": 0, "pack_slots": 0, **dict.fromkeys(CHAINS, 0),
+            **{f"parts_{v}": 0 for v in FLAT_VARIANTS}}
 
 
 def reset_launches() -> None:
@@ -97,7 +116,119 @@ def basic_encode(data: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# --- K5, T1, T7: copy and widen chained through a token -----------------------
+
+
+def chain_passes(pass_fn, carry, k: int):
+    """k passes of ``pass_fn(carry) -> (out, carry)``, each taking the
+    carry the pass before returned; the last (out, carry)."""
+    if k < 1:
+        raise ValueError(f"a chain needs k >= 1, got {k}")
+    for _ in range(k):
+        out, carry = pass_fn(carry)
+    return out, carry
+
+
+def _chain_steps(name: str, data2: torch.Tensor, tok, k: int, rows_per_block: int) -> int:
+    """Validate a chain's arguments; the Pallas grid's steps ``rows //
+    rows_per_block``. Raises where that grid would leave rows unwritten."""
+    if name not in CHAINS:
+        raise ValueError(f"unknown chain {name!r}; one of {tuple(CHAINS)}")
+    if k < 1:
+        raise ValueError(f"a chain needs k >= 1, got {k}")
+    if tok is None and k != 1:
+        raise ValueError("a chain with no token input is one launch")
+    if data2.dim() != 2 or data2.shape[1] != LANES or data2.dtype != torch.uint8:
+        raise ValueError(f"expected uint8 (rows, {LANES}), got {data2.dtype} "
+                         f"{tuple(data2.shape)}")
+    rows = data2.shape[0]
+    if rows_per_block < 1 or rows == 0 or rows % rows_per_block:
+        raise ValueError(
+            f"{rows} rows are not a positive multiple of rows_per_block "
+            f"{rows_per_block}: the Pallas grid would not write the rest"
+        )
+    return rows // rows_per_block
+
+
+def chain_plain(
+    name: str, data2: torch.Tensor, tok, k: int, rows_per_block: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``chain_encode`` as plain tensor ops: (the copy or widen of data2,
+    the token the last of the k Pallas grids writes: each grid's last step
+    writes ``program_id + token``, 0 for ``tok`` None)."""
+    steps = _chain_steps(name, data2, tok, k, rows_per_block)
+    out = widen_plain(data2) if CHAINS[name][0] else data2.clone()
+    if tok is None:
+        return out, torch.full((1, 1), steps - 1, dtype=torch.int32, device=data2.device)
+    return out, tok.reshape(1, 1).to(torch.int32) + k * (steps - 1)
+
+
+def chain_encode(
+    name: str, data2: torch.Tensor, tok, k: int, rows_per_block: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k launches of ``chain.cu`` back to back, chained through a device
+    token, counted under ``launches[name]``: kernel on CUDA tensors, plain
+    on CPU tensors. ``name`` is a key of ``CHAINS``: it picks copy (u8 out)
+    or widen (u16 out), and whether the launch has a CUDA block per Pallas
+    grid step (the T7 sweep) or a grid sized to the card.
+
+    data2: uint8 (rows, 128), rows a multiple of ``rows_per_block``; tok:
+    int32 (1,1), or None for one launch with no token input. Returns (last
+    out (rows, 128), last token int32 (1,1) = tok + k * (rows // rpb - 1)).
+    """
+    steps = _chain_steps(name, data2, tok, k, rows_per_block)
+    if not _on_cuda(data2, *([] if tok is None else [tok])):
+        return chain_plain(name, data2, tok, k, rows_per_block)
+    _check_aligned(data2, "chain input")
+    widen, per_step = CHAINS[name]
+    dev = data2.device
+    out = torch.empty(data2.shape, dtype=torch.uint16 if widen else torch.uint8,
+                      device=dev)
+    toks = torch.empty((2, 1), dtype=torch.int32, device=dev)
+    tok_in = 0
+    if tok is not None:
+        tok = tok.reshape(1, 1).to(dtype=torch.int32).contiguous()
+        tok_in = tok.data_ptr()
+    lib = _cuda_build.load()
+    with torch.cuda.device(dev):
+        err = lib.blt_chain(
+            int(widen), data2.data_ptr(), out.data_ptr(), data2.numel(), tok_in,
+            toks[0].data_ptr(), toks[1].data_ptr(), steps - 1, k,
+            steps if per_step else 0, _stream(dev),
+        )
+    _cuda_build.check(err, name)
+    launches[name] += k
+    return out, toks[(k - 1) & 1].reshape(1, 1)
+
+
+def basic_chained_plain(
+    data2: torch.Tensor, tok: torch.Tensor, k: int = 8, rows_per_block: int = 512
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 as plain tensor ops."""
+    return chain_plain("basic_chained", data2, tok, k, rows_per_block)
+
+
+def basic_encode_chained(
+    data2: torch.Tensor, tok: torch.Tensor, k: int = 8, rows_per_block: int = 512
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k widens back to back, chained through a device token (port of
+    ``bpe_pallas.basic_encode_chained``, K5); ``chain_encode``'s arguments
+    and results. Returns (last_out uint16 (rows, 128), last_tok int32
+    (1,1) = tok + k * (rows // rpb - 1))."""
+    return chain_encode("basic_chained", data2, tok, k, rows_per_block)
+
+
 # --- K2: one flat-BPE pass --------------------------------------------------
+
+
+def _flat_flags(variant) -> Tuple[bool, bool, bool]:
+    """(lookup, scan, swap) of a flat pass: K2 for ``variant`` None, else
+    a T8 variant, which emits a start's value byteswapped."""
+    if variant is None:
+        return True, True, False
+    if variant not in FLAT_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {tuple(FLAT_VARIANTS)}")
+    return (*FLAT_VARIANTS[variant], True)
 
 
 def flat_slots_plain(
@@ -106,14 +237,21 @@ def flat_slots_plain(
     next_byte: int,
     table: torch.Tensor,
     carry_in: torch.Tensor,
+    variant: str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One flat-BPE pass as plain tensor ops (the function of the Pallas
-    ``_kernel_body`` and of ``flat_bpe.cu``).
+    ``_kernel_body`` and of ``csrc/flat_pass.cuh``).
 
     data: uint8[cap] (stale past ``n``); table: the uint16[65536] wire
     table; carry_in: int32, one element. Returns (slots uint16[cap],
     carry_out int32 (1,1)).
+
+    ``variant`` (a key of ``FLAT_VARIANTS``) drops parts of the pass. No
+    lookup: m = (next byte & 7) == 0, val = the pair ``d*256 + next``; no
+    scan: every match starts. A variant's start emits its value
+    byteswapped (the tool's ``byteswap(tok)``).
     """
+    lookup, scan, swap = _flat_flags(variant)
     d = data.reshape(-1).to(torch.int32)
     cap = d.shape[0]
     idx = torch.arange(cap, dtype=torch.int32, device=d.device)
@@ -122,15 +260,24 @@ def flat_slots_plain(
     if n > 0:
         nxt[n - 1] = max(next_byte, 0)
     valid = (idx < n - 1) | ((idx == n - 1) & (next_byte >= 0))
-    val = torch.where(valid, table.to(torch.int32)[(d * 256 + nxt).long()], 0)
-    m = val != 0
+    if lookup:
+        val = torch.where(valid, table.to(torch.int32)[(d * 256 + nxt).long()], 0)
+        m = val != 0
+    else:
+        val = d * 256 + nxt
+        m = valid & ((nxt & 7) == 0)
     carry = carry_in.reshape(()).to(torch.int32)
-    lnm = torch.cummax(torch.where(m, -(2**31) + 1, idx), 0).values
-    lz = torch.maximum(lnm, -1 - carry)
-    start = m & (((idx - lz) & 1) == 1)
+    if scan:
+        lnm = torch.cummax(torch.where(m, -(2**31) + 1, idx), 0).values
+        lz = torch.maximum(lnm, -1 - carry)
+        start = m & (((idx - lz) & 1) == 1)
+    else:
+        start = m
     consumed = torch.empty_like(start)
     consumed[1:] = start[:-1]
     consumed[0] = carry != 0
+    if swap:
+        val = ((val & 0xFF) << 8) | ((val >> 8) & 0xFF)
     slot = torch.where(start, val, d << 8)
     slot = torch.where(consumed, 0, slot)
     if n > 0:
@@ -146,12 +293,16 @@ def flat_encode_slots(
     next_byte: int,
     table: torch.Tensor,
     carry_in: torch.Tensor,
+    variant: str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One flat-BPE pass: kernel on CUDA tensors, plain on CPU tensors.
 
     Same arguments and results as ``flat_slots_plain``. ``carry_in`` is
-    read on the device, so batches chain without a host sync.
+    read on the device, so batches chain without a host sync. ``variant``
+    None launches K2 (``flat_bpe.cu``), a key of ``FLAT_VARIANTS`` that T8
+    variant (``flat_parts.cu``); each counts under its own name.
     """
+    _flat_flags(variant)
     cap = data.numel()
     if data.dtype != torch.uint8 or table.dtype != torch.uint16:
         raise ValueError("flat pass takes uint8 data and a uint16 table")
@@ -162,7 +313,7 @@ def flat_encode_slots(
     if not -1 <= next_byte <= 255:
         raise ValueError(f"next_byte {next_byte} outside -1..255")
     if not _on_cuda(data, table, carry_in):
-        return flat_slots_plain(data, n, next_byte, table, carry_in)
+        return flat_slots_plain(data, n, next_byte, table, carry_in, variant)
     _check_aligned(data, "flat pass input")
     if cap % 16 or cap == 0 or cap >= 2**31 - _TILE:
         raise ValueError(
@@ -175,16 +326,38 @@ def flat_encode_slots(
     slots = torch.empty(cap, dtype=torch.uint16, device=dev)
     carry_out = torch.empty((1, 1), dtype=torch.int32, device=dev)
     scratch = torch.empty(2 * (-(-cap // _TILE)), dtype=torch.int32, device=dev)
+    args = (data.data_ptr(), cap, n, next_byte, table.data_ptr(),
+            carry_in.contiguous().data_ptr(), slots.data_ptr(), carry_out.data_ptr(),
+            scratch.data_ptr(), _stream(dev))
     lib = _cuda_build.load()
     with torch.cuda.device(dev):
-        err = lib.blt_flat_bpe(
-            data.data_ptr(), cap, n, next_byte, table.data_ptr(),
-            carry_in.contiguous().data_ptr(), slots.data_ptr(),
-            carry_out.data_ptr(), scratch.data_ptr(), _stream(dev),
-        )
-    _cuda_build.check(err, "flat_bpe")
-    launches["flat_bpe"] += 1
+        if variant is None:
+            name, err = "flat_bpe", lib.blt_flat_bpe(*args)
+        else:
+            name = f"parts_{variant}"
+            err = lib.blt_flat_parts(list(FLAT_VARIANTS).index(variant), *args)
+    _cuda_build.check(err, name)
+    launches[name] += 1
     return slots, carry_out
+
+
+def flat_encode_chained(
+    data: torch.Tensor,
+    n: int,
+    next_byte: int,
+    table: torch.Tensor,
+    carry_in: torch.Tensor,
+    k: int = 8,
+    variant: str | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 (or a T8 ``variant``) k times back to back over one batch, each
+    pass taking the carry the pass before wrote (port of
+    ``bpe_pallas.flat_encode_chained``). The carry stays on the device, so
+    the k passes run with no host sync. Returns the last pass's (slots,
+    carry_out)."""
+    return chain_passes(
+        lambda c: flat_encode_slots(data, n, next_byte, table, c, variant), carry_in, k
+    )
 
 
 # --- K2 epilogue: packed wire -----------------------------------------------

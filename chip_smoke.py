@@ -31,7 +31,18 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    traced once more;
 6. the CLI as a process, from a 64 MiB stdin pipe, byte for byte, and
    the seconds a fresh process takes to import the CLI and reach the card;
-7. neither ``jax`` nor ``blt_tpu`` was ever imported.
+7. measure, the device-rate path (``blt_tpu_torch.tools``): (a) K5, T1,
+   T7 and T8 against their plain versions on the card, exactly (K5 and T1
+   chained 1 and 3 times from a nonzero token, T7 at three block counts,
+   the T8 variants over every flat case of phase 3, ``full`` against K2);
+   (b) the launch counters set to 0, then the three tools' measurements at
+   64 MiB in this process (K5, T1 and K2 chained 96 / 96 / 24 times, T7 at
+   rows_per_block 512 / 2048 / 8192, the T8 variants chained 8 times), each
+   chain timed as launched and as a CUDA-graph replay (median and IQR of
+   5), beside its plain version, its byte bound and ``clone()`` on the
+   copy rows; the counters read; (c) ``python -m
+   blt_tpu_torch.tools.<name> --size-mib 64`` for each tool as a process;
+8. neither ``jax`` nor ``blt_tpu`` was ever imported.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -52,63 +63,46 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-MIB = 1 << 20
-
-
-def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+sys.path.insert(0, ROOT)
+# the corpus, pair and bound recipes the device-rate tools use; the import
+# fails where this script stands outside a checkout
+from blt_tpu_torch.tools._common import (  # noqa: E402
+    MIB,
+    emit,
+    frequent_pairs,
+    make_corpus,
+    nvidia_smi,
+)
+from blt_tpu_torch.tools._common import bound_ms as bytes_bound_ms  # noqa: E402
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def pallas_line(func: str) -> str:
-    """``file:line`` of a function in the JAX package's Pallas module,
-    read as text (importing it would import JAX)."""
-    rel = "blt_tpu/ops/bpe_pallas.py"
+def pallas_line(func: str, rel: str = "blt_tpu/ops/bpe_pallas.py") -> str:
+    """``file:line`` of a function of the JAX side (the Pallas module, or a
+    tool under ``tools/``), read as text: importing it would import JAX.
+    ``outer.inner`` names a function defined inside another."""
     with open(os.path.join(ROOT, rel)) as f:
-        for i, line in enumerate(f, 1):
-            if line.startswith(f"def {func}("):
-                return f"{rel}:{i}"
-    fail(f"{func} not found in {rel}")
+        lines = f.read().splitlines()
 
+    def indent(line: str) -> int:
+        return len(line) - len(line.lstrip())
 
-def make_corpus(rng, n: int):
-    """Zipf-ish text bytes, the JAX package's bench recipe (bench.py
-    make_corpus): a 4 MiB base sample, tiled and rotated to ``n`` bytes."""
-    import numpy as np
-
-    alphabet = np.frombuffer(
-        b"etaoinshrdlucmfwypvbgkjqxz ETAOIN,.;:'\"!?0123456789", np.uint8
-    )
-    weights = 1.0 / np.arange(1, len(alphabet) + 1)
-    base_n = 4 * MIB
-    base = rng.choice(alphabet, size=base_n, p=weights / weights.sum()).astype(np.uint8)
-    reps = -(-n // base_n)
-    shift = int(rng.integers(0, base_n))
-    return np.roll(np.tile(base, reps)[:n], shift)
-
-
-def frequent_pairs(corpus, k: int):
-    """The k most frequent byte pairs of the corpus's first 4 MiB."""
-    import numpy as np
-
-    sample = corpus[: 4 * MIB]
-    pairs, counts = np.unique(
-        sample[:-1].astype(np.int32) * 256 + sample[1:].astype(np.int32),
-        return_counts=True,
-    )
-    top = pairs[np.argsort(-counts, kind="stable")][:k]
-    return [(int(p) // 256, int(p) % 256) for p in top]
+    lo, hi, outer = 0, len(lines), -1
+    for name in func.split("."):
+        for i in range(lo, hi):
+            if lines[i].lstrip().startswith(f"def {name}(") and (
+                indent(lines[i]) > outer if outer >= 0 else indent(lines[i]) == 0
+            ):
+                outer, lo = indent(lines[i]), i + 1
+                hi = next((j for j in range(lo, len(lines))
+                           if lines[j].strip() and indent(lines[j]) <= outer), len(lines))
+                break
+        else:
+            fail(f"{func} not found in {rel}")
+    return f"{rel}:{lo}"
 
 
 def fifty_k_pairs(rng, first):
@@ -130,18 +124,21 @@ def write_merges(path: str, pairs) -> None:
         f.writelines(f"{a} {b}\n" for a, b in pairs)
 
 
-def all_launches() -> dict:
-    """Every kernel's launch count, by name."""
+def _counted_modules():
+    """Every module that counts kernel launches."""
     from blt_tpu_torch.ops import bpe_cuda, multipass_cuda
 
-    return {**bpe_cuda.launches, **multipass_cuda.launches}
+    return bpe_cuda, multipass_cuda
+
+
+def all_launches() -> dict:
+    """Every kernel's launch count, by name."""
+    return {k: v for m in _counted_modules() for k, v in m.launches.items()}
 
 
 def reset_all_launches() -> None:
-    from blt_tpu_torch.ops import bpe_cuda, multipass_cuda
-
-    bpe_cuda.reset_launches()
-    multipass_cuda.reset_launches()
+    for m in _counted_modules():
+        m.reset_launches()
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -317,13 +314,10 @@ def reference_multipass_shas(corpus, rules, chunk: int, first: int):
     return h_all.hexdigest(), h_first.hexdigest()
 
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-
-
 def bound_ms(*tensors) -> float:
     """Least time for a function that reads its inputs and writes its
     outputs once each: their bytes over the card's memory rate."""
-    return sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S * 1e3
+    return bytes_bound_ms(sum(t.numel() * t.element_size() for t in tensors))
 
 
 def device_profile(fn):
@@ -379,9 +373,11 @@ def phase_kernels(corpus, merges500, merges50k, rng):
 
     err = {"widen": 0, "flat_bpe": 0, "pack_slots": 0}
     cases = 0
+    flat_cases = []  # (data, n, next_byte, table, carry): phase 7 replays them
 
     def check_flat(data, n, nb, table, carry, prev):
         nonlocal cases
+        flat_cases.append((data, n, nb, table, carry))
         c_in = torch.tensor([[carry]], dtype=torch.int32, device=dev)
         p_in = torch.tensor(prev, dtype=torch.int32, device=dev)
         slots, c_out = bpe_cuda.flat_encode_slots(data, n, nb, table, c_in)
@@ -499,7 +495,7 @@ def phase_kernels(corpus, merges500, merges50k, rng):
                      for k, v in ms.items()},
         **extra,
     })
-    return err, ms, bounds
+    return err, ms, bounds, flat_cases
 
 
 def phase_multipass_kernels(corpus, rules, rng):
@@ -825,6 +821,136 @@ def phase_process(inp, m500, merges500):
           "fresh_process": startup})
 
 
+# kernel rows of the device-rate path: name -> (CUDA source, the Pallas
+# function it replaces, its file); phase 7 gives their numbers
+MEASURED_ROWS = {
+    "basic_chained": ("chain.cu", "basic_encode_chained", "blt_tpu/ops/bpe_pallas.py"),
+    "chain_copy": ("chain.cu", "_call", "tools/exp_chain.py"),
+    "chain_widen": ("chain.cu", "_call", "tools/exp_chain.py"),
+    "copy_sweep": ("chain.cu", "copy_pallas", "tools/exp_sweep.py"),
+    **{f"parts_{v}": ("flat_parts.cu", "chain.call", "tools/exp_parts.py")
+       for v in ("emit", "noscan", "nolookup", "full")},
+}
+
+
+def _summary(row: dict) -> dict:
+    """A tool's row, short: ms per launch (median, IQR) and GB/s (median)
+    as launched and replayed from a graph, beside bound, plain and clone."""
+    out = {k: row[k] for k in ("name", "kernel", "rpb", "blocks", "k", "exact") if k in row}
+    for mode in ("eager", "graph"):
+        t = row[mode]
+        out[mode] = {"ms": t["ms_per_launch"]["median"], "iqr_ms": t["ms_per_launch"]["iqr"],
+                     "GB_per_s": t["GB_per_s"]["median"]}
+    return {**out, "bound_ms": row["bound_ms"], "plain_ms": row["plain_ms"],
+            "clone_ms": row["library_ms"]}
+
+
+def phase_measure(corpus, flat_cases, err):
+    """Phase 7: the device-rate path. (a) each new kernel against its plain
+    version; (b) the tools' measurements in process at 64 MiB, the tools'
+    and bench.py's size, the launch counters set to 0 before and read
+    after; (c) each tool as a process."""
+    import numpy as np
+    import torch
+
+    from blt_tpu_torch.ops import bpe_cuda
+    from blt_tpu_torch.tools import exp_chain, exp_parts, exp_sweep
+
+    dev = torch.device("cuda", 0)
+    for k in MEASURED_ROWS:
+        err[k] = 0
+    cases = 0
+
+    def hold(name, got, ref, what):
+        nonlocal cases
+        torch.cuda.synchronize()
+        e = max(int_err(a, b) for a, b in zip(got, ref))
+        if e:
+            fail(f"{name}, {what}: err {e}")
+        err[name] = max(err[name], e)
+        cases += 1
+
+    # (a) exactness
+    data2 = torch.from_numpy(np.ascontiguousarray(corpus[: 16 * MIB])).to(dev).reshape(-1, 128)
+    tok = torch.tensor([[1000]], dtype=torch.int32, device=dev)
+    for k in (1, 3):
+        hold("basic_chained", bpe_cuda.basic_encode_chained(data2, tok, k, 2048),
+             bpe_cuda.basic_chained_plain(data2, tok, k, 2048), f"k={k}")
+        hold("chain_copy", exp_chain.copy_chain(data2, tok, 2048, k),
+             exp_chain.copy_chain_plain(data2, tok, 2048, k), f"k={k}")
+        hold("chain_widen", exp_chain.widen_chain(data2, tok, 2048, k),
+             exp_chain.widen_chain_plain(data2, tok, 2048, k), f"k={k}")
+    for rpb in exp_sweep.RPBS:
+        hold("copy_sweep", exp_sweep.copy_pallas(data2, rpb),
+             exp_sweep.copy_plain(data2, rpb), f"rpb={rpb}")
+    for data, n, nb, table, carry in flat_cases:
+        c = torch.tensor([[carry]], dtype=torch.int32, device=dev)
+        what = f"n={n} next_byte={nb} carry={carry}"
+        for v in exp_parts.VARIANTS:
+            hold(f"parts_{v}", exp_parts.flat_parts(v, data, n, nb, table, c),
+                 exp_parts.flat_parts_plain(v, data, n, nb, table, c), what)
+        # full is K2's slot with each merge start's value byteswapped
+        full, full_c = exp_parts.flat_parts("full", data, n, nb, table, c)
+        k2, k2_c = bpe_cuda.flat_encode_slots(data, n, nb, table, c)
+        k2 = k2.to(torch.int32)
+        swapped = torch.where((k2 & 0xFF) != 0, ((k2 & 0xFF) << 8) | (k2 >> 8), k2)
+        hold("parts_full", (full.to(torch.int32), full_c), (swapped, k2_c), f"{what}, vs K2")
+    emit({"phase": "measure_exact", "cases": cases, "tolerance": 0,
+          "max_abs_err": {k: err[k] for k in MEASURED_ROWS}})
+
+    # (b) the rates at full width, in this process
+    size = 64 * MIB
+    reset_all_launches()
+    results = {}
+    for name, run in (
+        ("exp_chain", lambda: exp_chain.measure(dev, size, k=96)),
+        ("exp_sweep", lambda: exp_sweep.measure(dev, size, k=8)),
+        ("exp_parts", lambda: exp_parts.measure(dev, size, k=8)),
+    ):
+        t0 = time.perf_counter()
+        results[name] = run()
+        if not results[name]["exact"]:
+            fail(f"{name}: a kernel differs from its plain version")
+        emit({"phase": "measure", "tool": name, "size_bytes": size,
+              "seconds": time.perf_counter() - t0,
+              "rows": [_summary(r) for r in results[name]["rows"]],
+              **({"split": results[name]["split"]} if "split" in results[name] else {})})
+    launches = all_launches()
+    missing = [k for k in MEASURED_ROWS if not launches[k]]
+    if missing:
+        fail(f"kernels of the device-rate path never launched: {missing}")
+
+    # (c) the entry points as processes
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    for name in results:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"blt_tpu_torch.tools.{name}", "--size-mib", str(size // MIB)],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=600,
+        )
+        if proc.returncode != 0:
+            fail(f"{name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        if not out["exact"] or out["device"]["type"] != "cuda":
+            fail(f"{name} as a process: exact {out['exact']}, device {out['device']}")
+        emit({"phase": "measure_process", "tool": name, "rc": 0,
+              "seconds": time.perf_counter() - t0,
+              "graph_ms": {f"{r['name']}/{r.get('rpb')}": r["graph"]["ms_per_launch"]["median"]
+                           for r in out["rows"]}})
+
+    def row(tool, name, rpb=None):
+        return next(r for r in results[tool]["rows"]
+                    if r["name"] == name and r.get("rpb") == rpb)
+
+    rows = {"basic_chained": row("exp_chain", "basic_chained", 2048),
+            "chain_copy": row("exp_chain", "copy", 2048),
+            "chain_widen": row("exp_chain", "widen", 2048),
+            "copy_sweep": row("exp_sweep", "copy", 2048),
+            **{f"parts_{v}": row("exp_parts", v) for v in exp_parts.VARIANTS}}
+    return {"launches": {k: launches[k] for k in MEASURED_ROWS}, "rows": rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -838,8 +964,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
-    sys.path.insert(0, ROOT)
-    from blt_tpu_torch.ops import _cuda_build  # fails outside a checkout
+    from blt_tpu_torch.ops import _cuda_build
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -873,7 +998,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     # 3. kernels against their plain versions
-    err, ms, bounds = phase_kernels(
+    err, ms, bounds, flat_cases = phase_kernels(
         corpus,
         numbered(merges500),
         numbered(merges50k),
@@ -892,7 +1017,11 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    # 7. nothing of JAX or the JAX package anywhere in this process
+    # 7. the device-rate path
+    measured = phase_measure(corpus, flat_cases, err)
+    launches.update(measured["launches"])
+
+    # 8. nothing of JAX or the JAX package anywhere in this process
     bad = sorted(k for k in sys.modules if k == "blt_tpu" or k.startswith(("blt_tpu.", "jax")))
     if bad:
         fail(f"imported {bad}")
@@ -905,13 +1034,23 @@ def main() -> int:
         "token_pass_gap": ("token_pass_gap.cu", "_token_pass_gap_call"),
         "token_pass": ("token_pass.cu", "_token_pass_call"),
     }
-    emit({"kernels": [
+    kernels = [
         {"name": k, "route": "cuda", "source": f"blt_tpu_torch/csrc/{src}",
          "replaces": pallas_line(func), "launches": launches[k],
          "max_abs_err": err[k], "ms": ms[k][0], "plain_ms": ms[k][1],
          "bound_ms": bounds[k], "bound_by": "bytes", "library_ms": None}
         for k, (src, func) in rows.items()
-    ]})
+    ]
+    for k, (src, func, rel) in MEASURED_ROWS.items():
+        r = measured["rows"][k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": f"blt_tpu_torch/csrc/{src}",
+            "replaces": pallas_line(func, rel), "launches": launches[k],
+            "max_abs_err": err[k], "ms": r["graph"]["ms_per_launch"]["median"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "library_ms": r["library_ms"],
+        })
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -19,6 +19,7 @@ from blt_tpu_torch.ops import bpe_cuda, multipass_cuda
 from blt_tpu_torch.ops.bpe_numpy import bpe_encode_flat, bpe_encode_multipass
 from blt_tpu_torch.ops.tables import cuckoo_planes, wire_table
 from blt_tpu_torch.pipeline.engines import TorchEngine
+from blt_tpu_torch.tools import _common, exp_chain, exp_parts, exp_sweep
 
 pytestmark = pytest.mark.gpu
 
@@ -155,3 +156,65 @@ def test_multipass_engine_on_the_card(cuda, mode, monkeypatch):
     kernel = "token_pass" if mode == "sort" else "token_pass_gap"
     assert len(multipass_cuda.loop_log) == len(chunks)
     assert multipass_cuda.launches[kernel] == rounds > 0
+
+
+def test_chain_kernels_equal_plain_versions(cuda):
+    """K5, T1 and T7 (chain.cu) against their plain versions."""
+    data2 = torch.from_numpy(_text(14, 1024 * 128)).to(cuda).reshape(-1, 128)
+    tok = torch.tensor([[5]], dtype=torch.int32, device=cuda)
+    bpe_cuda.reset_launches()
+    for k in (1, 2, 3):
+        for rpb in (8, 512):
+            got = bpe_cuda.basic_encode_chained(data2, tok, k, rpb)
+            ref = bpe_cuda.basic_chained_plain(data2, tok, k, rpb)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (k, rpb)
+            for fn, plain in ((exp_chain.copy_chain, exp_chain.copy_chain_plain),
+                              (exp_chain.widen_chain, exp_chain.widen_chain_plain)):
+                got, ref = fn(data2, tok, rpb, k), plain(data2, tok, rpb, k)
+                assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (k, rpb)
+    for rpb in (8, 64, 1024):
+        got, ref = exp_sweep.copy_pallas(data2, rpb), exp_sweep.copy_plain(data2, rpb)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), rpb
+    assert {k: bpe_cuda.launches[k] for k in bpe_cuda.CHAINS} == {
+        "basic_chained": 12, "chain_copy": 12, "chain_widen": 12, "copy_sweep": 3}
+
+
+def test_flat_parts_equal_plain_versions(cuda):
+    """T8's four variants (flat_parts.cu) against their plain versions."""
+    table = wire_table(MergeTable.build(MERGES).dense, cuda)
+    data = torch.from_numpy(_text(15, (1 << 20) + 4096, b"aabbcc \xffab\x00hpx")).to(cuda)
+    bpe_cuda.reset_launches()
+    for variant in exp_parts.VARIANTS:
+        for n in (0, 1, 4097, 1 << 20):
+            for carry, nb in ((0, -1), (1, 97), (1, 0), (0, 255)):
+                c = torch.tensor([[carry]], dtype=torch.int32, device=cuda)
+                got = exp_parts.flat_parts(variant, data, n, nb, table, c)
+                ref = exp_parts.flat_parts_plain(variant, data, n, nb, table, c)
+                assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (
+                    variant, n, carry, nb)
+    assert all(bpe_cuda.launches[f"parts_{v}"] == 16 for v in exp_parts.VARIANTS)
+    assert bpe_cuda.launches["flat_bpe"] == 0
+
+
+def test_chains_replay_from_a_cuda_graph(cuda):
+    """A chain captured once replays with the same result; the wrappers
+    count its launches once, at capture."""
+    data2 = torch.from_numpy(_text(16, 256 * 128)).to(cuda).reshape(-1, 128)
+    tok = torch.tensor([[3]], dtype=torch.int32, device=cuda)
+    bpe_cuda.basic_encode_chained(data2, tok, 4, 8)  # loads the library
+    bpe_cuda.reset_launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, last = bpe_cuda.basic_encode_chained(data2, tok, 4, 8)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    ref_out, ref_tok = bpe_cuda.basic_chained_plain(data2, tok, 4, 8)
+    assert torch.equal(out, ref_out) and torch.equal(last, ref_tok)
+    assert bpe_cuda.launches["basic_chained"] == 4
+    timing = _common.time_chain(lambda: exp_chain.copy_chain(data2, tok, 8, 4), 4,
+                                data2.numel(), cuda, exp_chain.copy_chain_plain(data2, tok, 8, 4))
+    assert timing["graph"]["ms_per_launch"]["n"] == _common.REPS and timing["exact"]
+    wrong = (ref_out, ref_tok + 1)
+    assert not _common.time_chain(lambda: bpe_cuda.basic_encode_chained(data2, tok, 4, 8), 4,
+                                  data2.numel(), cuda, wrong)["exact"]

@@ -1,11 +1,14 @@
 """The torch port stands alone: it imports nothing of ``blt_tpu`` or ``jax``,
 and its copies of the JAX package's host modules behave as the originals.
 
-- An AST scan of every module of the port and of ``chip_smoke.py``.
+- An AST scan of every module of the port (its device-rate tools under
+  ``blt_tpu_torch/tools/`` included) and of ``chip_smoke.py``: no import of
+  ``blt_tpu``, ``jax`` or the JAX tools' ``tools`` directory.
 - A fresh interpreter runs the port's CLI, API and ``TorchEngine`` on the
   CPU in every mode (basic, flat BPE, general-table multipass in both
-  compaction policies and the twin route, passthrough, decode) and then
-  finds no ``blt_tpu``, ``blt_tpu.*`` or ``jax*`` in ``sys.modules``.
+  compaction policies and the twin route, passthrough, decode) and its
+  three device-rate tools, and then finds no ``blt_tpu``, ``blt_tpu.*``,
+  ``tools``, ``tools.*`` or ``jax*`` in ``sys.modules``.
 - Parity of the copied host modules with the JAX package's: merges parsing
   and its errors, ``MergeTable`` fields and the cuckoo32 planes and
   constants, chunk planning and size parsing, and decode.
@@ -35,7 +38,7 @@ PORT_FILES = sorted((REPO / "blt_tpu_torch").rglob("*.py")) + [REPO / "chip_smok
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("blt_tpu", "jax", "jaxlib")
+    return top in ("blt_tpu", "jax", "jaxlib", "tools")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -82,7 +85,11 @@ assert open(out + ".d", "rb").read() == open(src, "rb").read()
 tok = blt_tpu_torch.ByteTokenizer(merges=general, engine="numpy")
 tok.tokenize_file(src, out)
 assert tok.detokenize_bytes(tok.tokenize_bytes(b"abcab").astype(">u2").tobytes()) == b"abcab"
-bad = sorted(k for k in sys.modules if k == "blt_tpu" or k.startswith(("blt_tpu.", "jax")))
+from blt_tpu_torch.tools import exp_chain, exp_parts, exp_sweep
+for tool in (exp_chain, exp_sweep, exp_parts):
+    assert tool.measure(torch.device("cpu"), 1 << 20, k=1)["exact"]
+bad = sorted(k for k in sys.modules
+             if k in ("blt_tpu", "tools") or k.startswith(("blt_tpu.", "tools.", "jax")))
 assert not bad, bad
 print("isolated")
 """
