@@ -2,17 +2,33 @@
 //
 // Replaces: blt_tpu/ops/bpe_pallas.py::_flat_encode_pallas_call (kernel body
 // _kernel_body, built by _make_kernel) and the XLA epilogue _pack_slots_core
-// that _flat_encode_packed runs in the same dispatch.
+// that _flat_encode_packed runs in the same dispatch; with other flag sets,
+// tools/exp_parts.py::chain (T8, body from make_variant_kernel) and four
+// variants of tools/exp_scan.py::_pallas (T6, body _variant_body).
 //
-// The pass is flat_pass.cuh with the lookup, the scan and no swap: the table
-// ships pre-byteswapped values, so a start emits its table value as-is and a
-// plain byte d<<8. The pack turns the slots into one byte per position plus
-// an LSB-first flag plane (see bpe_pallas.pack_slots_device for the format).
+// K2 is flat_pass.cuh with the lookup, the scan and no swap: the table ships
+// pre-byteswapped values, so a start emits its table value as-is and a plain
+// byte d<<8. The pack turns the slots into one byte per position plus an
+// LSB-first flag plane (see bpe_pallas.pack_slots_device for the format).
+//
+// The ablations are flag sets of the same pass (bpe_cuda.FLAT_PASSES):
+//   T8 (with kSwap: the tool emits byteswap(tok), so a start emits its value
+//   swapped and a plain byte d<<8): emit (no lookup, no scan), noscan (no
+//   scan), nolookup (no lookup), full (K2's function, starts swapped back
+//   to the raw rule value). Without the lookup a pair matches when
+//   (nxt & 7) == 0 and its value is d*256 + nxt (the tool's stand-in). The
+//   Pallas variants probe the cuckoo segments inline; the wire table
+//   computes the same function (rule value or none) in one gather.
+//   T6: full (K2 itself), noscan (kOdd: a guessed parity), nolookup (no
+//   lookup), noshifts (kRowWrap: the shifts stay inside each 128-byte row).
+//   T6's scan16 and swarpack are scan_parts.cu.
 //
 // Bound on the H100: the lookup and the scan, not the bytes. Each position
 // costs one gather into a 128 KB table and a prefix maximum that makes every
 // position depend on all earlier ones. The bytes moved are small (1 byte in,
-// 2 bytes of slots out, then 2 in and 1.125 out for the pack).
+// 2 bytes of slots out, then 2 in and 1.125 out for the pack). The variants
+// move the same bytes and measure what the lookup and the scan cost above
+// them. Without the scan a pass is one launch (tile_emit); with it, three.
 //
 // Design: see flat_pass.cuh (reduce / one-block tile max-scan / emit on one
 // stream, carries on the device). The table is the dense 64K-entry wire
@@ -58,18 +74,22 @@ __global__ void pack_kernel(const uint16_t* __restrict__ slots, int cap, int n,
 
 }  // namespace
 
-// data: cap bytes; table: 65536 u16; carry_in, carry_out: one int32 each;
-// slots: cap u16; scratch: 2 * ceil(cap / 4096) int32. Pointers to data and
-// slots are 16-byte aligned and cap is a multiple of 16 (checked by the
-// wrapper). Returns the first nonzero cudaGetLastError() of the launches.
-extern "C" int blt_flat_bpe(const void* data, int cap, int n, int next_byte,
-                            const void* table, const void* carry_in,
-                            void* slots, void* carry_out, void* scratch,
-                            void* stream) {
+// flags: the FlatFlag bits of flat_pass.cuh (lookup 1, scan 2, swap 4,
+// odd 8, row_wrap 16; K2 is 3). data: cap bytes; table: 65536 u16;
+// carry_in, carry_out: one int32 each; slots: cap u16; scratch: 2 *
+// ceil(cap / 4096) int32. Pointers to data and slots are 16-byte aligned and
+// cap is a multiple of 16, of 128 with row_wrap (checked by the wrapper).
+// Returns the first nonzero cudaGetLastError() of the launches, or
+// cudaErrorInvalidValue for odd with scan or bits past row_wrap.
+extern "C" int blt_flat_pass(int flags, const void* data, int cap, int n,
+                             int next_byte, const void* table,
+                             const void* carry_in, void* slots,
+                             void* carry_out, void* scratch, void* stream) {
   Batch b{(const uint8_t*)data, (const uint16_t*)table, cap, n, next_byte};
-  return launch_flat_pass<true, true, false>(
-      b, (const int*)carry_in, (uint16_t*)slots, (int*)carry_out,
-      (int*)scratch, (cudaStream_t)stream);
+  return dispatch_flat_pass(flags, std::make_integer_sequence<int, kFlagSets>(),
+                            b, (const int*)carry_in, (uint16_t*)slots,
+                            (int*)carry_out, (int*)scratch,
+                            (cudaStream_t)stream);
 }
 
 // slots: cap u16 (16-byte aligned, cap a multiple of 8); prev_slot and

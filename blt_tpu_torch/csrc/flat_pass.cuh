@@ -1,9 +1,10 @@
 // One flat-BPE pass as reduce / tile max-scan / emit, templated on what the
-// pass computes, for K2 (flat_bpe.cu) and for its cost split T8
-// (flat_parts.cu).
+// pass computes: K2, its cost split T8 and four of its ablations T6 are flag
+// sets of this one pass, launched through one entry, blt_flat_pass
+// (flat_bpe.cu). scan_parts.cu reuses its helpers for T6's block-local scans.
 //
 // Per position i of a batch with n valid bytes (the function of the Pallas
-// _kernel_body when kLookup, kScan and !kSwap):
+// _kernel_body when kLookup, kScan, !kSwap, !kOdd and !kRowWrap):
 //   nxt   = data[i+1], or max(next_byte, 0) at i == n-1
 //   valid = i < n-1 || (i == n-1 && next_byte >= 0)
 //   kLookup:  val = table[d*256 + nxt] (pre-byteswapped u16, 0 = no rule),
@@ -12,10 +13,14 @@
 //             (tools/exp_parts.py's stand-in for the lookup)
 //   kScan:    lz = max(-1 - carry_in, last j <= i with !m[j]),
 //             start = m && ((i - lz) & 1) (leftmost-first, non-overlapping)
-//   !kScan:   start = m
+//   !kScan:   start = m, or with kOdd m && (i & 1) (a guessed parity)
 //   consumed = start[i-1], or carry_in at i == 0
 //   slot  = consumed ? 0 : (start ? (kSwap ? bswap16(val) : val) : d << 8)
 //   carry_out = n > 0 ? start[n-1] : carry_in
+// kRowWrap keeps both shifts inside each 128-byte row (tools/exp_scan.py's
+// noshifts): nxt = the byte at lane (l+1) mod 128 of the same row, with no
+// next_byte patch (valid is unchanged), and consumed = start at lane
+// (l-1) mod 128 of the same row, with no carry_in; the scan is unchanged.
 //
 // Design: the Pallas kernel carries the block-to-block state in SMEM because
 // a TPU grid runs in order. CUDA blocks run in no order, so the prefix
@@ -36,6 +41,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <utility>
 
 namespace {
 
@@ -55,13 +61,13 @@ struct Batch {
 
 // Does a merge candidate start at position i (byte d, next byte nx)? Sets
 // val to the value a start there emits (before any swap).
-template <bool kLookup>
+template <bool kLookup, bool kRowWrap = false>
 __device__ __forceinline__ bool pair_at(const Batch& b, int i, int d, int nx,
                                         int& val) {
   if (i < b.n - 1) {
     // the pair lies inside the batch
   } else if (i == b.n - 1 && b.next_byte >= 0) {
-    nx = b.next_byte;
+    if (!kRowWrap) nx = b.next_byte;
   } else {
     val = 0;
     return false;
@@ -74,9 +80,18 @@ __device__ __forceinline__ bool pair_at(const Batch& b, int i, int d, int nx,
   return (nx & 7) == 0;
 }
 
+// The byte after position i0 + 15: the next one, or under kRowWrap the
+// first of the row when i0 + 15 ends a row (cap is then a multiple of 128).
+template <bool kRowWrap>
+__device__ __forceinline__ int byte_after(const Batch& b, int i0) {
+  int j = i0 + kPer;
+  if (kRowWrap && (j & 127) == 0) j -= 128;
+  return j < b.cap ? b.data[j] : 0;
+}
+
 // Loads the 16 bytes at i0 and evaluates their 16 pairs: bit k of the
 // result is m[i0 + k]. False past cap.
-template <bool kLookup>
+template <bool kLookup, bool kRowWrap = false>
 __device__ __forceinline__ bool load_pairs(const Batch& b, int i0,
                                            int d[kPer], int val[kPer],
                                            uint32_t& match) {
@@ -86,11 +101,11 @@ __device__ __forceinline__ bool load_pairs(const Batch& b, int i0,
   uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
   for (int k = 0; k < kPer; ++k) d[k] = (w[k >> 2] >> (8 * (k & 3))) & 0xFF;
-  int after = i0 + kPer < b.cap ? b.data[i0 + kPer] : 0;
+  int after = byte_after<kRowWrap>(b, i0);
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
-    bool m = pair_at<kLookup>(b, i0 + k, d[k], k + 1 < kPer ? d[k + 1] : after,
-                              val[k]);
+    bool m = pair_at<kLookup, kRowWrap>(b, i0 + k, d[k],
+                                        k + 1 < kPer ? d[k + 1] : after, val[k]);
     match |= (uint32_t)m << k;
   }
   return true;
@@ -122,15 +137,16 @@ __device__ __forceinline__ int block_excl_max(int v, int* warp_tot) {
   return max(prefix, excl);
 }
 
-template <bool kLookup>
+template <bool kLookup, bool kRowWrap>
 __global__ void __launch_bounds__(kThreads)
     tile_reduce(Batch b, int* __restrict__ tile_lnm) {
   __shared__ int warp_max[kThreads / 32];
   int i0 = blockIdx.x * kTile + threadIdx.x * kPer;
   int d[kPer], val[kPer];
   uint32_t match;
-  int mx = load_pairs<kLookup>(b, i0, d, val, match) ? last_nonmatch(i0, match)
-                                                     : kNeg;
+  int mx = load_pairs<kLookup, kRowWrap>(b, i0, d, val, match)
+               ? last_nonmatch(i0, match)
+               : kNeg;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     mx = max(mx, __shfl_down_sync(0xffffffffu, mx, o));
@@ -160,7 +176,7 @@ __global__ void __launch_bounds__(kScanThreads)
   }
 }
 
-template <bool kLookup, bool kScan, bool kSwap>
+template <bool kLookup, bool kScan, bool kSwap, bool kOdd, bool kRowWrap>
 __global__ void __launch_bounds__(kThreads)
     tile_emit(Batch b, const int* __restrict__ tile_excl,
               const int* __restrict__ carry_in, uint16_t* __restrict__ slots,
@@ -172,8 +188,9 @@ __global__ void __launch_bounds__(kThreads)
   int i0 = tile0 + t * kPer;
   int d[kPer], val[kPer];
   uint32_t match;
-  bool live = load_pairs<kLookup>(b, i0, d, val, match);
-  uint32_t starts = match;
+  bool live = load_pairs<kLookup, kRowWrap>(b, i0, d, val, match);
+  // i0 is even: the odd positions are the odd bits
+  uint32_t starts = kOdd ? match & 0xAAAAu : match;
   int tile_prefix = kNeg;
   if (kScan) {
     tile_prefix = tile_excl[blockIdx.x];  // holds the sentinel too
@@ -194,9 +211,12 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (!live) return;
 
-  // was position i0 - 1 a merge start?
+  // was position i0 - 1 a merge start? (under kRowWrap: the row's last
+  // position where i0 opens a row; a tile holds whole rows)
   uint32_t prev_start;
-  if (t > 0) {
+  if (kRowWrap && (i0 & 127) == 0) {
+    prev_start = last_start[t + 128 / kPer - 1];
+  } else if (t > 0) {
     prev_start = last_start[t - 1];
   } else if (blockIdx.x == 0) {
     prev_start = carry_in[0] != 0;
@@ -206,7 +226,7 @@ __global__ void __launch_bounds__(kThreads)
     int ip = tile0 - 1;
     int v;
     bool m = pair_at<kLookup>(b, ip, b.data[ip], b.data[tile0], v);
-    prev_start = m && (!kScan || ((ip - tile_prefix) & 1));
+    prev_start = m && (kScan ? ((ip - tile_prefix) & 1) : (!kOdd || (ip & 1)));
   }
   uint32_t consumed = (starts << 1) | prev_start;
 
@@ -236,23 +256,61 @@ __global__ void __launch_bounds__(kThreads)
 
 // The pass's launches on one stream. scratch: 2 * ceil(cap / 4096) int32
 // (unused without the scan). Returns the first nonzero cudaGetLastError().
-template <bool kLookup, bool kScan, bool kSwap>
+template <bool kLookup, bool kScan, bool kSwap, bool kOdd = false,
+          bool kRowWrap = false>
 int launch_flat_pass(const Batch& b, const int* carry_in, uint16_t* slots,
                      int* carry_out, int* scratch, cudaStream_t s) {
+  static_assert(!(kOdd && kScan), "a guessed parity replaces the scan");
   int nt = (b.cap + kTile - 1) / kTile;
   int* tile_lnm = scratch;
   int* tile_excl = kScan ? scratch + nt : nullptr;
   if (kScan) {
-    tile_reduce<kLookup><<<nt, kThreads, 0, s>>>(b, tile_lnm);
+    tile_reduce<kLookup, kRowWrap><<<nt, kThreads, 0, s>>>(b, tile_lnm);
     int err = (int)cudaGetLastError();
     if (err) return err;
     tile_scan<<<1, kScanThreads, 0, s>>>(tile_lnm, tile_excl, nt, carry_in);
     err = (int)cudaGetLastError();
     if (err) return err;
   }
-  tile_emit<kLookup, kScan, kSwap><<<nt, kThreads, 0, s>>>(
+  tile_emit<kLookup, kScan, kSwap, kOdd, kRowWrap><<<nt, kThreads, 0, s>>>(
       b, tile_excl, carry_in, slots, carry_out);
   return (int)cudaGetLastError();
+}
+
+// The switches as the bits of one int, in blt_flat_pass's order.
+enum FlatFlag : int {
+  kFlagLookup = 1,
+  kFlagScan = 2,
+  kFlagSwap = 4,
+  kFlagOdd = 8,
+  kFlagRowWrap = 16,
+  kFlagSets = 32,
+};
+
+using FlatPassFn = int (*)(const Batch&, const int*, uint16_t*, int*, int*,
+                           cudaStream_t);
+
+// launch_flat_pass for flag set F; a guessed parity with the scan is no pass.
+template <int F>
+int flat_pass_of(const Batch& b, const int* carry_in, uint16_t* slots,
+                 int* carry_out, int* scratch, cudaStream_t s) {
+  if constexpr ((F & kFlagScan) && (F & kFlagOdd)) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    return launch_flat_pass<(F & kFlagLookup) != 0, (F & kFlagScan) != 0,
+                            (F & kFlagSwap) != 0, (F & kFlagOdd) != 0,
+                            (F & kFlagRowWrap) != 0>(b, carry_in, slots,
+                                                     carry_out, scratch, s);
+  }
+}
+
+template <int... F>
+int dispatch_flat_pass(int flags, std::integer_sequence<int, F...>,
+                       const Batch& b, const int* carry_in, uint16_t* slots,
+                       int* carry_out, int* scratch, cudaStream_t s) {
+  static constexpr FlatPassFn passes[] = {&flat_pass_of<F>...};
+  if (flags < 0 || flags >= kFlagSets) return (int)cudaErrorInvalidValue;
+  return passes[flags](b, carry_in, slots, carry_out, scratch, s);
 }
 
 }  // namespace

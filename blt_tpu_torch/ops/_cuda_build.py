@@ -118,19 +118,25 @@ def load() -> ctypes.CDLL:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.blt_widen.argtypes = [p, p, i64, p]
         lib.blt_widen.restype = i
-        lib.blt_flat_bpe.argtypes = [p, i, i, i, p, p, p, p, p, p]
-        lib.blt_flat_bpe.restype = i
+        lib.blt_flat_pass.argtypes = [i, p, i, i, i, p, p, p, p, p, p]
+        lib.blt_flat_pass.restype = i
         lib.blt_pack_slots.argtypes = [p, i, i, p, p, p, p]
         lib.blt_pack_slots.restype = i
         lib.blt_chain.argtypes = [i, p, p, i64, p, p, p, i, i, i, p]
         lib.blt_chain.restype = i
-        lib.blt_flat_parts.argtypes = [i, p, i, i, i, p, p, p, p, p, p]
-        lib.blt_flat_parts.restype = i
         u = ctypes.c_uint
-        lib.blt_token_pass.argtypes = [p, i, i, p, p, p, p, i, u, u, i, p, p, p]
+        lib.blt_token_pass.argtypes = [i, p, i, i, p, p, p, p, i, u, u, i, p, p, p]
         lib.blt_token_pass.restype = i
         lib.blt_token_pass_gap.argtypes = [p, i, p, p, p, p, i, u, u, i, p, p, p, p]
         lib.blt_token_pass_gap.restype = i
+        lib.blt_subgather.argtypes = [p, p, p, i64, i, p, p]
+        lib.blt_subgather.restype = i
+        lib.blt_op_mix.argtypes = [i, p, p, i, p, p, p, i, i, p]
+        lib.blt_op_mix.restype = i
+        lib.blt_copy_tokens.argtypes = [p, i, p, p]
+        lib.blt_copy_tokens.restype = i
+        lib.blt_block_scan.argtypes = [i, p, i, i, i, p, p, p, p, p, i, p]
+        lib.blt_block_scan.restype = i
         _lib = lib
         return lib
 

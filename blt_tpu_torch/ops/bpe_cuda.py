@@ -5,8 +5,8 @@ Four wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
 
 - ``basic_encode``: the widen, K1 (``widen.cu``);
 - ``flat_encode_slots``: one flat-BPE pass, K2 (``flat_bpe.cu``), or with
-  ``variant`` one of the device-rate tools' cost-split variants of it, T8
-  (``flat_parts.cu``);
+  other ``FlatFlags`` one of the device-rate tools' variants of it: T8's
+  cost split and four of T6's ablations (``FLAT_PASSES``);
 - ``pack_slots``: K2's packed-wire epilogue (``flat_bpe.cu``);
 - ``chain_encode``: a copy or widen launched k times through a token
   (``chain.cu``): K5 (``basic_encode_chained``, what ``bench.py`` times)
@@ -28,7 +28,7 @@ artefact and are dropped: ``padded_bytes == capacity``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -47,13 +47,45 @@ CHAINS = {
     "chain_widen": (True, False),  # T1 widen_chain
     "copy_sweep": (False, True),  # T7 copy_pallas
 }
-# flat_parts.cu's variants of the flat pass (T8), in its order: (lookup, scan)
-FLAT_VARIANTS = {"emit": (False, False), "noscan": (True, False),
-                 "nolookup": (False, True), "full": (True, True)}
+
+
+class FlatFlags(NamedTuple):
+    """The switches of one flat pass (``csrc/flat_pass.cuh``; see
+    ``flat_pass_plain``), in ``blt_flat_pass``'s bit order. The defaults
+    are K2."""
+
+    lookup: bool = True
+    scan: bool = True
+    swap: bool = False
+    odd: bool = False
+    row_wrap: bool = False
+
+    @property
+    def bits(self) -> int:
+        return sum(int(on) << i for i, on in enumerate(self))
+
+
+# The flat passes the port launches, by the name each counts its launches
+# under: K2; T8's cost split, whose starts emit their value byteswapped (the
+# tool's ``byteswap(tok)``); and T6's ablations that are flat passes (T6's
+# ``full`` is K2 itself).
+FLAT_PASSES = {
+    "flat_bpe": FlatFlags(),
+    "parts_emit": FlatFlags(lookup=False, scan=False, swap=True),
+    "parts_noscan": FlatFlags(scan=False, swap=True),
+    "parts_nolookup": FlatFlags(lookup=False, swap=True),
+    "parts_full": FlatFlags(swap=True),
+    "scan_parts_noscan": FlatFlags(scan=False, odd=True),
+    "scan_parts_nolookup": FlatFlags(lookup=False),
+    "scan_parts_noshifts": FlatFlags(row_wrap=True),
+}
+_FLAT_NAMES = {flags: name for name, flags in FLAT_PASSES.items()}
+# T8's variants, in the tool's order
+FLAT_VARIANTS = {v: FLAT_PASSES[f"parts_{v}"] for v in ("emit", "noscan", "nolookup", "full")}
 
 # kernel launches made by the wrappers below, by kernel name
-launches = {"widen": 0, "flat_bpe": 0, "pack_slots": 0, **dict.fromkeys(CHAINS, 0),
-            **{f"parts_{v}": 0 for v in FLAT_VARIANTS}}
+launches = {"widen": 0, "pack_slots": 0, **dict.fromkeys(CHAINS, 0),
+            **dict.fromkeys(FLAT_PASSES, 0)}
 
 
 def reset_launches() -> None:
@@ -221,61 +253,81 @@ def basic_encode_chained(
 # --- K2: one flat-BPE pass --------------------------------------------------
 
 
-def _flat_flags(variant) -> Tuple[bool, bool, bool]:
-    """(lookup, scan, swap) of a flat pass: K2 for ``variant`` None, else
-    a T8 variant, which emits a start's value byteswapped."""
-    if variant is None:
-        return True, True, False
-    if variant not in FLAT_VARIANTS:
-        raise ValueError(f"unknown variant {variant!r}; one of {tuple(FLAT_VARIANTS)}")
-    return (*FLAT_VARIANTS[variant], True)
+def _flat_name(flags: FlatFlags) -> str:
+    """The launch counter of a flat pass; raises for a flag set that is not
+    one of ``FLAT_PASSES``."""
+    if flags not in _FLAT_NAMES:
+        raise ValueError(f"{flags} is not a flat pass of FLAT_PASSES")
+    return _FLAT_NAMES[flags]
 
 
-def flat_slots_plain(
+def flat_pass_plain(
     data: torch.Tensor,
     n: int,
     next_byte: int,
     table: torch.Tensor,
     carry_in: torch.Tensor,
-    variant: str | None = None,
+    flags: FlatFlags = FlatFlags(),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One flat-BPE pass as plain tensor ops (the function of the Pallas
-    ``_kernel_body`` and of ``csrc/flat_pass.cuh``).
+    """One flat-BPE pass as plain tensor ops, with the parts of
+    ``csrc/flat_pass.cuh`` that ``flags`` switches: K2 with the defaults
+    (the function of the Pallas ``_kernel_body``).
 
     data: uint8[cap] (stale past ``n``); table: the uint16[65536] wire
     table; carry_in: int32, one element. Returns (slots uint16[cap],
     carry_out int32 (1,1)).
 
-    ``variant`` (a key of ``FLAT_VARIANTS``) drops parts of the pass. No
-    lookup: m = (next byte & 7) == 0, val = the pair ``d*256 + next``; no
-    scan: every match starts. A variant's start emits its value
-    byteswapped (the tool's ``byteswap(tok)``).
+    No ``lookup``: m = (next byte & 7) == 0, val = the pair ``d*256 +
+    next``. No ``scan``: every match starts, or with ``odd`` every match at
+    an odd position. ``swap``: a start emits its value byteswapped.
+    ``row_wrap``: the next byte and consumed wrap inside each 128-byte row,
+    with no next_byte patch and no carry into consumed (cap a multiple of
+    128).
     """
-    lookup, scan, swap = _flat_flags(variant)
-    d = data.reshape(-1).to(torch.int32)
-    cap = d.shape[0]
-    idx = torch.arange(cap, dtype=torch.int32, device=d.device)
-    nxt = torch.zeros_like(d)
-    nxt[:-1] = d[1:]
-    if n > 0:
-        nxt[n - 1] = max(next_byte, 0)
-    valid = (idx < n - 1) | ((idx == n - 1) & (next_byte >= 0))
-    if lookup:
-        val = torch.where(valid, table.to(torch.int32)[(d * 256 + nxt).long()], 0)
-        m = val != 0
-    else:
-        val = d * 256 + nxt
-        m = valid & ((nxt & 7) == 0)
+    _flat_name(flags)
+    d, val, m = flat_pairs_plain(data, n, next_byte, table, flags.lookup, flags.row_wrap)
+    idx = torch.arange(d.shape[0], dtype=torch.int32, device=d.device)
     carry = carry_in.reshape(()).to(torch.int32)
-    if scan:
+    if flags.scan:
         lnm = torch.cummax(torch.where(m, -(2**31) + 1, idx), 0).values
         lz = torch.maximum(lnm, -1 - carry)
         start = m & (((idx - lz) & 1) == 1)
     else:
-        start = m
-    consumed = torch.empty_like(start)
-    consumed[1:] = start[:-1]
-    consumed[0] = carry != 0
+        start = m & ((idx & 1) == 1) if flags.odd else m
+    return flat_emit_plain(d, n, val, start, carry, flags.swap, flags.row_wrap)
+
+
+def flat_pairs_plain(data, n: int, next_byte: int, table, lookup: bool = True,
+                     row_wrap: bool = False):
+    """A flat pass's pairs: (the bytes as int32, each pair's value, its
+    match bit), with ``flat_pass_plain``'s ``lookup`` and ``row_wrap``."""
+    d = data.reshape(-1).to(torch.int32)
+    idx = torch.arange(d.shape[0], dtype=torch.int32, device=d.device)
+    if row_wrap:
+        nxt = d.reshape(-1, LANES).roll(-1, 1).reshape(-1)
+    else:
+        nxt = torch.zeros_like(d)
+        nxt[:-1] = d[1:]
+        if n > 0:
+            nxt[n - 1] = max(next_byte, 0)
+    valid = (idx < n - 1) | ((idx == n - 1) & (next_byte >= 0))
+    if lookup:
+        val = torch.where(valid, table.to(torch.int32)[(d * 256 + nxt).long()], 0)
+        return d, val, val != 0
+    return d, d * 256 + nxt, valid & ((nxt & 7) == 0)
+
+
+def flat_emit_plain(d, n, val, start, carry, swap=False, row_wrap=False):
+    """A flat pass's slots and carry_out from its starts: consumed =
+    start[i-1] (carry at 0, or under ``row_wrap`` the start at lane
+    (l-1) mod 128 of the row), slot = 0 / val / ``d << 8``, carry_out =
+    start[n-1] (carry when n == 0)."""
+    if row_wrap:
+        consumed = start.reshape(-1, LANES).roll(1, 1).reshape(-1)
+    else:
+        consumed = torch.empty_like(start)
+        consumed[1:] = start[:-1]
+        consumed[0] = carry != 0
     if swap:
         val = ((val & 0xFF) << 8) | ((val >> 8) & 0xFF)
     slot = torch.where(start, val, d << 8)
@@ -287,23 +339,12 @@ def flat_slots_plain(
     return slot.to(torch.uint16), carry_out
 
 
-def flat_encode_slots(
-    data: torch.Tensor,
-    n: int,
-    next_byte: int,
-    table: torch.Tensor,
-    carry_in: torch.Tensor,
-    variant: str | None = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One flat-BPE pass: kernel on CUDA tensors, plain on CPU tensors.
-
-    Same arguments and results as ``flat_slots_plain``. ``carry_in`` is
-    read on the device, so batches chain without a host sync. ``variant``
-    None launches K2 (``flat_bpe.cu``), a key of ``FLAT_VARIANTS`` that T8
-    variant (``flat_parts.cu``); each counts under its own name.
-    """
-    _flat_flags(variant)
+def check_flat(data, n: int, next_byte: int, table, carry_in, row_wrap: bool = False) -> bool:
+    """Validate a flat pass's arguments; True when they are CUDA tensors
+    (then also checked for a launch), False when they are CPU tensors."""
     cap = data.numel()
+    if row_wrap and cap % LANES:
+        raise ValueError(f"a pass with row_wrap takes whole rows of {LANES}, got {cap} bytes")
     if data.dtype != torch.uint8 or table.dtype != torch.uint16:
         raise ValueError("flat pass takes uint8 data and a uint16 table")
     if table.numel() != 65536 or carry_in.numel() != 1:
@@ -313,7 +354,7 @@ def flat_encode_slots(
     if not -1 <= next_byte <= 255:
         raise ValueError(f"next_byte {next_byte} outside -1..255")
     if not _on_cuda(data, table, carry_in):
-        return flat_slots_plain(data, n, next_byte, table, carry_in, variant)
+        return False
     _check_aligned(data, "flat pass input")
     if cap % 16 or cap == 0 or cap >= 2**31 - _TILE:
         raise ValueError(
@@ -322,20 +363,40 @@ def flat_encode_slots(
         )
     if carry_in.dtype != torch.int32 or not table.is_contiguous():
         raise ValueError("flat pass takes an int32 carry and a contiguous table")
+    return True
+
+
+def flat_encode_slots(
+    data: torch.Tensor,
+    n: int,
+    next_byte: int,
+    table: torch.Tensor,
+    carry_in: torch.Tensor,
+    flags: FlatFlags = FlatFlags(),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One flat-BPE pass: kernel on CUDA tensors, plain on CPU tensors.
+
+    Same arguments and results as ``flat_pass_plain``. ``carry_in`` is
+    read on the device, so batches chain without a host sync. The default
+    ``flags`` launch K2; every flag set of ``FLAT_PASSES`` runs through the
+    one entry ``blt_flat_pass`` (``flat_bpe.cu``) and counts under its name
+    there.
+    """
+    name = _flat_name(flags)
+    if not check_flat(data, n, next_byte, table, carry_in, flags.row_wrap):
+        return flat_pass_plain(data, n, next_byte, table, carry_in, flags)
+    cap = data.numel()
     dev = data.device
     slots = torch.empty(cap, dtype=torch.uint16, device=dev)
     carry_out = torch.empty((1, 1), dtype=torch.int32, device=dev)
     scratch = torch.empty(2 * (-(-cap // _TILE)), dtype=torch.int32, device=dev)
-    args = (data.data_ptr(), cap, n, next_byte, table.data_ptr(),
-            carry_in.contiguous().data_ptr(), slots.data_ptr(), carry_out.data_ptr(),
-            scratch.data_ptr(), _stream(dev))
     lib = _cuda_build.load()
     with torch.cuda.device(dev):
-        if variant is None:
-            name, err = "flat_bpe", lib.blt_flat_bpe(*args)
-        else:
-            name = f"parts_{variant}"
-            err = lib.blt_flat_parts(list(FLAT_VARIANTS).index(variant), *args)
+        err = lib.blt_flat_pass(
+            flags.bits, data.data_ptr(), cap, n, next_byte, table.data_ptr(),
+            carry_in.contiguous().data_ptr(), slots.data_ptr(), carry_out.data_ptr(),
+            scratch.data_ptr(), _stream(dev),
+        )
     _cuda_build.check(err, name)
     launches[name] += 1
     return slots, carry_out
@@ -348,15 +409,15 @@ def flat_encode_chained(
     table: torch.Tensor,
     carry_in: torch.Tensor,
     k: int = 8,
-    variant: str | None = None,
+    flags: FlatFlags = FlatFlags(),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2 (or a T8 ``variant``) k times back to back over one batch, each
-    pass taking the carry the pass before wrote (port of
-    ``bpe_pallas.flat_encode_chained``). The carry stays on the device, so
-    the k passes run with no host sync. Returns the last pass's (slots,
+    """K2 (or another flat pass of ``FLAT_PASSES``) k times back to back
+    over one batch, each pass taking the carry the pass before wrote (port
+    of ``bpe_pallas.flat_encode_chained``). The carry stays on the device,
+    so the k passes run with no host sync. Returns the last pass's (slots,
     carry_out)."""
     return chain_passes(
-        lambda c: flat_encode_slots(data, n, next_byte, table, c, variant), carry_in, k
+        lambda c: flat_encode_slots(data, n, next_byte, table, c, flags), carry_in, k
     )
 
 

@@ -7,7 +7,8 @@ Two wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
   (``token_pass_gap.cu``), the round of the default resident loop;
 - ``token_pass``: one merge round over compacted tokens, K4
   (``token_pass.cu``), the round of ``encode`` and of the
-  ``BLT_MP_COMPACT=sort`` loop.
+  ``BLT_MP_COMPACT=sort`` loop; with other ``TokenFlags``, the rounds of
+  the device-rate tool T4's ablation (``TOKEN_PASSES``).
 
 Each has a plain PyTorch version of the same function beside it
 (``*_plain``). Dispatch is by the tensors alone: CUDA tensors launch the
@@ -29,7 +30,7 @@ artefacts and are dropped: a buffer is ``capacity`` tokens.
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -51,8 +52,33 @@ GAP_COMPACT_EVERY = 3  # rounds between compactions (gap growth 0 -> 1 -> 3)
 _TILE = 4096  # positions per CUDA block in token_pass*.cu
 _NEG = -(2**31) + 1
 
+
+class TokenFlags(NamedTuple):
+    """The switches of one merge round (``csrc/token_pass.cuh``; see
+    ``token_pass_plain``), in ``blt_token_pass``'s bit order. The defaults
+    are K4."""
+
+    lookup: bool = True
+    scan: bool = True
+    shift: bool = True
+
+    @property
+    def bits(self) -> int:
+        return sum(int(on) << i for i, on in enumerate(self))
+
+
+# The merge rounds the port launches, by the name each counts its launches
+# under: K4, and T4's ablations that are rounds (T4's ``full`` is K4 itself).
+TOKEN_PASSES = {
+    "token_pass": TokenFlags(),
+    "token_parts_noscan": TokenFlags(scan=False),
+    "token_parts_nolookup": TokenFlags(lookup=False),
+    "token_parts_noshift": TokenFlags(shift=False),
+}
+_TOKEN_NAMES = {flags: name for name, flags in TOKEN_PASSES.items()}
+
 # kernel launches made by the wrappers below, by kernel name
-launches = {"token_pass_gap": 0, "token_pass": 0}
+launches = {"token_pass_gap": 0, **dict.fromkeys(TOKEN_PASSES, 0)}
 # (rounds, compactions) of each resident loop, in order
 loop_log: list = []
 
@@ -113,50 +139,80 @@ def _launch_args(tokens: torch.Tensor, planes: CuckooPlanes):
 # --- K4: one merge round over compacted tokens ------------------------------
 
 
-def token_pass_plain(tokens: torch.Tensor, n: int, planes: CuckooPlanes) -> torch.Tensor:
-    """One merge round over compacted int32 tokens as plain tensor ops (the
-    function of the Pallas ``_token_pass_kernel`` and of ``token_pass.cu``).
+def _token_name(flags: TokenFlags) -> str:
+    """The launch counter of a merge round; raises for a flag set that is
+    not one of ``TOKEN_PASSES``."""
+    if flags not in _TOKEN_NAMES:
+        raise ValueError(f"{flags} is not a merge round of TOKEN_PASSES")
+    return _TOKEN_NAMES[flags]
+
+
+def token_pass_plain(
+    tokens: torch.Tensor, n: int, planes: CuckooPlanes, flags: TokenFlags = TokenFlags()
+) -> torch.Tensor:
+    """One merge round over compacted int32 tokens as plain tensor ops, with
+    the parts of ``csrc/token_pass.cuh`` that ``flags`` switches: K4 with
+    the defaults (the function of the Pallas ``_token_pass_kernel``).
 
     tokens: int32[cap], valid in [0, n). Returns int32[cap]: the merged
     value at a merge start, -1 at a consumed position, else the token.
+    No ``shift``: each token pairs with itself. No ``lookup``: m =
+    ((d ^ next) & 7) == 3, val = d + 1 (int32 wrap). No ``scan``: every
+    match starts.
     """
+    _token_name(flags)
     d = tokens.reshape(-1)
     cap = d.shape[0]
     if cap == 0:
         return d.clone()
     idx = torch.arange(cap, dtype=torch.int32, device=d.device)
-    nxt = torch.zeros_like(d)
-    nxt[:-1] = d[1:]
-    hit, val = _lookup(d, nxt, planes)
+    if flags.shift:
+        nxt = torch.zeros_like(d)
+        nxt[:-1] = d[1:]
+    else:
+        nxt = d
+    if flags.lookup:
+        hit, val = _lookup(d, nxt, planes)
+    else:
+        hit, val = ((d ^ nxt) & 7) == 3, _wrap32(d.to(torch.int64) + 1)
     m = hit & (idx < n - 1)
-    lnm = torch.cummax(torch.where(m, _NEG, idx), 0).values
-    start = m & (((idx - torch.clamp(lnm, min=-1)) & 1) == 1)
+    if flags.scan:
+        lnm = torch.cummax(torch.where(m, _NEG, idx), 0).values
+        start = m & (((idx - torch.clamp(lnm, min=-1)) & 1) == 1)
+    else:
+        start = m
     consumed = torch.zeros_like(start)
     consumed[1:] = start[:-1]
     return torch.where(consumed, -1, torch.where(start, val, d)).to(torch.int32)
 
 
-def token_pass(tokens: torch.Tensor, n: int, planes: CuckooPlanes) -> torch.Tensor:
+def token_pass(
+    tokens: torch.Tensor, n: int, planes: CuckooPlanes, flags: TokenFlags = TokenFlags()
+) -> torch.Tensor:
     """One merge round: kernel on CUDA tensors, plain on CPU tensors. Same
-    arguments and result as ``token_pass_plain``."""
+    arguments and result as ``token_pass_plain``. The default ``flags``
+    launch K4; every flag set of ``TOKEN_PASSES`` runs through the one
+    entry ``blt_token_pass`` and counts under its name there."""
+    name = _token_name(flags)
     if tokens.dtype != torch.int32:
         raise ValueError(f"token pass takes int32 tokens, got {tokens.dtype}")
     if not 0 <= n <= tokens.numel():
         raise ValueError(f"{n} valid tokens do not fit capacity {tokens.numel()}")
     _check_planes(planes)
     if not _on_cuda(tokens, planes.k1, planes.v1, planes.k2, planes.v2):
-        return token_pass_plain(tokens, n, planes)
+        return token_pass_plain(tokens, n, planes, flags)
     dev, cap, scratch = _launch_args(tokens, planes)
     out = torch.empty(cap, dtype=torch.int32, device=dev)
     lib = _cuda_build.load()
     with torch.cuda.device(dev):
         err = lib.blt_token_pass(
-            tokens.data_ptr(), cap, n, planes.k1.data_ptr(), planes.v1.data_ptr(),
-            planes.k2.data_ptr(), planes.v2.data_ptr(), planes.slots, planes.a1,
-            planes.a2, planes.shift, out.data_ptr(), scratch.data_ptr(), _stream(dev),
+            flags.bits, tokens.data_ptr(), cap, n, planes.k1.data_ptr(),
+            planes.v1.data_ptr(), planes.k2.data_ptr(), planes.v2.data_ptr(),
+            planes.slots, planes.a1, planes.a2, planes.shift, out.data_ptr(),
+            scratch.data_ptr(), _stream(dev),
         )
-    _cuda_build.check(err, "token_pass")
-    launches["token_pass"] += 1
+    _cuda_build.check(err, name)
+    launches[name] += 1
     return out
 
 

@@ -26,6 +26,13 @@ LANES = 128
 RULES = 500
 REPS = 5  # timed samples of each chain (bench.py's REPS)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+SMS = 132  # streaming multiprocessors of an H100 SXM
+# an SM issues at most one 32-lane warp instruction per scheduler (4) per
+# clock, whatever its type: the integer peak taken here. It is the lane count
+# behind the data sheet's 67 TFLOP/s of float32 (132 x 128 x 2 x 1.98 GHz);
+# the data sheet gives no rate for integer operations outside the tensor cores.
+LANES_ISSUED_PER_SM = 128
+BOOST_SM_MHZ = 1980  # H100 SXM maximum SM clock (data sheet), where no card says
 
 
 def make_corpus(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -71,6 +78,24 @@ def bound_ms(nbytes: int) -> float:
     """Least time to move ``nbytes`` (inputs read once, outputs written
     once) at the card's memory rate."""
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def ops_bound_ms(ops: int, sm_mhz: float) -> float:
+    """Least time for ``ops`` 32-bit integer operations, one per lane the
+    card's SMs issue per clock at ``sm_mhz``."""
+    return ops / (SMS * LANES_ISSUED_PER_SM * sm_mhz * 1e6) * 1e3
+
+
+def sm_clock_mhz(device: torch.device) -> float:
+    """The card's maximum SM clock (``nvidia-smi clocks.max.sm``), or the
+    data sheet's on the CPU."""
+    if device.type != "cuda":
+        return BOOST_SM_MHZ
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def nvidia_smi() -> str:
@@ -173,12 +198,12 @@ def median_ms(fn, device: torch.device, reps: int = 3) -> float:
     return statistics.median(_timed(fn, device)[0] for _ in range(reps)) * 1e3
 
 
-def parser(description: str, k: int) -> argparse.ArgumentParser:
+def parser(description: str, k: int, size_mib: int = 64) -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; fails without a card) or cpu")
-    ap.add_argument("--size-mib", type=int, default=64,
-                    help="input size in MiB (default 64, the original's N)")
+    ap.add_argument("--size-mib", type=int, default=size_mib,
+                    help=f"input size in MiB (default {size_mib}, the original's)")
     ap.add_argument("--k", type=int, default=k, help=f"launches per chain (default {k})")
     ap.add_argument("--seed", type=int, default=0)
     return ap

@@ -107,7 +107,7 @@ def measure(device: torch.device, size_bytes: int, k: int = K, seed: int = 0) ->
     carry = torch.zeros((1, 1), dtype=torch.int32, device=device)
     row("bpe", "K2", None, lambda j: bpe_chain(data, n, table, carry, j),
         lambda j: bpe_cuda.chain_passes(
-            lambda c: bpe_cuda.flat_slots_plain(data, n, -1, table, c), carry, j),
+            lambda c: bpe_cuda.flat_pass_plain(data, n, -1, table, c), carry, j),
         BPE_K, 2 * n + table.numel() * 2)
     return {"tool": "exp_chain", "device": C.describe(device), "size_bytes": n,
             "rules": C.RULES, "seed": seed, "exact": all(r["exact"] for r in rows),

@@ -72,7 +72,7 @@ def measure(device: torch.device, size_bytes: int, k: int = ITERS, seed: int = 0
     table = wire_table(C.frequent_pair_table(corpus).dense, device)
     carry = torch.zeros((1, 1), dtype=torch.int32, device=device)
     row("bpe", "K2", lambda: bpe_cuda.flat_encode_slots(data, n, -1, table, carry),
-        lambda: bpe_cuda.flat_slots_plain(data, n, -1, table, carry),
+        lambda: bpe_cuda.flat_pass_plain(data, n, -1, table, carry),
         2 * n + table.numel() * 2)
     return {"tool": "exp_sweep", "device": C.describe(device), "size_bytes": n,
             "rules": C.RULES, "seed": seed, "exact": all(r["exact"] for r in rows),

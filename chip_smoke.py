@@ -32,16 +32,27 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
 6. the CLI as a process, from a 64 MiB stdin pipe, byte for byte, and
    the seconds a fresh process takes to import the CLI and reach the card;
 7. measure, the device-rate path (``blt_tpu_torch.tools``): (a) K5, T1,
-   T7 and T8 against their plain versions on the card, exactly (K5 and T1
-   chained 1 and 3 times from a nonzero token, T7 at three block counts,
-   the T8 variants over every flat case of phase 3, ``full`` against K2);
-   (b) the launch counters set to 0, then the three tools' measurements at
-   64 MiB in this process (K5, T1 and K2 chained 96 / 96 / 24 times, T7 at
-   rows_per_block 512 / 2048 / 8192, the T8 variants chained 8 times), each
-   chain timed as launched and as a CUDA-graph replay (median and IQR of
-   5), beside its plain version, its byte bound and ``clone()`` on the
-   copy rows; the counters read; (c) ``python -m
-   blt_tpu_torch.tools.<name> --size-mib 64`` for each tool as a process;
+   T7, T8, T9, T5, T4 and T6 against their plain versions on the card,
+   exactly (K5 and T1 chained 1 and 3 times from a nonzero token, T7 at
+   three block counts, the T8 variants over every flat case of phase 3,
+   ``full`` against K2; T9 on in-block and out-of-block indices; T5 in
+   int32, int16 and int8 over each type's whole range, chained 1 and 3
+   times; the five T4 variants over every token-pass case of phase 3,
+   ``full`` against K4; the six T6 variants over every flat case of phase
+   3, the two block-local ones at rows_per_block 8 and 1024, ``full``
+   against K2); (b) the launch counters set to 0, then the six tools'
+   measurements in this process at the originals' sizes (K5, T1 and K2
+   chained 96 / 96 / 24 times, T7 at rows_per_block 512 / 2048 / 8192, the
+   T8 variants chained 8 times and T9 8 times at 64 MiB; T5 on 16384 x 128
+   chained 64 times; T4 on 8 Mi tokens chained 8 times; T6 at 64 MiB
+   chained 64 times), each chain timed as launched and as a CUDA-graph
+   replay (median and IQR of 5), beside its plain version, its bound (for
+   T5 the larger of its bytes and its operations) and the one PyTorch call
+   that computes the same function
+   where there is one (``clone()``, ``torch.gather``); the counters read
+   (T4's and T6's ``full`` are K4 and K2 themselves: their rows take K4's
+   and K2's launches during their own tool's run);
+   (c) ``python -m blt_tpu_torch.tools.<name>`` for each tool as a process;
 8. neither ``jax`` nor ``blt_tpu`` was ever imported.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -126,9 +137,9 @@ def write_merges(path: str, pairs) -> None:
 
 def _counted_modules():
     """Every module that counts kernel launches."""
-    from blt_tpu_torch.ops import bpe_cuda, multipass_cuda
+    from blt_tpu_torch.ops import bpe_cuda, multipass_cuda, tools_cuda
 
-    return bpe_cuda, multipass_cuda
+    return bpe_cuda, multipass_cuda, tools_cuda
 
 
 def all_launches() -> dict:
@@ -381,7 +392,7 @@ def phase_kernels(corpus, merges500, merges50k, rng):
         c_in = torch.tensor([[carry]], dtype=torch.int32, device=dev)
         p_in = torch.tensor(prev, dtype=torch.int32, device=dev)
         slots, c_out = bpe_cuda.flat_encode_slots(data, n, nb, table, c_in)
-        ref_slots, ref_c = bpe_cuda.flat_slots_plain(data, n, nb, table, c_in)
+        ref_slots, ref_c = bpe_cuda.flat_pass_plain(data, n, nb, table, c_in)
         wire, last = bpe_cuda.pack_slots(slots, n, p_in)
         ref_wire, ref_last = bpe_cuda.pack_slots_plain(ref_slots, n, p_in)
         torch.cuda.synchronize()
@@ -450,7 +461,7 @@ def phase_kernels(corpus, merges500, merges50k, rng):
         nb = int(corpus[(j + 1) * 16 * MIB]) if j < 3 else -1
         slots, carry_k = bpe_cuda.flat_encode_slots(piece, 16 * MIB, nb, t500, carry_k)
         wire_k, prev_k = bpe_cuda.pack_slots(slots, 16 * MIB, prev_k)
-        s_p, carry_p = bpe_cuda.flat_slots_plain(piece, 16 * MIB, nb, t500, carry_p)
+        s_p, carry_p = bpe_cuda.flat_pass_plain(piece, 16 * MIB, nb, t500, carry_p)
         wire_p, prev_p = bpe_cuda.pack_slots_plain(s_p, 16 * MIB, prev_p)
         torch.cuda.synchronize()
         e = max(int_err(wire_k, wire_p), int_err(carry_k, carry_p), int_err(prev_k, prev_p))
@@ -475,7 +486,7 @@ def phase_kernels(corpus, merges500, merges50k, rng):
         ),
         "flat_bpe": (
             cuda_ms(lambda: bpe_cuda.flat_encode_slots(big, 16 * MIB, -1, t500, c0)),
-            cuda_ms(lambda: bpe_cuda.flat_slots_plain(big, 16 * MIB, -1, t500, c0)),
+            cuda_ms(lambda: bpe_cuda.flat_pass_plain(big, 16 * MIB, -1, t500, c0)),
         ),
         "pack_slots": (
             cuda_ms(lambda: bpe_cuda.pack_slots(slots, 16 * MIB, p0)),
@@ -521,12 +532,14 @@ def phase_multipass_kernels(corpus, rules, rng):
 
     err = {"token_pass_gap": 0, "token_pass": 0}
     cases = 0
+    token_cases = []  # (tokens, n, planes): phase 7 replays them
 
     def check(toks, n, planes, what, gap=None):
         """K4 on toks[:n], and K3 on ``gap`` (default: toks with -1 past
         n); returns K3's output, to chain rounds."""
         nonlocal cases
         t = on_dev(toks)
+        token_cases.append((t, n, planes))
         if gap is None:
             gap = np.array(toks, np.int32)
             gap[n:] = -1
@@ -608,7 +621,7 @@ def phase_multipass_kernels(corpus, rules, rng):
                            for k, v in ms.items()},
         "host_read_ms_per_round": host_read_ms,
     })
-    return err, ms, bounds
+    return err, ms, bounds, token_cases
 
 
 def phase_main_path(corpus, merges500, merges50k, workdir):
@@ -828,33 +841,59 @@ MEASURED_ROWS = {
     "chain_copy": ("chain.cu", "_call", "tools/exp_chain.py"),
     "chain_widen": ("chain.cu", "_call", "tools/exp_chain.py"),
     "copy_sweep": ("chain.cu", "copy_pallas", "tools/exp_sweep.py"),
-    **{f"parts_{v}": ("flat_parts.cu", "chain.call", "tools/exp_parts.py")
+    **{f"parts_{v}": ("flat_bpe.cu", "chain.call", "tools/exp_parts.py")
        for v in ("emit", "noscan", "nolookup", "full")},
+    "subgather": ("subgather.cu", "subgather", "tools/exp_parts.py"),
+    **{f"op_mix_{d}": ("op_mix.cu", "chain.call", "tools/exp_pack.py")
+       for d in ("int32", "int16", "int8")},
+    **{f"token_parts_{v}": ("token_pass.cu", "_one_call", "tools/exp_mp_ablate.py")
+       for v in ("full", "noscan", "nolookup", "noshift")},
+    "token_parts_copy": ("token_parts.cu", "_one_call", "tools/exp_mp_ablate.py"),
+    **{f"scan_parts_{v}": ("flat_bpe.cu", "_pallas", "tools/exp_scan.py")
+       for v in ("full", "noscan", "nolookup", "noshifts")},
+    **{f"scan_parts_{v}": ("scan_parts.cu", "_pallas", "tools/exp_scan.py")
+       for v in ("scan16", "swarpack")},
 }
+# rows that are a main-path kernel itself, by (the tool whose run they
+# read, the kernel's counter): T4's full is K4, T6's full is K2
+COUNTED_AS = {"token_parts_full": ("exp_mp_ablate", "token_pass"),
+              "scan_parts_full": ("exp_scan", "flat_bpe")}
+# the tools phase 7 runs, with the size (MiB) and chain length of each
+# original
+TOOLS = {"exp_chain": (64, 96), "exp_sweep": (64, 8), "exp_parts": (64, 8),
+         "exp_pack": (8, 64), "exp_mp_ablate": (8, 8), "exp_scan": (64, 64)}
 
 
 def _summary(row: dict) -> dict:
     """A tool's row, short: ms per launch (median, IQR) and GB/s (median)
     as launched and replayed from a graph, beside bound, plain and clone."""
-    out = {k: row[k] for k in ("name", "kernel", "rpb", "blocks", "k", "exact") if k in row}
+    out = {k: row[k] for k in ("name", "kernel", "rpb", "blocks", "dtype", "idx_range", "k",
+                               "exact") if k in row}
     for mode in ("eager", "graph"):
         t = row[mode]
         out[mode] = {"ms": t["ms_per_launch"]["median"], "iqr_ms": t["ms_per_launch"]["iqr"],
                      "GB_per_s": t["GB_per_s"]["median"]}
-    return {**out, "bound_ms": row["bound_ms"], "plain_ms": row["plain_ms"],
-            "clone_ms": row["library_ms"]}
+    return {**out, "bound_ms": row["bound_ms"], "bound_by": row.get("bound_by", "bytes"),
+            "plain_ms": row["plain_ms"], "library_ms": row["library_ms"]}
 
 
-def phase_measure(corpus, flat_cases, err):
+def phase_measure(corpus, flat_cases, token_cases, err):
     """Phase 7: the device-rate path. (a) each new kernel against its plain
-    version; (b) the tools' measurements in process at 64 MiB, the tools'
-    and bench.py's size, the launch counters set to 0 before and read
-    after; (c) each tool as a process."""
+    version; (b) the tools' measurements in process at the originals'
+    sizes, the launch counters set to 0 before and read after; (c) each
+    tool as a process."""
     import numpy as np
     import torch
 
-    from blt_tpu_torch.ops import bpe_cuda
-    from blt_tpu_torch.tools import exp_chain, exp_parts, exp_sweep
+    from blt_tpu_torch.ops import bpe_cuda, multipass_cuda, tools_cuda
+    from blt_tpu_torch.tools import (
+        exp_chain,
+        exp_mp_ablate,
+        exp_pack,
+        exp_parts,
+        exp_scan,
+        exp_sweep,
+    )
 
     dev = torch.device("cuda", 0)
     for k in MEASURED_ROWS:
@@ -864,7 +903,9 @@ def phase_measure(corpus, flat_cases, err):
     def hold(name, got, ref, what):
         nonlocal cases
         torch.cuda.synchronize()
-        e = max(int_err(a, b) for a, b in zip(got, ref))
+        if isinstance(got, torch.Tensor):
+            got, ref = (got,), (ref,)
+        e = max(int_err(a, b) for a, b in zip(got, ref, strict=True))
         if e:
             fail(f"{name}, {what}: err {e}")
         err[name] = max(err[name], e)
@@ -892,30 +933,67 @@ def phase_measure(corpus, flat_cases, err):
         # full is K2's slot with each merge start's value byteswapped
         full, full_c = exp_parts.flat_parts("full", data, n, nb, table, c)
         k2, k2_c = bpe_cuda.flat_encode_slots(data, n, nb, table, c)
-        k2 = k2.to(torch.int32)
-        swapped = torch.where((k2 & 0xFF) != 0, ((k2 & 0xFF) << 8) | (k2 >> 8), k2)
+        k2_32 = k2.to(torch.int32)
+        swapped = torch.where((k2_32 & 0xFF) != 0, ((k2_32 & 0xFF) << 8) | (k2_32 >> 8), k2_32)
         hold("parts_full", (full.to(torch.int32), full_c), (swapped, k2_c), f"{what}, vs K2")
+        # T6; the block-local variants at each rows_per_block that tiles the batch
+        for v, flags in exp_scan.VARIANTS.items():
+            local = flags is None
+            for rpb in (8, 1024) if local else (exp_scan.RPB,):
+                if local and data.numel() % (rpb * 128):
+                    continue
+                hold(f"scan_parts_{v}", exp_scan.scan_parts(v, data, n, nb, table, c, rpb),
+                     exp_scan.scan_parts_plain(v, data, n, nb, table, c, rpb),
+                     f"{what} rpb={rpb}")
+        hold("scan_parts_full", exp_scan.scan_parts("full", data, n, nb, table, c), (k2, k2_c),
+             f"{what}, vs K2")
+    # T9: in-block and out-of-block indices, 16 MiB of each
+    rng = np.random.default_rng(9)
+    rows = 16 * MIB // 512
+    tbl = torch.from_numpy(rng.integers(0, 1 << 30, (rows, 128), dtype=np.int32)).to(dev)
+    for rpb in (8, 1024):
+        for lo, hi in ((0, rpb), (-2 * rpb, 2 * rpb), (-(2**31), 2**31 - 1)):
+            idx = torch.from_numpy(
+                rng.integers(lo, hi, (rows, 128), dtype=np.int64).astype(np.int32)).to(dev)
+            hold("subgather", tools_cuda.subgather(tbl, idx, rpb),
+                 tools_cuda.subgather_plain(tbl, idx, rpb), f"rpb={rpb} idx in [{lo}, {hi})")
+    # T5: each type over its whole range, so the multiply and the add wrap
+    for name in tools_cuda.MIX_DTYPES:
+        info = np.iinfo(name)
+        x = torch.from_numpy(rng.integers(info.min, info.max + 1, (16384, 128), dtype=np.int64)
+                             .astype(name)).to(dev)
+        for k in (1, 3):
+            hold(f"op_mix_{name}", tools_cuda.op_mix(x, tok, k), tools_cuda.op_mix_plain(x, tok, k),
+                 f"k={k}")
+    # T4: phase 3's token-pass cases, chained three times through tombstones
+    for t, n, planes in token_cases:
+        what = f"{t.numel()} tokens, n={n}"
+        for v in exp_mp_ablate.VARIANTS:
+            hold(f"token_parts_{v}", exp_mp_ablate.chain(v, t, n, planes, 3),
+                 exp_mp_ablate.chain_plain(v, t, n, planes, 3), what)
+        hold("token_parts_full", exp_mp_ablate.token_parts("full", t, n, planes),
+             multipass_cuda.token_pass(t, n, planes), f"{what}, vs K4")
     emit({"phase": "measure_exact", "cases": cases, "tolerance": 0,
           "max_abs_err": {k: err[k] for k in MEASURED_ROWS}})
 
-    # (b) the rates at full width, in this process
-    size = 64 * MIB
+    # (b) the rates at the originals' sizes, in this process
+    modules = {"exp_chain": exp_chain, "exp_sweep": exp_sweep, "exp_parts": exp_parts,
+               "exp_pack": exp_pack, "exp_mp_ablate": exp_mp_ablate, "exp_scan": exp_scan}
     reset_all_launches()
-    results = {}
-    for name, run in (
-        ("exp_chain", lambda: exp_chain.measure(dev, size, k=96)),
-        ("exp_sweep", lambda: exp_sweep.measure(dev, size, k=8)),
-        ("exp_parts", lambda: exp_parts.measure(dev, size, k=8)),
-    ):
+    results, during = {}, {}
+    for name, (mib, k) in TOOLS.items():
         t0 = time.perf_counter()
-        results[name] = run()
+        before = all_launches()
+        results[name] = modules[name].measure(dev, mib * MIB, k=k)
+        during[name] = {c: n - before[c] for c, n in all_launches().items()}
         if not results[name]["exact"]:
             fail(f"{name}: a kernel differs from its plain version")
-        emit({"phase": "measure", "tool": name, "size_bytes": size,
+        emit({"phase": "measure", "tool": name, "size_bytes": mib * MIB,
               "seconds": time.perf_counter() - t0,
               "rows": [_summary(r) for r in results[name]["rows"]],
               **({"split": results[name]["split"]} if "split" in results[name] else {})})
-    launches = all_launches()
+    launches = {**all_launches(),
+                **{row: during[tool][c] for row, (tool, c) in COUNTED_AS.items()}}
     missing = [k for k in MEASURED_ROWS if not launches[k]]
     if missing:
         fail(f"kernels of the device-rate path never launched: {missing}")
@@ -923,10 +1001,10 @@ def phase_measure(corpus, flat_cases, err):
     # (c) the entry points as processes
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    for name in results:
+    for name, (mib, _) in TOOLS.items():
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", f"blt_tpu_torch.tools.{name}", "--size-mib", str(size // MIB)],
+            [sys.executable, "-m", f"blt_tpu_torch.tools.{name}", "--size-mib", str(mib)],
             capture_output=True, text=True, env=env, cwd=ROOT, timeout=600,
         )
         if proc.returncode != 0:
@@ -936,18 +1014,24 @@ def phase_measure(corpus, flat_cases, err):
             fail(f"{name} as a process: exact {out['exact']}, device {out['device']}")
         emit({"phase": "measure_process", "tool": name, "rc": 0,
               "seconds": time.perf_counter() - t0,
-              "graph_ms": {f"{r['name']}/{r.get('rpb')}": r["graph"]["ms_per_launch"]["median"]
-                           for r in out["rows"]}})
+              "graph_ms": {"/".join(str(r[k]) for k in ("name", "rpb", "dtype", "idx_range")
+                                    if r.get(k) is not None):
+                           r["graph"]["ms_per_launch"]["median"] for r in out["rows"]}})
 
-    def row(tool, name, rpb=None):
+    def row(tool, name, **want):
         return next(r for r in results[tool]["rows"]
-                    if r["name"] == name and r.get("rpb") == rpb)
+                    if r["name"] == name and all(r.get(k) == v for k, v in want.items()))
 
-    rows = {"basic_chained": row("exp_chain", "basic_chained", 2048),
-            "chain_copy": row("exp_chain", "copy", 2048),
-            "chain_widen": row("exp_chain", "widen", 2048),
-            "copy_sweep": row("exp_sweep", "copy", 2048),
-            **{f"parts_{v}": row("exp_parts", v) for v in exp_parts.VARIANTS}}
+    rows = {"basic_chained": row("exp_chain", "basic_chained", rpb=2048),
+            "chain_copy": row("exp_chain", "copy", rpb=2048),
+            "chain_widen": row("exp_chain", "widen", rpb=2048),
+            "copy_sweep": row("exp_sweep", "copy", rpb=2048),
+            **{f"parts_{v}": row("exp_parts", v) for v in exp_parts.VARIANTS},
+            "subgather": row("exp_parts", "subgather", idx_range=exp_parts.SUBGATHER_RPB),
+            **{f"op_mix_{d}": row("exp_pack", "op_mix", dtype=d) for d in tools_cuda.MIX_DTYPES},
+            **{f"token_parts_{v}": row("exp_mp_ablate", v, rpb=512)
+               for v in exp_mp_ablate.VARIANTS},
+            **{f"scan_parts_{v}": row("exp_scan", v) for v in exp_scan.VARIANTS}}
     return {"launches": {k: launches[k] for k in MEASURED_ROWS}, "rows": rows}
 
 
@@ -1004,7 +1088,8 @@ def main() -> int:
         numbered(merges50k),
         rng,
     )
-    for d, part in zip((err, ms, bounds), phase_multipass_kernels(corpus, rules, rng)):
+    *parts, token_cases = phase_multipass_kernels(corpus, rules, rng)
+    for d, part in zip((err, ms, bounds), parts):
         d.update(part)
 
     # 4-6. the main path, in process and as a process
@@ -1018,7 +1103,7 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     # 7. the device-rate path
-    measured = phase_measure(corpus, flat_cases, err)
+    measured = phase_measure(corpus, flat_cases, token_cases, err)
     launches.update(measured["launches"])
 
     # 8. nothing of JAX or the JAX package anywhere in this process
@@ -1047,8 +1132,8 @@ def main() -> int:
             "name": k, "route": "cuda", "source": f"blt_tpu_torch/csrc/{src}",
             "replaces": pallas_line(func, rel), "launches": launches[k],
             "max_abs_err": err[k], "ms": r["graph"]["ms_per_launch"]["median"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
-            "library_ms": r["library_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r.get("bound_by", "bytes"), "library_ms": r["library_ms"],
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -15,11 +15,11 @@ import torch
 
 from blt_tpu_torch import cli
 from blt_tpu_torch.merges import MergeTable
-from blt_tpu_torch.ops import bpe_cuda, multipass_cuda
+from blt_tpu_torch.ops import bpe_cuda, multipass_cuda, tools_cuda
 from blt_tpu_torch.ops.bpe_numpy import bpe_encode_flat, bpe_encode_multipass
 from blt_tpu_torch.ops.tables import cuckoo_planes, wire_table
 from blt_tpu_torch.pipeline.engines import TorchEngine
-from blt_tpu_torch.tools import _common, exp_chain, exp_parts, exp_sweep
+from blt_tpu_torch.tools import _common, exp_chain, exp_mp_ablate, exp_parts, exp_scan, exp_sweep
 
 pytestmark = pytest.mark.gpu
 
@@ -50,7 +50,7 @@ def test_kernels_equal_plain_versions(cuda):
         for carry, nb in ((0, -1), (1, 97), (1, 0), (0, 255)):
             c = torch.tensor([[carry]], dtype=torch.int32, device=cuda)
             s, co = bpe_cuda.flat_encode_slots(data, n, nb, table, c)
-            sp, cp = bpe_cuda.flat_slots_plain(data, n, nb, table, c)
+            sp, cp = bpe_cuda.flat_pass_plain(data, n, nb, table, c)
             assert torch.equal(s, sp) and torch.equal(co, cp), (n, carry, nb)
             prev = torch.tensor(0x6162, dtype=torch.int32, device=cuda)
             w, last = bpe_cuda.pack_slots(s, n, prev)
@@ -218,3 +218,78 @@ def test_chains_replay_from_a_cuda_graph(cuda):
     wrong = (ref_out, ref_tok + 1)
     assert not _common.time_chain(lambda: bpe_cuda.basic_encode_chained(data2, tok, 4, 8), 4,
                                   data2.numel(), cuda, wrong)["exact"]
+
+
+def _equal(got, ref):
+    if isinstance(got, torch.Tensor):
+        return torch.equal(got, ref)
+    return all(torch.equal(a, b) for a, b in zip(got, ref, strict=True))
+
+
+def test_probe_kernels_equal_plain_versions(cuda):
+    """T9 (subgather.cu) on in-block and out-of-block indices, and T5
+    (op_mix.cu) in each type over values that overflow it, chained 1 and 3
+    times."""
+    rng = np.random.default_rng(17)
+    tools_cuda.reset_launches()
+    rows = 4096
+    tbl = torch.from_numpy(rng.integers(0, 1 << 30, (rows, 128), dtype=np.int32)).to(cuda)
+    for rpb in (8, 1024):
+        for lo, hi in ((0, rpb), (-2 * rpb, 2 * rpb), (-(2**31), 2**31 - 1)):
+            idx = torch.from_numpy(
+                rng.integers(lo, hi, (rows, 128), dtype=np.int64).astype(np.int32)).to(cuda)
+            assert _equal(tools_cuda.subgather(tbl, idx, rpb),
+                          tools_cuda.subgather_plain(tbl, idx, rpb)), (rpb, lo)
+    tok = torch.tensor([[1000]], dtype=torch.int32, device=cuda)
+    for name, dtype in tools_cuda.MIX_DTYPES.items():
+        info = np.iinfo(name)
+        x = torch.from_numpy(rng.integers(info.min, info.max + 1, (rows, 128), dtype=np.int64)
+                             .astype(name)).to(cuda)
+        for k in (1, 3):
+            assert _equal(tools_cuda.op_mix(x, tok, k, 1024),
+                          tools_cuda.op_mix_plain(x, tok, k, 1024)), (name, k)
+    assert tools_cuda.launches["subgather"] == 6
+    assert all(tools_cuda.launches[f"op_mix_{d}"] == 4 for d in tools_cuda.MIX_DTYPES)
+
+
+def test_ablation_kernels_equal_plain_versions(cuda):
+    """T4 (K4's round under other flags, and token_parts.cu) chained three
+    times through its tombstones, full against K4; T6 (K2's pass under
+    other flags, and scan_parts.cu) at rows_per_block 8 and 1024, full
+    against K2."""
+    rng = np.random.default_rng(18)
+    for m in (bpe_cuda, multipass_cuda, tools_cuda):
+        m.reset_launches()
+    planes = cuckoo_planes(MergeTable.build(exp_mp_ablate.HIER), cuda)
+    cap = 4 * 4096 + 256
+    toks = torch.from_numpy(rng.choice(np.array([97, 98, 99, 32, 256, 257, -1, 0xFFFF], np.int32),
+                                       cap)).to(cuda)
+    for variant in exp_mp_ablate.VARIANTS:
+        for n in (0, 1, 4097, cap):
+            got = exp_mp_ablate.chain(variant, toks, n, planes, 3)
+            assert torch.equal(got, exp_mp_ablate.chain_plain(variant, toks, n, planes, 3)), (
+                variant, n)
+            if variant == "full":
+                assert torch.equal(exp_mp_ablate.token_parts("full", toks, n, planes),
+                                   multipass_cuda.token_pass_plain(toks, n, planes))
+    table = wire_table(MergeTable.build(MERGES).dense, cuda)
+    data = torch.from_numpy(_text(19, 1 << 20, b"aabbcc \xffab\x00hpx")).to(cuda)
+    for variant in exp_scan.VARIANTS:
+        for rpb in (8, 1024):
+            for n, carry, nb in ((0, 1, -1), (1, 0, 97), (4097, 1, 0), (1 << 20, 1, -1)):
+                c = torch.tensor([[carry]], dtype=torch.int32, device=cuda)
+                got = exp_scan.chain(variant, data, n, nb, table, c, 2, rpb)
+                assert _equal(got, exp_scan.chain_plain(variant, data, n, nb, table, c, 2, rpb)), (
+                    variant, rpb, n, carry, nb)
+                if variant == "full":
+                    assert _equal(exp_scan.scan_parts("full", data, n, nb, table, c, rpb),
+                                  bpe_cuda.flat_pass_plain(data, n, nb, table, c))
+    # T4's full is K4 and T6's full is K2: they count under K4's and K2's names
+    assert multipass_cuda.launches["token_pass"] == 16
+    assert all(multipass_cuda.launches[f"token_parts_{v}"] == 12
+               for v in ("noscan", "nolookup", "noshift"))
+    assert tools_cuda.launches["token_parts_copy"] == 12
+    assert bpe_cuda.launches["flat_bpe"] == 24
+    assert all(bpe_cuda.launches[f"scan_parts_{v}"] == 16
+               for v in ("noscan", "nolookup", "noshifts"))
+    assert all(tools_cuda.launches[f"scan_parts_{v}"] == 16 for v in tools_cuda.BLOCK_SCANS)

@@ -7,7 +7,7 @@ and its copies of the JAX package's host modules behave as the originals.
 - A fresh interpreter runs the port's CLI, API and ``TorchEngine`` on the
   CPU in every mode (basic, flat BPE, general-table multipass in both
   compaction policies and the twin route, passthrough, decode) and its
-  three device-rate tools, and then finds no ``blt_tpu``, ``blt_tpu.*``,
+  six device-rate tools, and then finds no ``blt_tpu``, ``blt_tpu.*``,
   ``tools``, ``tools.*`` or ``jax*`` in ``sys.modules``.
 - Parity of the copied host modules with the JAX package's: merges parsing
   and its errors, ``MergeTable`` fields and the cuckoo32 planes and
@@ -59,8 +59,11 @@ def test_every_mode_runs_without_the_jax_package(tmp_path):
     src.write_bytes(b"ab c abcab xyz " * 4000)
     merges = tmp_path / "m.txt"
     merges.write_text("97 98\n32 99\n")
+    # one intra-op thread: the run shares the cores with the suite's other
+    # workers, where a pool of spinning threads per process stalls them all
     code = f"""
 import os, sys, torch
+torch.set_num_threads(1)
 import blt_tpu_torch
 from blt_tpu_torch import cli
 from blt_tpu_torch.config import CoreConfig
@@ -85,8 +88,8 @@ assert open(out + ".d", "rb").read() == open(src, "rb").read()
 tok = blt_tpu_torch.ByteTokenizer(merges=general, engine="numpy")
 tok.tokenize_file(src, out)
 assert tok.detokenize_bytes(tok.tokenize_bytes(b"abcab").astype(">u2").tobytes()) == b"abcab"
-from blt_tpu_torch.tools import exp_chain, exp_parts, exp_sweep
-for tool in (exp_chain, exp_sweep, exp_parts):
+from blt_tpu_torch.tools import exp_chain, exp_mp_ablate, exp_pack, exp_parts, exp_scan, exp_sweep
+for tool in (exp_chain, exp_sweep, exp_parts, exp_pack, exp_mp_ablate, exp_scan):
     assert tool.measure(torch.device("cpu"), 1 << 20, k=1)["exact"]
 bad = sorted(k for k in sys.modules
              if k in ("blt_tpu", "tools") or k.startswith(("blt_tpu.", "tools.", "jax")))

@@ -149,7 +149,7 @@ def test_flat_pass_equals_pallas_in_every_lookup_mode(mode):
         p_slots, pn, p_carry = port.encode_device(torch.from_numpy(data.copy()), n, carry, nb)
         assert pn == n and tuple(p_slots.shape) == (CAP // 128, 128)
         assert p_slots.dtype == torch.uint16 and tuple(p_carry.shape) == (1, 1)
-        plain, plain_carry = bpe_cuda.flat_slots_plain(
+        plain, plain_carry = bpe_cuda.flat_pass_plain(
             torch.from_numpy(data.copy()), n, nb, wt, torch.tensor([carry], dtype=torch.int32)
         )
         for slots, c in ((p_slots.reshape(-1), p_carry), (plain, plain_carry)):

@@ -169,7 +169,8 @@ def test_wrappers_dispatch_on_the_tensor_device_only():
     multipass_cuda.reset_launches()
     token_pass(toks, CAP, planes)
     token_pass_gap(toks, planes)
-    assert multipass_cuda.launches == {"token_pass_gap": 0, "token_pass": 0}
+    assert multipass_cuda.launches == dict.fromkeys(
+        ["token_pass_gap", *multipass_cuda.TOKEN_PASSES], 0)
     with pytest.raises(ValueError, match="int32"):
         token_pass(toks.to(torch.int64), CAP, planes)
     with pytest.raises(ValueError, match="do not fit"):

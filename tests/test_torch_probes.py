@@ -1,0 +1,299 @@
+"""The probes T9 and T5 of the torch port against the JAX tools, on the CPU.
+
+T9 (``tools_cuda.subgather``, the ``subgather`` rows of
+``blt_tpu_torch.tools.exp_parts``) and T5 (``tools_cuda.op_mix``,
+``blt_tpu_torch.tools.exp_pack``): on the CPU the port's wrappers run their
+plain PyTorch versions, held here against the JAX tools' own kernel bodies
+(``tools/exp_parts.py::_subgather_kernel``, ``tools/exp_pack.py::_mix_kernel``)
+wrapped in ``pl.pallas_call(..., interpret=True)`` with the tools'
+BlockSpecs, at a few blocks of 8 rows. Every comparison is exact (tolerance
+0): every value is an integer. Inputs come from numpy ``default_rng(seed)``.
+The CUDA kernels themselves are held against the plain versions by
+tests/test_torch_gpu.py and ``chip_smoke.py``.
+
+Then ``exp_pack`` runs as a process on the CPU (``exp_parts`` as a process
+is in tests/test_torch_tools.py).
+"""
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from blt_tpu_torch.ops import tools_cuda
+from blt_tpu_torch.tools import exp_pack, exp_parts
+
+REPO = Path(__file__).resolve().parent.parent
+LANES = 128
+RPB = 8
+ROWS = 32  # 4 grid steps of 8 rows
+INT32_MIN = -(2**31)
+
+
+def _jax_tool(name):
+    """A JAX tool module of ``tools/``, loaded by path (not a package); the
+    fixed checkout path the tools put on ``sys.path`` is taken back out."""
+    spec = importlib.util.spec_from_file_location(f"jax_tools_{name}", REPO / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    saved = sys.path[:]
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path[:] = saved
+    return mod
+
+
+JAX_PARTS = _jax_tool("exp_parts")
+JAX_PACK = _jax_tool("exp_pack")
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# --- T9: subgather -------------------------------------------------------------
+
+
+def _subgather_pallas(tbl, idx, rpb=RPB):
+    """exp_parts.subgather's BlockSpecs, interpret mode."""
+    rows = tbl.shape[0]
+    out, done = pl.pallas_call(
+        JAX_PARTS._subgather_kernel,
+        grid=(rows // rpb,),
+        in_specs=[
+            pl.BlockSpec((rpb, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((rpb, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
+        ],
+        out_specs=(
+            pl.BlockSpec((rpb, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
+        ),
+        out_shape=(
+            jax.ShapeDtypeStruct((rows, LANES), jnp.int32),
+            jax.ShapeDtypeStruct((1, 1), jnp.int32),
+        ),
+        interpret=True,
+    )(jnp.asarray(tbl), jnp.asarray(idx))
+    return np.asarray(out), np.asarray(done)
+
+
+def _table(seed, rows=ROWS):
+    return np.random.default_rng(seed).integers(0, 1 << 30, (rows, LANES), dtype=np.int32)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, RPB), (0, 3), (-RPB, RPB), (-3 * RPB, 3 * RPB),
+                                   (INT32_MIN, 2**31 - 1)])
+@pytest.mark.parametrize("rpb", [8, 16])
+def test_subgather_equals_tool_body(lo, hi, rpb):
+    """In-block indices, and indices outside [0, rpb): interpret mode fills
+    INT32_MIN past the block and wraps [-rpb, 0) from its end."""
+    rng = np.random.default_rng(abs(lo) + hi + rpb)
+    tbl = _table(1)
+    idx = rng.integers(lo, hi, (ROWS, LANES), dtype=np.int64).astype(np.int32)
+    ref_out, ref_done = _subgather_pallas(tbl, idx, rpb)
+    got_out, got_done = tools_cuda.subgather(_t(tbl), _t(idx), rpb)
+    assert np.array_equal(got_out.numpy(), ref_out)
+    assert np.array_equal(got_done.numpy(), ref_done) and int(got_done) == ROWS // rpb - 1
+    plain = tools_cuda.subgather_plain(_t(tbl), _t(idx), rpb)
+    assert torch.equal(plain[0], got_out) and torch.equal(plain[1], got_done)
+
+
+def test_subgather_out_of_block_values_as_in_interpret_mode():
+    """Row 0 of block 1: indices 9 and -9 fill INT32_MIN, -1 wraps to the
+    block's last row, -8 to its first, 7 is its last."""
+    tbl = _table(2)
+    idx = np.zeros((ROWS, LANES), np.int32)
+    idx[RPB, :5] = [9, -9, -1, -8, 7]
+    out, _ = tools_cuda.subgather(_t(tbl), _t(idx), RPB)
+    row = out.numpy()[RPB, :5]
+    assert list(row) == [INT32_MIN, INT32_MIN, tbl[2 * RPB - 1, 2], tbl[RPB, 3],
+                         tbl[2 * RPB - 1, 4]]
+    assert np.array_equal(row, _subgather_pallas(tbl, idx)[0][RPB, :5])
+
+
+def test_subgather_in_range_is_torch_gather():
+    rng = np.random.default_rng(3)
+    tbl, idx = _table(3), rng.integers(0, RPB, (ROWS, LANES), dtype=np.int32)
+    shape = (ROWS // RPB, RPB, LANES)
+    got, _ = tools_cuda.subgather(_t(tbl), _t(idx), RPB)
+    assert torch.equal(got.view(shape), torch.gather(_t(tbl).view(shape), 1, _t(idx).view(shape)))
+
+
+def test_subgather_refuses_what_the_grid_would_not_cover():
+    tbl = _t(_table(4, rows=12))
+    with pytest.raises(ValueError, match="rows_per_block"):
+        tools_cuda.subgather(tbl, tbl.clone(), RPB)
+    with pytest.raises(ValueError, match="int32"):
+        tools_cuda.subgather(tbl[:8], tbl[:8].to(torch.int64), RPB)
+    with pytest.raises(ValueError, match="one shape"):
+        tools_cuda.subgather(tbl[:8], tbl[:8].reshape(4, 256), RPB)
+
+
+# --- T5: the op mix --------------------------------------------------------------
+
+
+def _mix_pallas(x, tok, k, rpb=RPB):
+    """exp_pack.chain.call's BlockSpecs, interpret mode, k calls chained
+    through the token."""
+    rows = x.shape[0]
+    call = pl.pallas_call(
+        JAX_PACK._mix_kernel(x.dtype),
+        grid=(rows // rpb,),
+        in_specs=[
+            pl.BlockSpec((rpb, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
+        ],
+        out_specs=(
+            pl.BlockSpec((rpb, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
+        ),
+        out_shape=(
+            jax.ShapeDtypeStruct((rows, LANES), x.dtype),
+            jax.ShapeDtypeStruct((1, 1), jnp.int32),
+        ),
+        interpret=True,
+    )
+    t = jnp.asarray(tok)
+    for _ in range(k):
+        out, t = call(jnp.asarray(x), t)
+    return np.asarray(out), np.asarray(t)
+
+
+def _mix_input(name, seed, full_range):
+    """The tool's inputs ([0, 100)) or values over the type's whole range,
+    which overflow in the multiply and the add."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(name)
+    lo, hi = (info.min, info.max + 1) if full_range else (0, 100)
+    return rng.integers(lo, hi, (ROWS, LANES), dtype=np.int64).astype(name)
+
+
+@pytest.mark.parametrize("name", list(tools_cuda.MIX_DTYPES))
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("full_range", [False, True])
+def test_op_mix_equals_tool_body(name, k, full_range):
+    x = _mix_input(name, 5 + k, full_range)
+    tok = np.full((1, 1), 5, np.int32)
+    ref_out, ref_tok = _mix_pallas(x, tok, k)
+    got_out, got_tok = tools_cuda.op_mix(_t(x), _t(tok), k, RPB)
+    assert got_out.dtype == tools_cuda.MIX_DTYPES[name]
+    assert np.array_equal(got_out.numpy(), ref_out)
+    assert np.array_equal(got_tok.numpy(), ref_tok) and int(got_tok) == 5 + k * (ROWS // RPB - 1)
+    plain = tools_cuda.op_mix_plain(_t(x), _t(tok), k, RPB)
+    assert torch.equal(plain[0], got_out) and torch.equal(plain[1], got_tok)
+
+
+def test_op_mix_rolls_toward_higher_lanes():
+    """pltpu.roll(acc, 1, axis=1) hands lane l the value of lane l - 1: a
+    row whose only nonzero is at lane 5 changes lanes 5 to 13 (one lane
+    per repetition) and no lane below 5."""
+    x = np.zeros((RPB, LANES), np.int32)
+    x[0, 5] = 1000
+    out, _ = tools_cuda.op_mix(_t(x), torch.zeros((1, 1), dtype=torch.int32), 1, RPB)
+    zero_row, _ = tools_cuda.op_mix(torch.zeros((RPB, LANES), dtype=torch.int32),
+                                    torch.zeros((1, 1), dtype=torch.int32), 1, RPB)
+    changed = np.nonzero(out.numpy()[0] != zero_row.numpy()[0])[0]
+    assert changed.min() == 5 and changed.max() <= 5 + tools_cuda.MIX_REPS
+    assert np.array_equal(out.numpy(), _mix_pallas(x, np.zeros((1, 1), np.int32), 1)[0])
+
+
+def test_op_mix_refuses_other_types_and_ragged_rows():
+    tok = torch.zeros((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32, int16 or int8"):
+        tools_cuda.op_mix(torch.zeros((8, LANES), dtype=torch.int64), tok, 1, RPB)
+    with pytest.raises(ValueError, match="rows_per_block"):
+        tools_cuda.op_mix(torch.zeros((12, LANES), dtype=torch.int8), tok, 1, RPB)
+    with pytest.raises(ValueError, match="k >= 1"):
+        tools_cuda.op_mix(torch.zeros((8, LANES), dtype=torch.int8), tok, 0, RPB)
+
+
+def test_wrappers_count_no_launch_on_the_cpu():
+    tools_cuda.reset_launches()
+    tbl = _t(_table(6))
+    tools_cuda.subgather(tbl, torch.zeros_like(tbl), RPB)
+    tools_cuda.op_mix(tbl, torch.zeros((1, 1), dtype=torch.int32), 2, RPB)
+    assert {"subgather", "op_mix_int32", "op_mix_int16", "op_mix_int8"} <= set(
+        tools_cuda.launches)
+    assert all(v == 0 for v in tools_cuda.launches.values())
+
+
+def test_op_mix_bound_counts_operations():
+    """64 operations per element at 2 Mi elements on 132 x 128 lanes issued
+    per clock at 1980 MHz: about 4.0 us, under the int32 bytes' 5 us and
+    above the int16 bytes' 2.5 us."""
+    ops = 16384 * LANES * exp_pack.OPS_PER_REP * tools_cuda.MIX_REPS
+    from blt_tpu_torch.tools import _common
+
+    assert ops == 134_217_728
+    assert _common.ops_bound_ms(ops, 1980) == pytest.approx(0.004012, rel=1e-3)
+    assert _common.bound_ms(2 * 16384 * LANES * 4) > _common.ops_bound_ms(ops, 1980)
+    assert _common.bound_ms(2 * 16384 * LANES * 2) < _common.ops_bound_ms(ops, 1980)
+
+
+# --- the entry points, as processes ------------------------------------------------
+
+
+def _run_tool(tool):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"  # the suite's other workers share the cores
+    r = subprocess.run(
+        [sys.executable, "-m", f"blt_tpu_torch.tools.{tool}", "--device", "cpu",
+         "--size-mib", "1", "--k", "2"],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=600,
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["tool"] == tool and out["exact"] is True
+    assert out["device"] == {"type": "cpu"} and out["size_bytes"] == 1 << 20
+    for row in out["rows"]:
+        assert row["exact"] is True and row["graph"] is None and row["k"] in (2, 4)
+        assert row["eager"]["ms_per_launch"]["n"] == 5 and row["bound_ms"] > 0
+        assert row["bound_by"] in ("bytes", "operations")
+    return out
+
+
+def test_exp_pack_runs_on_the_cpu():
+    out = _run_tool("exp_pack")
+    assert [(r["dtype"], r["bound_by"]) for r in out["rows"]] == [
+        ("int32", "bytes"), ("int16", "operations"), ("int8", "operations")]
+
+
+def test_exp_parts_subgather_rows():
+    rows = exp_parts.subgather_rows(torch.device("cpu"), 1 << 20, k=1)
+    assert [r["idx_range"] for r in rows] == list(exp_parts.SUBGATHER_RANGES)
+    assert all(r["exact"] and r["library_ms"] > 0 for r in rows)
+    # indices below 8 reach 8 of each block's 1024 rows of table
+    assert rows[1]["bound_ms"] == pytest.approx(((2 + 8 / 1024) * (1 << 20) + 4) / 3.35e12 * 1e3)
+    assert rows[0]["bound_ms"] < 3 * (1 << 20) / 3.35e12 * 1e3
+
+
+def test_subgather_table_words_read():
+    idx = np.zeros((2 * RPB, LANES), np.int32)
+    idx[0, :3] = [1, -1, 99]  # rows 1 and 7 of block 0; 99 fills
+    words = exp_parts.table_words_read(_t(idx), RPB)
+    # row 0 of each block in every column but 0..2 of row 0, which the
+    # other rows' zeros reach too, plus rows 1 and 7 in columns 0 and 1
+    assert words == 2 * LANES + 2
+
+
+@pytest.mark.parametrize("tool", ["exp_parts", "exp_pack", "exp_mp_ablate", "exp_scan"])
+def test_tools_without_a_card_exit_naming_cuda(tool):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"  # the suite's other workers share the cores
+    r = subprocess.run([sys.executable, "-m", f"blt_tpu_torch.tools.{tool}", "--k", "1"],
+                       capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
+    assert r.returncode != 0 and "CUDA" in r.stderr
