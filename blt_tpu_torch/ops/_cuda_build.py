@@ -137,6 +137,12 @@ def load() -> ctypes.CDLL:
         lib.blt_copy_tokens.restype = i
         lib.blt_block_scan.argtypes = [i, p, i, i, i, p, p, p, p, p, i, p]
         lib.blt_block_scan.restype = i
+        lib.blt_row_scan.argtypes = [p, i, i, i, p, p, p, p, p, i, p]
+        lib.blt_row_scan.restype = i
+        lib.blt_mask_scan.argtypes = [i, p, p, i, i, p]
+        lib.blt_mask_scan.restype = i
+        lib.blt_lookup.argtypes = [i, p, p, p, p, i, p]
+        lib.blt_lookup.restype = i
         _lib = lib
         return lib
 

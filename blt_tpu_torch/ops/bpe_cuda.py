@@ -6,7 +6,8 @@ Four wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
 - ``basic_encode``: the widen, K1 (``widen.cu``);
 - ``flat_encode_slots``: one flat-BPE pass, K2 (``flat_bpe.cu``), or with
   other ``FlatFlags`` one of the device-rate tools' variants of it: T8's
-  cost split and four of T6's ablations (``FLAT_PASSES``);
+  cost split, four of T6's ablations, T2's design probes and T10's
+  ``novalid`` (``FLAT_PASSES``);
 - ``pack_slots``: K2's packed-wire epilogue (``flat_bpe.cu``);
 - ``chain_encode``: a copy or widen launched k times through a token
   (``chain.cu``): K5 (``basic_encode_chained``, what ``bench.py`` times)
@@ -52,13 +53,18 @@ CHAINS = {
 class FlatFlags(NamedTuple):
     """The switches of one flat pass (``csrc/flat_pass.cuh``; see
     ``flat_pass_plain``), in ``blt_flat_pass``'s bit order. The defaults
-    are K2."""
+    are K2. ``lookback`` and ``smem_table`` change how the pass runs (one
+    launch with a decoupled look-back; the table staged in shared memory),
+    not what it computes."""
 
     lookup: bool = True
     scan: bool = True
     swap: bool = False
     odd: bool = False
     row_wrap: bool = False
+    lookback: bool = False
+    smem_table: bool = False
+    valid: bool = True
 
     @property
     def bits(self) -> int:
@@ -67,8 +73,11 @@ class FlatFlags(NamedTuple):
 
 # The flat passes the port launches, by the name each counts its launches
 # under: K2; T8's cost split, whose starts emit their value byteswapped (the
-# tool's ``byteswap(tok)``); and T6's ablations that are flat passes (T6's
-# ``full`` is K2 itself).
+# tool's ``byteswap(tok)``); T6's ablations that are flat passes (T6's
+# ``full`` is K2 itself); T2's design probes (its ``base`` is T8's ``full``;
+# ``opt_swap`` runs over a table byteswapped once more, so it emits what the
+# others do); and T10's ``novalid`` (its ``prod`` is K2). ``flat_bpe.cu``
+# instantiates these flag sets and no other.
 FLAT_PASSES = {
     "flat_bpe": FlatFlags(),
     "parts_emit": FlatFlags(lookup=False, scan=False, swap=True),
@@ -78,6 +87,10 @@ FLAT_PASSES = {
     "scan_parts_noscan": FlatFlags(scan=False, odd=True),
     "scan_parts_nolookup": FlatFlags(lookup=False),
     "scan_parts_noshifts": FlatFlags(row_wrap=True),
+    "opt_p2": FlatFlags(swap=True, lookback=True),
+    "opt_hoist": FlatFlags(swap=True, lookback=True, smem_table=True),
+    "opt_swap": FlatFlags(lookback=True, smem_table=True),
+    "chd_novalid": FlatFlags(valid=False),
 }
 _FLAT_NAMES = {flags: name for name, flags in FLAT_PASSES.items()}
 # T8's variants, in the tool's order
@@ -282,10 +295,13 @@ def flat_pass_plain(
     an odd position. ``swap``: a start emits its value byteswapped.
     ``row_wrap``: the next byte and consumed wrap inside each 128-byte row,
     with no next_byte patch and no carry into consumed (cap a multiple of
-    128).
+    128). No ``valid``: every position below cap may match (its next byte
+    ``max(next_byte, 0)`` at n-1, 0 at cap-1). ``lookback`` and
+    ``smem_table`` compute the same function as without them.
     """
     _flat_name(flags)
-    d, val, m = flat_pairs_plain(data, n, next_byte, table, flags.lookup, flags.row_wrap)
+    d, val, m = flat_pairs_plain(data, n, next_byte, table, flags.lookup, flags.row_wrap,
+                                 flags.valid)
     idx = torch.arange(d.shape[0], dtype=torch.int32, device=d.device)
     carry = carry_in.reshape(()).to(torch.int32)
     if flags.scan:
@@ -298,9 +314,10 @@ def flat_pass_plain(
 
 
 def flat_pairs_plain(data, n: int, next_byte: int, table, lookup: bool = True,
-                     row_wrap: bool = False):
+                     row_wrap: bool = False, valid: bool = True):
     """A flat pass's pairs: (the bytes as int32, each pair's value, its
-    match bit), with ``flat_pass_plain``'s ``lookup`` and ``row_wrap``."""
+    match bit), with ``flat_pass_plain``'s ``lookup``, ``row_wrap`` and
+    ``valid``."""
     d = data.reshape(-1).to(torch.int32)
     idx = torch.arange(d.shape[0], dtype=torch.int32, device=d.device)
     if row_wrap:
@@ -310,11 +327,14 @@ def flat_pairs_plain(data, n: int, next_byte: int, table, lookup: bool = True,
         nxt[:-1] = d[1:]
         if n > 0:
             nxt[n - 1] = max(next_byte, 0)
-    valid = (idx < n - 1) | ((idx == n - 1) & (next_byte >= 0))
+    if valid:
+        ok = (idx < n - 1) | ((idx == n - 1) & (next_byte >= 0))
+    else:
+        ok = torch.ones_like(idx, dtype=torch.bool)
     if lookup:
-        val = torch.where(valid, table.to(torch.int32)[(d * 256 + nxt).long()], 0)
+        val = torch.where(ok, table.to(torch.int32)[(d * 256 + nxt).long()], 0)
         return d, val, val != 0
-    return d, d * 256 + nxt, valid & ((nxt & 7) == 0)
+    return d, d * 256 + nxt, ok & ((nxt & 7) == 0)
 
 
 def flat_emit_plain(d, n, val, start, carry, swap=False, row_wrap=False):
@@ -341,7 +361,8 @@ def flat_emit_plain(d, n, val, start, carry, swap=False, row_wrap=False):
 
 def check_flat(data, n: int, next_byte: int, table, carry_in, row_wrap: bool = False) -> bool:
     """Validate a flat pass's arguments; True when they are CUDA tensors
-    (then also checked for a launch), False when they are CPU tensors."""
+    (then also checked for a launch: data and table 16-byte aligned),
+    False when they are CPU tensors."""
     cap = data.numel()
     if row_wrap and cap % LANES:
         raise ValueError(f"a pass with row_wrap takes whole rows of {LANES}, got {cap} bytes")
@@ -356,13 +377,14 @@ def check_flat(data, n: int, next_byte: int, table, carry_in, row_wrap: bool = F
     if not _on_cuda(data, table, carry_in):
         return False
     _check_aligned(data, "flat pass input")
+    _check_aligned(table, "flat pass table")
     if cap % 16 or cap == 0 or cap >= 2**31 - _TILE:
         raise ValueError(
             f"flat pass capacity {cap} must be a positive multiple of 16 "
             f"below 2**31 - {_TILE}"
         )
-    if carry_in.dtype != torch.int32 or not table.is_contiguous():
-        raise ValueError("flat pass takes an int32 carry and a contiguous table")
+    if carry_in.dtype != torch.int32:
+        raise ValueError("flat pass takes an int32 carry")
     return True
 
 
@@ -389,7 +411,8 @@ def flat_encode_slots(
     dev = data.device
     slots = torch.empty(cap, dtype=torch.uint16, device=dev)
     carry_out = torch.empty((1, 1), dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * (-(-cap // _TILE)), dtype=torch.int32, device=dev)
+    # the tiles' scan words (the look-back's status words and ticket)
+    scratch = torch.empty(2 * (-(-cap // _TILE)) + 2, dtype=torch.int32, device=dev)
     lib = _cuda_build.load()
     with torch.cuda.device(dev):
         err = lib.blt_flat_pass(

@@ -13,7 +13,16 @@ Four wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
 - ``block_scan``: T6's scan16 and swarpack, the flat pass with its parity
   scan run block by block (``scan_parts.cu`` on ``flat_pass.cuh``;
   ``tools/exp_scan.py``); T6's other variants are flag sets of
-  ``bpe_cuda.flat_encode_slots``.
+  ``bpe_cuda.flat_encode_slots``;
+- ``row_scan``: T10's noscan2, the flat pass with the scan's row phase alone
+  and a carry chained from block to block (``scan_parts.cu``;
+  ``tools/exp_chd.py``); T10's prod and novalid are flag sets of
+  ``bpe_cuda.flat_encode_slots``;
+- ``mask_scan``: T12, the block-local parity scan of a u8 mask in int32 or
+  in bf16 pairs (``scan_parts.cu``; ``tools/exp_bf16scan.py``);
+- ``lookup``: T13, five designs of a pair -> value lookup over a packed
+  table, with the tool's chain link fused in (``lookup.cu``;
+  ``tools/exp_gather.py::make_pallas``).
 
 Each has a plain PyTorch version of the same function beside it
 (``*_plain``). Dispatch is by the tensors alone, as in ``bpe_cuda``: CUDA
@@ -45,11 +54,15 @@ INT32_MIN = -(2**31)
 MIX_DTYPES = {"int32": torch.int32, "int16": torch.int16, "int8": torch.int8}
 MIX_REPS = 8  # the tool's OPS_REPS
 BLOCK_SCANS = ("scan16", "swarpack")  # in blt_block_scan's order
-MAX_RPB = 1024  # scan_parts.cu keeps 36 bytes of shared memory per row
+MAX_RPB = 1024  # scan_parts.cu keeps up to 36 bytes of shared memory per row
+MASK_SCANS = ("i32", "bf16")  # in blt_mask_scan's order
+LOOKUPS = ("chain", "g2d", "g2d_flat", "gax0", "g8bit")  # in blt_lookup's order
 
 # kernel launches made by the wrappers below, by kernel name
 launches = {"subgather": 0, **{f"op_mix_{d}": 0 for d in MIX_DTYPES}, "token_parts_copy": 0,
-            **{f"scan_parts_{v}": 0 for v in BLOCK_SCANS}}
+            **{f"scan_parts_{v}": 0 for v in BLOCK_SCANS}, "chd_noscan2": 0,
+            **{f"bf16scan_{v}": 0 for v in MASK_SCANS},
+            **{f"gather_{v}": 0 for v in LOOKUPS}}
 
 
 def reset_launches() -> None:
@@ -222,10 +235,10 @@ def copy_tokens(tokens: torch.Tensor) -> torch.Tensor:
 # --- T6: the flat pass with a block-local parity scan -----------------------------
 
 
-def _check_block_scan(variant: str, cap: int, rpb: int) -> None:
+def _check_block_scan(variant: str, cap: int, rpb: int, variants=BLOCK_SCANS) -> None:
     """Raises on a variant or a shape ``scan_parts.cu`` does not take."""
-    if variant not in BLOCK_SCANS:
-        raise ValueError(f"unknown variant {variant!r}; one of {BLOCK_SCANS}")
+    if variant not in variants:
+        raise ValueError(f"unknown variant {variant!r}; one of {variants}")
     if rpb % 8 or not 8 <= rpb <= MAX_RPB:
         raise ValueError(f"rows_per_block {rpb} must be a multiple of 8 in 8..{MAX_RPB}")
     if cap == 0 or cap % (rpb * LANES):
@@ -311,3 +324,178 @@ def block_scan(
     _cuda_build.check(err, f"scan_parts_{variant}")
     launches[f"scan_parts_{variant}"] += 1
     return slots, carry_out
+
+
+# --- T10: the flat pass with the scan's row phase alone -----------------------------
+
+
+def row_scan_plain(
+    data: torch.Tensor,
+    n: int,
+    next_byte: int,
+    table: torch.Tensor,
+    carry_in: torch.Tensor,
+    rpb: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """noscan2 as plain tensor ops (see ``csrc/scan_parts.cu``): K2's pass
+    with lz the last non-match within the position's 128-byte row, or the
+    sentinel of its block of ``rpb`` rows, whose carry is the previous
+    block's start at its last position below n. Arguments and results as
+    ``bpe_cuda.flat_pass_plain``, plus ``rpb``."""
+    _check_block_scan("noscan2", data.numel(), rpb, ("noscan2",))
+    d, val, m = flat_pairs_plain(data, n, next_byte, table)
+    block = rpb * LANES
+    nb = d.shape[0] // block
+    idx = torch.arange(d.shape[0], dtype=torch.int64, device=d.device)
+    lnm = torch.cummax(torch.where(m, INT32_MIN, idx).reshape(-1, LANES), 1).values.reshape(-1)
+    block_start = idx - idx % block
+
+    def starts(carry_of_block):  # carry_of_block: int64[nb]
+        sentinel = block_start - 1 - carry_of_block.repeat_interleave(block)
+        return m & (((idx - torch.maximum(lnm, sentinel)) & 1) == 1)
+
+    # each block's carry out for carry in 0 and 1, then the chain on the host
+    ones = torch.ones(nb, dtype=torch.int64, device=d.device)
+    last_pos = torch.clamp(torch.arange(1, nb + 1, device=d.device) * block - 1, max=n - 1)
+    passes = last_pos >= torch.arange(nb, device=d.device) * block
+    at = last_pos.clamp(min=0)
+    outs = [torch.where(passes, starts(c * ones)[at].to(torch.int64), c * ones).tolist()
+            for c in (0, 1)]
+    carries = [int(carry_in.reshape(()))]
+    for j in range(nb):
+        carries.append(outs[carries[j]][j])
+    carry = torch.tensor(carries, dtype=torch.int64, device=d.device)
+    start = starts(carry[:nb])
+    consumed = torch.empty_like(start)
+    consumed[1:] = start[:-1]
+    consumed[::block] = carry[:nb] != 0
+    slot = torch.where(consumed, 0, torch.where(start, val, d << 8))
+    return slot.to(torch.uint16), carry[nb:].to(torch.int32).reshape(1, 1)
+
+
+def row_scan(
+    data: torch.Tensor,
+    n: int,
+    next_byte: int,
+    table: torch.Tensor,
+    carry_in: torch.Tensor,
+    rpb: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """noscan2: kernel on CUDA tensors, plain on CPU tensors; counted under
+    ``launches["chd_noscan2"]`` (three launches on one stream: each block's
+    carry map, the walk over the blocks, the slots). Arguments and results
+    as ``row_scan_plain``; ``carry_in`` is read on the device."""
+    on_cuda = check_flat(data, n, next_byte, table, carry_in)
+    _check_block_scan("noscan2", data.numel(), rpb, ("noscan2",))
+    if not on_cuda:
+        return row_scan_plain(data, n, next_byte, table, carry_in, rpb)
+    cap = data.numel()
+    dev = data.device
+    slots = torch.empty(cap, dtype=torch.uint16, device=dev)
+    carry_out = torch.empty((1, 1), dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * (cap // (rpb * LANES)), dtype=torch.int32, device=dev)
+    carry_in = carry_in.contiguous()
+    lib = _cuda_build.load()
+    with torch.cuda.device(dev):
+        err = lib.blt_row_scan(
+            data.data_ptr(), cap, n, next_byte, table.data_ptr(), carry_in.data_ptr(),
+            slots.data_ptr(), carry_out.data_ptr(), scratch.data_ptr(), rpb, _stream(dev),
+        )
+    _cuda_build.check(err, "chd_noscan2")
+    launches["chd_noscan2"] += 1
+    return slots, carry_out
+
+
+# --- T12: the block-local parity scan of a mask --------------------------------------
+
+
+def _check_mask(variant: str, mask: torch.Tensor, rpb: int) -> None:
+    if mask.dtype != torch.uint8 or mask.dim() != 2 or mask.shape[1] != LANES:
+        raise ValueError(f"mask scan takes uint8 (rows, {LANES}), got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    _check_block_scan(variant, mask.numel(), rpb, MASK_SCANS)
+
+
+def mask_scan_plain(mask: torch.Tensor, rpb: int = 1024) -> torch.Tensor:
+    """T12 as plain tensor ops: in each block of ``rpb`` rows, ``start = m
+    & ((i - lz) & 1)`` with m = mask != 0 and lz the last zero at or before
+    i within the block, -1 if none. uint8 (rows, 128) -> uint8 starts."""
+    _check_mask("i32", mask, rpb)
+    m = (mask != 0).reshape(-1, rpb * LANES)
+    local = torch.arange(rpb * LANES, dtype=torch.int32, device=mask.device)
+    lz = torch.cummax(torch.where(m, -1, local), 1).values
+    return (m & (((local - lz) & 1) == 1)).to(torch.uint8).reshape(mask.shape)
+
+
+def mask_scan(variant: str, mask: torch.Tensor, rpb: int = 1024) -> torch.Tensor:
+    """T12's ``i32`` or ``bf16`` kernel: kernel on CUDA tensors, plain on
+    CPU tensors (both variants compute ``mask_scan_plain``'s function);
+    counted under ``launches["bf16scan_<variant>"]``."""
+    _check_mask(variant, mask, rpb)
+    if not _on_cuda(mask):
+        return mask_scan_plain(mask, rpb)
+    _check_aligned(mask, "mask", 4)
+    out = torch.empty_like(mask)
+    lib = _cuda_build.load()
+    with torch.cuda.device(mask.device):
+        err = lib.blt_mask_scan(MASK_SCANS.index(variant), mask.data_ptr(), out.data_ptr(),
+                                mask.shape[0], rpb, _stream(mask.device))
+    _cuda_build.check(err, f"bf16scan_{variant}")
+    launches[f"bf16scan_{variant}"] += 1
+    return out
+
+
+# --- T13: pair -> value lookups -------------------------------------------------------
+
+
+def _check_lookup(variant: str, tbl: torch.Tensor, p: torch.Tensor, c) -> None:
+    if variant not in LOOKUPS:
+        raise ValueError(f"unknown variant {variant!r}; one of {LOOKUPS}")
+    want = (torch.uint8, (32, LANES)) if variant == "g8bit" else (torch.int32, (256, LANES))
+    if (tbl.dtype, tuple(tbl.shape)) != want:
+        raise ValueError(f"{variant} takes a {want[0]} {want[1]} table, got {tbl.dtype} "
+                         f"{tuple(tbl.shape)}")
+    if p.dtype != torch.int32 or p.dim() != 2 or p.shape[1] != LANES or p.shape[0] == 0:
+        raise ValueError(f"lookup takes int32 (rows, {LANES}), got {p.dtype} {tuple(p.shape)}")
+    if c is not None and (c.dtype != torch.int32 or c.shape != p.shape):
+        raise ValueError("a link's previous output must be int32 of p's shape")
+
+
+def lookup_plain(variant: str, tbl: torch.Tensor, p: torch.Tensor, c=None) -> torch.Tensor:
+    """T13 as plain tensor ops: the lookup of ``q = p & 0xFFFF``, or in a
+    chain link (``c`` the previous output) of ``q = (p + (c & 1)) &
+    0xFFFF`` (see ``csrc/lookup.cu``). int32 (rows, 128) -> int32."""
+    _check_lookup(variant, tbl, p, c)
+    q = (p if c is None else p + (c & 1)) & 0xFFFF
+    flat = tbl.reshape(-1).to(torch.int32)
+    if variant == "gax0":
+        lane = torch.arange(LANES, dtype=torch.int32, device=p.device)
+        return flat[((q >> 8) * LANES + lane).long()]
+    if variant == "g8bit":
+        return flat[(q & 4095).long()]
+    w = flat[(q >> 1).long()]
+    return torch.where((q & 1) == 1, (w >> 16) & 0xFFFF, w & 0xFFFF)
+
+
+def lookup(variant: str, tbl: torch.Tensor, p: torch.Tensor, c=None) -> torch.Tensor:
+    """One T13 lookup (or chain link, with ``c``): kernel on CUDA tensors,
+    plain on CPU tensors; counted under ``launches["gather_<variant>"]``.
+    Arguments and results as ``lookup_plain``; no element reads outside
+    its table, whatever p holds."""
+    _check_lookup(variant, tbl, p, c)
+    if not _on_cuda(tbl, p, *([] if c is None else [c])):
+        return lookup_plain(variant, tbl, p, c)
+    for t, what in ((tbl, "lookup table"), (p, "lookup input"),
+                    *([] if c is None else [(c, "lookup link input")])):
+        _check_aligned(t, what)
+    if p.numel() >= 2**31:
+        raise ValueError(f"lookup takes fewer than 2**31 elements, got {p.numel()}")
+    out = torch.empty_like(p)
+    lib = _cuda_build.load()
+    with torch.cuda.device(p.device):
+        err = lib.blt_lookup(LOOKUPS.index(variant), tbl.data_ptr(), p.data_ptr(),
+                             0 if c is None else c.data_ptr(), out.data_ptr(), p.numel(),
+                             _stream(p.device))
+    _cuda_build.check(err, f"gather_{variant}")
+    launches[f"gather_{variant}"] += 1
+    return out

@@ -176,6 +176,20 @@ def time_chain(run, k: int, in_bytes: int, device: torch.device, expect) -> dict
     return result
 
 
+def chain_by_carry(pass_fn, carry, k: int):
+    """``chain_passes(pass_fn, carry, k)`` for a pass whose result depends on
+    its input carry alone, which is 0 or 1: at most two passes run."""
+    seen = {}
+
+    def link(c):
+        key = int(c)
+        if key not in seen:
+            seen[key] = pass_fn(c)
+        return seen[key]
+
+    return chain_passes(link, carry, k)
+
+
 def repeat(fn, k: int):
     """``fn()`` k times back to back; the last result."""
     return chain_passes(lambda _: (fn(), None), None, k)[0]

@@ -88,17 +88,9 @@ def chain(variant: str, data, n: int, next_byte: int, table, carry, k: int = K,
 
 def chain_plain(variant: str, data, n: int, next_byte: int, table, carry, k: int = K,
                 rpb: int = RPB):
-    """``chain`` through the plain version. A pass's result depends on its
-    input carry alone, which is 0 or 1, so at most two plain passes run."""
-    seen = {}
-
-    def link(c):
-        key = int(c)
-        if key not in seen:
-            seen[key] = scan_parts_plain(variant, data, n, next_byte, table, c, rpb)
-        return seen[key]
-
-    return bpe_cuda.chain_passes(link, carry, k)
+    """``chain`` through the plain version (at most two plain passes run)."""
+    return C.chain_by_carry(
+        lambda c: scan_parts_plain(variant, data, n, next_byte, table, c, rpb), carry, k)
 
 
 def measure(device: torch.device, size_bytes: int, k: int = K, seed: int = 0,

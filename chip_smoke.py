@@ -40,18 +40,26 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    times; the five T4 variants over every token-pass case of phase 3,
    ``full`` against K4; the six T6 variants over every flat case of phase
    3, the two block-local ones at rows_per_block 8 and 1024, ``full``
-   against K2); (b) the launch counters set to 0, then the six tools'
-   measurements in this process at the originals' sizes (K5, T1 and K2
-   chained 96 / 96 / 24 times, T7 at rows_per_block 512 / 2048 / 8192, the
-   T8 variants chained 8 times and T9 8 times at 64 MiB; T5 on 16384 x 128
-   chained 64 times; T4 on 8 Mi tokens chained 8 times; T6 at 64 MiB
-   chained 64 times), each chain timed as launched and as a CUDA-graph
-   replay (median and IQR of 5), beside its plain version, its bound (for
-   T5 the larger of its bytes and its operations) and the one PyTorch call
-   that computes the same function
-   where there is one (``clone()``, ``torch.gather``); the counters read
-   (T4's and T6's ``full`` are K4 and K2 themselves: their rows take K4's
-   and K2's launches during their own tool's run);
+   against K2; the four T2 variants over every flat case, each against its
+   plain version and against K2 with its starts byteswapped; T10's ``prod``
+   against K2, ``novalid`` and ``noscan2`` (rows_per_block 8 and 1024)
+   against their plain versions; T12's two scans at rows_per_block 8 and
+   1024 on random masks of density 0.3 and 0.7, single links and chained 1
+   and 3 times; T13's five lookups on p inside and outside [0, 65536), once
+   and chained 3 times); (b) the launch counters set to 0, then the ten
+   tools' measurements in this process at the originals' sizes (K5, T1 and
+   K2 chained 96 / 96 / 24 times, T7 at rows_per_block 512 / 2048 / 8192,
+   the T8 variants chained 8 times and T9 8 times at 64 MiB; T5 on 16384 x
+   128 chained 64 times; T4 on 8 Mi tokens chained 8 times; T6 at 64 MiB
+   chained 64 times; T2 and T10 at 64 MiB chained 8 times; T12 at 64 MiB
+   chained 64 times; T13 on 4096 and 131072 rows chained 16 times), each
+   chain timed as launched and as a CUDA-graph replay (median and IQR of
+   5), beside its plain version, its bound (for T5 the larger of its bytes
+   and its operations) and the one PyTorch call that computes the same
+   function where there is one (``clone()``, ``torch.gather``,
+   ``torch.take``); the counters read (T4's and T6's ``full``, T2's
+   ``base`` and T10's ``prod`` are K4, K2, T8's ``full`` and K2: their rows
+   take those launches during their own tool's run);
    (c) ``python -m blt_tpu_torch.tools.<name>`` for each tool as a process;
 8. neither ``jax`` nor ``blt_tpu`` was ever imported.
 
@@ -853,22 +861,42 @@ MEASURED_ROWS = {
        for v in ("full", "noscan", "nolookup", "noshifts")},
     **{f"scan_parts_{v}": ("scan_parts.cu", "_pallas", "tools/exp_scan.py")
        for v in ("scan16", "swarpack")},
+    **{f"opt_{v}": ("flat_bpe.cu", "chain.call", "tools/exp_opt.py")
+       for v in ("base", "p2", "hoist", "swap")},
+    "chd_prod": ("flat_bpe.cu", "chain.call", "tools/exp_chd.py"),
+    "chd_novalid": ("flat_bpe.cu", "chain.call", "tools/exp_chd.py"),
+    "chd_noscan2": ("scan_parts.cu", "chain.call", "tools/exp_chd.py"),
+    **{f"bf16scan_{v}": ("scan_parts.cu", "chain", "tools/exp_bf16scan.py")
+       for v in ("i32", "bf16")},
+    **{f"gather_{v}": ("lookup.cu", "make_pallas", "tools/exp_gather.py")
+       for v in ("chain", "g2d", "g2d_flat", "gax0", "g8bit")},
 }
-# rows that are a main-path kernel itself, by (the tool whose run they
-# read, the kernel's counter): T4's full is K4, T6's full is K2
+# T2's rows by the tool's variant names
+OPT_ROWS = {"opt_base": "base", "opt_p2": "p2", "opt_hoist": "p2+hoist",
+            "opt_swap": "p2+hoist+swap"}
+# rows that are another row's flat pass, by (the tool whose run they read,
+# the pass's counter): T4's full is K4, T6's and T10's prod K2, T2's base
+# T8's full
 COUNTED_AS = {"token_parts_full": ("exp_mp_ablate", "token_pass"),
-              "scan_parts_full": ("exp_scan", "flat_bpe")}
-# the tools phase 7 runs, with the size (MiB) and chain length of each
-# original
-TOOLS = {"exp_chain": (64, 96), "exp_sweep": (64, 8), "exp_parts": (64, 8),
-         "exp_pack": (8, 64), "exp_mp_ablate": (8, 8), "exp_scan": (64, 64)}
+              "scan_parts_full": ("exp_scan", "flat_bpe"),
+              "opt_base": ("exp_opt", "parts_full"),
+              "chd_prod": ("exp_chd", "flat_bpe")}
+# the runs phase 7 makes: label -> (tool, size in MiB, chain length), each
+# original's; T13 at the original's 4096 rows (2 MiB of p) and at 131072
+# (64 MiB, the other tools' size)
+TOOLS = {"exp_chain": ("exp_chain", 64, 96), "exp_sweep": ("exp_sweep", 64, 8),
+         "exp_parts": ("exp_parts", 64, 8), "exp_pack": ("exp_pack", 8, 64),
+         "exp_mp_ablate": ("exp_mp_ablate", 8, 8), "exp_scan": ("exp_scan", 64, 64),
+         "exp_opt": ("exp_opt", 64, 8), "exp_chd": ("exp_chd", 64, 8),
+         "exp_bf16scan": ("exp_bf16scan", 64, 64),
+         "exp_gather_4096": ("exp_gather", 2, 16), "exp_gather": ("exp_gather", 64, 16)}
 
 
 def _summary(row: dict) -> dict:
     """A tool's row, short: ms per launch (median, IQR) and GB/s (median)
     as launched and replayed from a graph, beside bound, plain and clone."""
-    out = {k: row[k] for k in ("name", "kernel", "rpb", "blocks", "dtype", "idx_range", "k",
-                               "exact") if k in row}
+    out = {k: row[k] for k in ("name", "kernel", "rpb", "blocks", "dtype", "idx_range",
+                               "p_rows", "k", "exact") if k in row}
     for mode in ("eager", "graph"):
         t = row[mode]
         out[mode] = {"ms": t["ms_per_launch"]["median"], "iqr_ms": t["ms_per_launch"]["iqr"],
@@ -887,8 +915,12 @@ def phase_measure(corpus, flat_cases, token_cases, err):
 
     from blt_tpu_torch.ops import bpe_cuda, multipass_cuda, tools_cuda
     from blt_tpu_torch.tools import (
+        exp_bf16scan,
         exp_chain,
+        exp_chd,
+        exp_gather,
         exp_mp_ablate,
+        exp_opt,
         exp_pack,
         exp_parts,
         exp_scan,
@@ -947,6 +979,22 @@ def phase_measure(corpus, flat_cases, token_cases, err):
                      f"{what} rpb={rpb}")
         hold("scan_parts_full", exp_scan.scan_parts("full", data, n, nb, table, c), (k2, k2_c),
              f"{what}, vs K2")
+        # T2: each variant is K2 with its starts byteswapped
+        for name, v in OPT_ROWS.items():
+            vt = exp_opt.variant_table(v, table)
+            got = exp_opt.opt_pass(v, data, n, nb, vt, c)
+            hold(name, got, exp_opt.opt_pass_plain(v, data, n, nb, vt, c), what)
+            hold(name, (got[0].to(torch.int32), got[1]), (swapped, k2_c), f"{what}, vs K2")
+        # T10; noscan2 at each rows_per_block that tiles the batch
+        hold("chd_prod", exp_chd.chd_pass("prod", data, n, nb, table, c), (k2, k2_c),
+             f"{what}, vs K2")
+        hold("chd_novalid", exp_chd.chd_pass("novalid", data, n, nb, table, c),
+             exp_chd.chd_pass_plain("novalid", data, n, nb, table, c), what)
+        for rpb in (8, 1024):
+            if data.numel() % (rpb * 128) == 0:
+                hold("chd_noscan2", exp_chd.chd_pass("noscan2", data, n, nb, table, c, rpb),
+                     exp_chd.chd_pass_plain("noscan2", data, n, nb, table, c, rpb),
+                     f"{what} rpb={rpb}")
     # T9: in-block and out-of-block indices, 16 MiB of each
     rng = np.random.default_rng(9)
     rows = 16 * MIB // 512
@@ -973,18 +1021,45 @@ def phase_measure(corpus, flat_cases, token_cases, err):
                  exp_mp_ablate.chain_plain(v, t, n, planes, 3), what)
         hold("token_parts_full", exp_mp_ablate.token_parts("full", t, n, planes),
              multipass_cuda.token_pass(t, n, planes), f"{what}, vs K4")
+    # T12: single links on random masks, and chains fed back as the tool's
+    for density in (0.3, 0.7):
+        mask = torch.from_numpy(exp_bf16scan.random_mask(rng, 16 * MIB // 128, density)).to(dev)
+        for rpb in (8, 1024):
+            for v in tools_cuda.MASK_SCANS:
+                what = f"density {density} rpb={rpb}"
+                hold(f"bf16scan_{v}", tools_cuda.mask_scan(v, mask, rpb),
+                     tools_cuda.mask_scan_plain(mask, rpb), what)
+                for k in (1, 3):
+                    hold(f"bf16scan_{v}", exp_bf16scan.chain(v, mask, k, rpb),
+                         exp_bf16scan.chain_plain(mask, k, rpb), f"{what} k={k}")
+    # T13: p inside and outside the tool's domain [0, 65536), 16 MiB of each
+    val16, packed = exp_gather.build_table()
+    tables = {"packed": torch.from_numpy(packed).to(dev),
+              "tbl8": torch.from_numpy(exp_gather.build_tbl8()).to(dev)}
+    for lo, hi in ((0, 65536), (-(2**31), 2**31 - 1)):
+        p = torch.from_numpy(rng.integers(lo, hi, (16 * MIB // 512, 128), dtype=np.int64)
+                             .astype(np.int32)).to(dev)
+        for v in tools_cuda.LOOKUPS:
+            tbl = tables["tbl8" if v == "g8bit" else "packed"]
+            what = f"p in [{lo}, {hi})"
+            hold(f"gather_{v}", tools_cuda.lookup(v, tbl, p), tools_cuda.lookup_plain(v, tbl, p),
+                 what)
+            hold(f"gather_{v}", exp_gather.chained(v, tbl, p, 3),
+                 exp_gather.chained_plain(v, tbl, p, 3), f"{what} k=3")
     emit({"phase": "measure_exact", "cases": cases, "tolerance": 0,
           "max_abs_err": {k: err[k] for k in MEASURED_ROWS}})
 
     # (b) the rates at the originals' sizes, in this process
     modules = {"exp_chain": exp_chain, "exp_sweep": exp_sweep, "exp_parts": exp_parts,
-               "exp_pack": exp_pack, "exp_mp_ablate": exp_mp_ablate, "exp_scan": exp_scan}
+               "exp_pack": exp_pack, "exp_mp_ablate": exp_mp_ablate, "exp_scan": exp_scan,
+               "exp_opt": exp_opt, "exp_chd": exp_chd, "exp_bf16scan": exp_bf16scan,
+               "exp_gather": exp_gather}
     reset_all_launches()
     results, during = {}, {}
-    for name, (mib, k) in TOOLS.items():
+    for name, (tool, mib, k) in TOOLS.items():
         t0 = time.perf_counter()
         before = all_launches()
-        results[name] = modules[name].measure(dev, mib * MIB, k=k)
+        results[name] = modules[tool].measure(dev, mib * MIB, k=k)
         during[name] = {c: n - before[c] for c, n in all_launches().items()}
         if not results[name]["exact"]:
             fail(f"{name}: a kernel differs from its plain version")
@@ -1001,10 +1076,14 @@ def phase_measure(corpus, flat_cases, token_cases, err):
     # (c) the entry points as processes
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    for name, (mib, _) in TOOLS.items():
+    for name, (tool, mib, _) in TOOLS.items():
+        if name != tool:
+            continue  # one process per tool
+        size = ["--rows", str(mib * MIB // 512)] if tool == "exp_gather" else [
+            "--size-mib", str(mib)]
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", f"blt_tpu_torch.tools.{name}", "--size-mib", str(mib)],
+            [sys.executable, "-m", f"blt_tpu_torch.tools.{tool}", *size],
             capture_output=True, text=True, env=env, cwd=ROOT, timeout=600,
         )
         if proc.returncode != 0:
@@ -1031,7 +1110,12 @@ def phase_measure(corpus, flat_cases, token_cases, err):
             **{f"op_mix_{d}": row("exp_pack", "op_mix", dtype=d) for d in tools_cuda.MIX_DTYPES},
             **{f"token_parts_{v}": row("exp_mp_ablate", v, rpb=512)
                for v in exp_mp_ablate.VARIANTS},
-            **{f"scan_parts_{v}": row("exp_scan", v) for v in exp_scan.VARIANTS}}
+            **{f"scan_parts_{v}": row("exp_scan", v) for v in exp_scan.VARIANTS},
+            **{name: row("exp_opt", v) for name, v in OPT_ROWS.items()},
+            "chd_prod": row("exp_chd", "prod", rpb=exp_chd.RPB),
+            **{f"chd_{v}": row("exp_chd", v) for v in ("novalid", "noscan2")},
+            **{f"bf16scan_{v}": row("exp_bf16scan", v) for v in tools_cuda.MASK_SCANS},
+            **{f"gather_{v}": row("exp_gather", v) for v in tools_cuda.LOOKUPS}}
     return {"launches": {k: launches[k] for k in MEASURED_ROWS}, "rows": rows}
 
 

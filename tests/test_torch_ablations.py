@@ -317,15 +317,17 @@ def test_scan_parts_refuse_what_their_kernels_do_not_take(scan_setup):
 
 @pytest.mark.parametrize("flags,header,passes", [
     (bpe_cuda.FlatFlags, "flat_pass.cuh", {
-        "flat_bpe": 3, "parts_emit": 4, "parts_noscan": 5, "parts_nolookup": 6, "parts_full": 7,
-        "scan_parts_noscan": 9, "scan_parts_nolookup": 2, "scan_parts_noshifts": 19}),
+        "flat_bpe": 131, "parts_emit": 132, "parts_noscan": 133, "parts_nolookup": 134,
+        "parts_full": 135, "scan_parts_noscan": 137, "scan_parts_nolookup": 130,
+        "scan_parts_noshifts": 147, "opt_p2": 167, "opt_hoist": 231, "opt_swap": 227,
+        "chd_novalid": 3}),
     (multipass_cuda.TokenFlags, "token_pass.cuh", {
         "token_pass": 7, "token_parts_noscan": 5, "token_parts_nolookup": 6,
         "token_parts_noshift": 3}),
 ])
 def test_flag_bits_are_the_c_entries(flags, header, passes):
     """The flag sets' bits are the ``kFlag*`` values of the header whose
-    one C entry takes them (K2 is 3, K4 is 7), field by field."""
+    one C entry takes them (K2 is 131, K4 is 7), field by field."""
     text = (REPO / "blt_tpu_torch" / "csrc" / header).read_text()
     in_c = {m[1].lower(): int(m[2]) for m in re.finditer(r"kFlag(\w+) = (\d+)", text)}
     assert in_c.pop("sets") == 1 << len(flags._fields)

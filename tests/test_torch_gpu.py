@@ -19,7 +19,18 @@ from blt_tpu_torch.ops import bpe_cuda, multipass_cuda, tools_cuda
 from blt_tpu_torch.ops.bpe_numpy import bpe_encode_flat, bpe_encode_multipass
 from blt_tpu_torch.ops.tables import cuckoo_planes, wire_table
 from blt_tpu_torch.pipeline.engines import TorchEngine
-from blt_tpu_torch.tools import _common, exp_chain, exp_mp_ablate, exp_parts, exp_scan, exp_sweep
+from blt_tpu_torch.tools import (
+    _common,
+    exp_bf16scan,
+    exp_chain,
+    exp_chd,
+    exp_gather,
+    exp_mp_ablate,
+    exp_opt,
+    exp_parts,
+    exp_scan,
+    exp_sweep,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -293,3 +304,86 @@ def test_ablation_kernels_equal_plain_versions(cuda):
     assert all(bpe_cuda.launches[f"scan_parts_{v}"] == 16
                for v in ("noscan", "nolookup", "noshifts"))
     assert all(tools_cuda.launches[f"scan_parts_{v}"] == 16 for v in tools_cuda.BLOCK_SCANS)
+
+
+def _swapped_starts(slots):
+    s = slots.to(torch.int32)
+    return torch.where((s & 0xFF) != 0, ((s & 0xFF) << 8) | (s >> 8), s)
+
+
+def test_design_probe_passes_equal_plain_versions(cuda):
+    """T2's four variants (look-back, staged table) against their plain
+    versions and against K2 with its starts byteswapped, over an all-match
+    run of 1000 tiles too; T10's prod against K2, novalid and noscan2 (rows
+    per block 8 and 1024) against their plain versions."""
+    table = wire_table(MergeTable.build(MERGES).dense, cuda)
+    data = torch.from_numpy(_text(21, 1 << 20, b"aabbcc \xffab\x00hpx")).to(cuda)
+    run = torch.full((4 << 20,), 97, dtype=torch.uint8, device=cuda)
+    bpe_cuda.reset_launches()
+    tools_cuda.reset_launches()
+    cases = [(data, n, carry, nb) for n in (0, 1, 4097, 1 << 20)
+             for carry, nb in ((0, -1), (1, 97), (1, 0), (0, 255))]
+    cases += [(run, (4 << 20) - 3, carry, 97) for carry in (0, 1)]
+    for d, n, carry, nb in cases:
+        c = torch.tensor([[carry]], dtype=torch.int32, device=cuda)
+        k2, k2_c = bpe_cuda.flat_pass_plain(d, n, nb, table, c)
+        for variant in exp_opt.VARIANTS:
+            vt = exp_opt.variant_table(variant, table)
+            got = exp_opt.opt_pass(variant, d, n, nb, vt, c)
+            assert _equal(got, exp_opt.opt_pass_plain(variant, d, n, nb, vt, c)), (variant, n, nb)
+            assert torch.equal(got[0].to(torch.int32), _swapped_starts(k2))
+            assert torch.equal(got[1], k2_c)
+        assert _equal(exp_chd.chd_pass("prod", d, n, nb, table, c), (k2, k2_c))
+        for variant, rpb in (("novalid", 1024), ("noscan2", 8), ("noscan2", 1024)):
+            got = exp_chd.chd_pass(variant, d, n, nb, table, c, rpb)
+            assert _equal(got, exp_chd.chd_pass_plain(variant, d, n, nb, table, c, rpb)), (
+                variant, rpb, n, nb)
+    assert {k: bpe_cuda.launches[k] for k in ("parts_full", "opt_p2", "opt_hoist", "opt_swap",
+                                               "flat_bpe", "chd_novalid")} == dict.fromkeys(
+        ("parts_full", "opt_p2", "opt_hoist", "opt_swap", "flat_bpe", "chd_novalid"), 18)
+    assert tools_cuda.launches["chd_noscan2"] == 36
+
+
+def test_look_back_replays_from_a_cuda_graph(cuda):
+    """The look-back zeroes its status words on the stream, so a captured
+    chain of it replays with the same result."""
+    table = wire_table(MergeTable.build(MERGES).dense, cuda)
+    data = torch.from_numpy(_text(22, 1 << 20)).to(cuda)
+    c = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+    for variant in ("p2", "p2+hoist"):
+        expect = bpe_cuda.chain_passes(
+            lambda x, variant=variant: exp_opt.opt_pass_plain(variant, data, 1 << 20, 97, table, x),
+            c, 4)
+        timing = _common.time_chain(
+            lambda variant=variant: exp_opt.chain(variant, data, 1 << 20, 97, table, c, 4), 4,
+            data.numel(), cuda, expect)
+        assert timing["exact"] and timing["graph"] is not None, variant
+
+
+def test_mask_scans_and_lookups_equal_plain_versions(cuda):
+    """T12's two scans on random masks, single and chained; T13's five
+    lookups on p inside and outside [0, 65536), once and chained."""
+    rng = np.random.default_rng(23)
+    tools_cuda.reset_launches()
+    for density in (0.3, 0.7):
+        mask = torch.from_numpy(exp_bf16scan.random_mask(rng, 2048, density)).to(cuda)
+        for rpb in (8, 1024):
+            for variant in tools_cuda.MASK_SCANS:
+                assert torch.equal(tools_cuda.mask_scan(variant, mask, rpb),
+                                   tools_cuda.mask_scan_plain(mask, rpb)), (density, rpb)
+                assert torch.equal(exp_bf16scan.chain(variant, mask, 3, rpb),
+                                   exp_bf16scan.chain_plain(mask, 3, rpb))
+    assert all(tools_cuda.launches[f"bf16scan_{v}"] == 16 for v in tools_cuda.MASK_SCANS)
+    _, packed = exp_gather.build_table()
+    tables = {"packed": torch.from_numpy(packed).to(cuda),
+              "tbl8": torch.from_numpy(exp_gather.build_tbl8()).to(cuda)}
+    for lo, hi in ((0, 65536), (-(2**31), 2**31 - 1)):
+        p = torch.from_numpy(rng.integers(lo, hi, (1000, 128), dtype=np.int64)
+                             .astype(np.int32)).to(cuda)
+        for variant in tools_cuda.LOOKUPS:
+            tbl = tables["tbl8" if variant == "g8bit" else "packed"]
+            assert torch.equal(tools_cuda.lookup(variant, tbl, p),
+                               tools_cuda.lookup_plain(variant, tbl, p)), (variant, lo)
+            assert torch.equal(exp_gather.chained(variant, tbl, p, 3),
+                               exp_gather.chained_plain(variant, tbl, p, 3)), (variant, lo)
+    assert all(tools_cuda.launches[f"gather_{v}"] == 8 for v in tools_cuda.LOOKUPS)

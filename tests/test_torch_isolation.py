@@ -7,8 +7,10 @@ and its copies of the JAX package's host modules behave as the originals.
 - A fresh interpreter runs the port's CLI, API and ``TorchEngine`` on the
   CPU in every mode (basic, flat BPE, general-table multipass in both
   compaction policies and the twin route, passthrough, decode) and its
-  six device-rate tools, and then finds no ``blt_tpu``, ``blt_tpu.*``,
-  ``tools``, ``tools.*`` or ``jax*`` in ``sys.modules``.
+  first six device-rate tools, and then finds no ``blt_tpu``,
+  ``blt_tpu.*``, ``tools``, ``tools.*`` or ``jax*`` in ``sys.modules``;
+  a second one does the same with the other four tools, at 1 MiB and one
+  launch each.
 - Parity of the copied host modules with the JAX package's: merges parsing
   and its errors, ``MergeTable`` fields and the cuckoo32 planes and
   constants, chunk planning and size parsing, and decode.
@@ -100,6 +102,26 @@ print("isolated")
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, env=env,
                        timeout=300, cwd=tmp_path)
+    assert r.returncode == 0, r.stderr.decode()[-3000:]
+    assert r.stdout.decode().strip() == "isolated"
+
+
+def test_the_later_tools_run_without_the_jax_package():
+    code = """
+import sys, torch
+torch.set_num_threads(1)
+from blt_tpu_torch.tools import exp_bf16scan, exp_chd, exp_gather, exp_opt
+for tool in (exp_opt, exp_chd, exp_bf16scan, exp_gather):
+    assert tool.measure(torch.device("cpu"), 1 << 20, k=1)["exact"]
+bad = sorted(k for k in sys.modules
+             if k in ("blt_tpu", "tools") or k.startswith(("blt_tpu.", "tools.", "jax")))
+assert not bad, bad
+print("isolated")
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, env=env,
+                       timeout=240, cwd=REPO)
     assert r.returncode == 0, r.stderr.decode()[-3000:]
     assert r.stdout.decode().strip() == "isolated"
 
