@@ -143,6 +143,10 @@ def load() -> ctypes.CDLL:
         lib.blt_mask_scan.restype = i
         lib.blt_lookup.argtypes = [i, p, p, p, p, i, p]
         lib.blt_lookup.restype = i
+        lib.blt_pmxu.argtypes = [i, p, p, p, p, i, i, p]
+        lib.blt_pmxu.restype = i
+        lib.blt_probe16.argtypes = [i, p, p, i, p]
+        lib.blt_probe16.restype = i
         _lib = lib
         return lib
 

@@ -1,7 +1,7 @@
 """The device-rate tools' probe and ablation kernels (ports of Pallas kernels
 in ``tools/``).
 
-Four wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
+These wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
 
 - ``subgather``: a row gather inside each block of rows, T9
   (``subgather.cu``; ``tools/exp_parts.py::subgather``);
@@ -22,7 +22,12 @@ Four wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
   in bf16 pairs (``scan_parts.cu``; ``tools/exp_bf16scan.py``);
 - ``lookup``: T13, five designs of a pair -> value lookup over a packed
   table, with the tool's chain link fused in (``lookup.cu``;
-  ``tools/exp_gather.py::make_pallas``).
+  ``tools/exp_gather.py::make_pallas``);
+- ``pmxu``: T14, the same lookup as a one-hot matrix product on the tensor
+  cores in int8 or bf16, the link fused in (``onehot_mma.cu``;
+  ``tools/exp_gather.py::make_pmxu``);
+- ``probe16``: T3 and T11, eight 16-bit elementwise and shuffle probes
+  (``probe16.cu``; ``tools/exp_16bit.py``, ``tools/canary_16bit.py``).
 
 Each has a plain PyTorch version of the same function beside it
 (``*_plain``). Dispatch is by the tensors alone, as in ``bpe_cuda``: CUDA
@@ -57,12 +62,22 @@ BLOCK_SCANS = ("scan16", "swarpack")  # in blt_block_scan's order
 MAX_RPB = 1024  # scan_parts.cu keeps up to 36 bytes of shared memory per row
 MASK_SCANS = ("i32", "bf16")  # in blt_mask_scan's order
 LOOKUPS = ("chain", "g2d", "g2d_flat", "gax0", "g8bit")  # in blt_lookup's order
+# T14's dtype (make_pmxu's name) -> (its row, the planes' type, the offset),
+# in blt_pmxu's order
+MXU_DTYPES = {"int8": ("pmxu_i8", torch.int8, 128), "bf16": ("pmxu_bf16", torch.bfloat16, 0)}
+MXU_LOOKUPS = tuple(row for row, _, _ in MXU_DTYPES.values())
+MXU_PIECE = 1 << 20  # positions per one-hot product of the plain version
+# T3's six probes and T11's two, in blt_probe16's order; each its counter
+PROBES16 = tuple(f"probe16_{b}" for b in ("bf16_roll", "bf16_max", "bf16_select",
+                                          "bf16_rowroll", "i16_roll", "bf16_scan7")) + (
+    "canary_i16_roll", "canary_strided_sublane")
 
 # kernel launches made by the wrappers below, by kernel name
 launches = {"subgather": 0, **{f"op_mix_{d}": 0 for d in MIX_DTYPES}, "token_parts_copy": 0,
             **{f"scan_parts_{v}": 0 for v in BLOCK_SCANS}, "chd_noscan2": 0,
             **{f"bf16scan_{v}": 0 for v in MASK_SCANS},
-            **{f"gather_{v}": 0 for v in LOOKUPS}}
+            **{f"gather_{v}": 0 for v in LOOKUPS + MXU_LOOKUPS},
+            **dict.fromkeys(PROBES16, 0)}
 
 
 def reset_launches() -> None:
@@ -498,4 +513,160 @@ def lookup(variant: str, tbl: torch.Tensor, p: torch.Tensor, c=None) -> torch.Te
                              _stream(p.device))
     _cuda_build.check(err, f"gather_{variant}")
     launches[f"gather_{variant}"] += 1
+    return out
+
+
+# --- T14: the lookup as a one-hot product on the tensor cores ---------------------------
+
+
+def mxu_planes(val16, dtype: str) -> torch.Tensor:
+    """T14's planes (256, 512) from the 65536 u16 values ``val16`` (array
+    or tensor; a copy of make_pmxu's recipe): the low bytes of the values of
+    pairs (a, *) in row a's first 256 columns, their high bytes in the last
+    256; as int8 less 128 for ``"int8"``, as bf16 for ``"bf16"``. On
+    ``val16``'s device when it is a tensor."""
+    if dtype not in MXU_DTYPES:
+        raise ValueError(f"unknown dtype {dtype!r}; one of {tuple(MXU_DTYPES)}")
+    v = torch.as_tensor(val16).to(torch.int32).reshape(256, 256)
+    planes = torch.cat([v & 0xFF, v >> 8], 1)
+    if dtype == "int8":
+        return (planes - 128).to(torch.int8)
+    return planes.to(torch.bfloat16)
+
+
+def _check_pmxu(dtype: str, planes: torch.Tensor, p: torch.Tensor, c, tile: int):
+    """Raises on what ``onehot_mma.cu`` does not take; T14's (row, planes'
+    type, offset)."""
+    if dtype not in MXU_DTYPES:
+        raise ValueError(f"unknown dtype {dtype!r}; one of {tuple(MXU_DTYPES)}")
+    spec = MXU_DTYPES[dtype]
+    if planes.dtype != spec[1] or tuple(planes.shape) != (256, 512):
+        raise ValueError(f"{dtype} takes {spec[1]} planes (256, 512), got {planes.dtype} "
+                         f"{tuple(planes.shape)}")
+    if p.dtype != torch.int32 or p.dim() != 2 or p.shape[1] != LANES or p.shape[0] == 0:
+        raise ValueError(f"one-hot lookup takes int32 (rows, {LANES}), got {p.dtype} "
+                         f"{tuple(p.shape)}")
+    if c is not None and (c.dtype != torch.int32 or c.shape != p.shape):
+        raise ValueError("a link's previous output must be int32 of p's shape")
+    m = p.numel()
+    if tile < 16 or tile % 16 or m % tile:
+        raise ValueError(f"tile {tile} must be a positive multiple of 16 that divides the {m} "
+                         "positions: the Pallas grid m // tile would drop the rest")
+    if m >= 2**31:
+        raise ValueError(f"one-hot lookup takes fewer than 2**31 positions, got {m}")
+    return spec
+
+
+def pmxu_plain(dtype: str, planes: torch.Tensor, p: torch.Tensor, c=None,
+               tile: int = 512) -> torch.Tensor:
+    """T14 as plain tensor ops: for ``q = p`` (or in a chain link, c the
+    previous output, ``q = (p + (c & 1)) & 0xFFFF``), ``a = q >> 8``, ``b =
+    q & 255``, ``r = onehot(a) @ planes`` in the planes' type (``torch._int_mm``
+    to int32 for int8, ``torch.matmul`` for bf16), ``out = (r[256 + b] + off)
+    * 256 + (r[b] + off)``: ``val16[q]`` inside ``[0, 65536)``, 32896 (int8)
+    or 0 (bf16) for a outside ``[0, 256)``. In pieces of ``MXU_PIECE``
+    positions (the whole product at 16 Mi positions would need 40 GiB).
+    p: int32 (rows, 128); the result int32 of p's shape. ``tile`` is checked
+    only."""
+    _, _, off = _check_pmxu(dtype, planes, p, c, tile)
+    q = (p if c is None else (p + (c & 1)) & 0xFFFF).reshape(-1)
+    iota = torch.arange(256, dtype=torch.int32, device=p.device)
+    out = torch.empty_like(q)
+    for s in range(0, q.numel(), MXU_PIECE):
+        piece = q[s:s + MXU_PIECE]
+        oh = ((piece >> 8)[:, None] == iota).to(planes.dtype)
+        # a piece has 128 or more rows, as cuBLASLt's int8 product needs
+        r = torch._int_mm(oh, planes) if dtype == "int8" else torch.matmul(oh, planes)
+        b = (piece & 255).long()[:, None]
+        vlo = r.gather(1, b).to(torch.int32) + off
+        vhi = r.gather(1, b + 256).to(torch.int32) + off
+        out[s:s + piece.numel()] = (vhi * 256 + vlo)[:, 0]
+    return out.reshape(p.shape)
+
+
+def pmxu(dtype: str, planes: torch.Tensor, p: torch.Tensor, c=None,
+         tile: int = 512) -> torch.Tensor:
+    """One T14 lookup (or chain link, with ``c``): ``onehot_mma.cu`` on CUDA
+    tensors, ``tile`` positions per block step; plain on CPU tensors;
+    counted under ``launches["gather_pmxu_i8"]`` or ``["gather_pmxu_bf16"]``.
+    Arguments and results as ``pmxu_plain``."""
+    row, _, _ = _check_pmxu(dtype, planes, p, c, tile)
+    if not _on_cuda(planes, p, *([] if c is None else [c])):
+        return pmxu_plain(dtype, planes, p, c, tile)
+    for t, what in ((planes, "planes"), (p, "one-hot lookup input"),
+                    *([] if c is None else [(c, "one-hot lookup link input")])):
+        _check_aligned(t, what, 4)
+    out = torch.empty_like(p)
+    lib = _cuda_build.load()
+    with torch.cuda.device(p.device):
+        err = lib.blt_pmxu(tuple(MXU_DTYPES).index(dtype), planes.data_ptr(), p.data_ptr(),
+                           0 if c is None else c.data_ptr(), out.data_ptr(), p.numel(), tile,
+                           _stream(p.device))
+    _cuda_build.check(err, f"gather_{row}")
+    launches[f"gather_{row}"] += 1
+    return out
+
+
+# --- T3 and T11: 16-bit probes ------------------------------------------------------------
+
+
+def _check_probe16(probe: str, x: torch.Tensor) -> None:
+    if probe not in PROBES16:
+        raise ValueError(f"unknown probe {probe!r}; one of {PROBES16}")
+    if x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != LANES or x.shape[0] == 0:
+        raise ValueError(f"16-bit probes take int32 (rows, {LANES}), got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.numel() >= 2**31:
+        raise ValueError(f"16-bit probes take fewer than 2**31 elements, got {x.numel()}")
+
+
+def probe16_plain(probe: str, x: torch.Tensor) -> torch.Tensor:
+    """A T3 or T11 probe as plain tensor ops in ``torch.bfloat16`` /
+    ``torch.int16`` (see ``csrc/probe16.cu``): int32 (rows, 128) -> int32
+    (rows, 128), ``canary_strided_sublane`` -> rows 0, 2, 4, .... bf16(x)
+    is torch's cast, which equals the JAX tools' for |x| < 2**30 (past that
+    XLA saturates the way back to int32 and torch does not)."""
+    _check_probe16(probe, x)
+    body = probe.split("_", 1)[1]
+    if body == "strided_sublane":
+        return x[0::2].clone()
+    if body == "i16_roll":
+        return x.to(torch.int16).roll(1, 1).to(torch.int32)
+    lane = torch.arange(LANES, device=x.device)
+    neg1 = torch.tensor(-1.0, dtype=torch.bfloat16, device=x.device)
+    b = x.to(torch.bfloat16)
+    if body == "bf16_roll":
+        r = b.roll(1, 1)
+    elif body == "bf16_max":
+        r = torch.maximum(b, b * 0.5)
+    elif body == "bf16_select":
+        r = torch.where(lane >= 5, b, neg1)
+    elif body == "bf16_rowroll":
+        r = b.roll(1, 0)
+    else:  # bf16_scan7: seven roll-and-max steps
+        r = torch.where((x & 3) == 0, neg1, lane.to(torch.bfloat16))
+        sh = 1
+        while sh < LANES:
+            r = torch.maximum(r, torch.where(lane >= sh, r.roll(sh, 1), neg1))
+            sh *= 2
+    return r.to(torch.int32)
+
+
+def probe16(probe: str, x: torch.Tensor) -> torch.Tensor:
+    """One T3 or T11 probe: ``probe16.cu`` on a CUDA tensor, plain on a CPU
+    tensor; counted under ``launches[probe]``. Arguments and results as
+    ``probe16_plain``."""
+    _check_probe16(probe, x)
+    if not _on_cuda(x):
+        return probe16_plain(probe, x)
+    _check_aligned(x, "probe input", 4)
+    rows = x.shape[0]
+    out_rows = (rows + 1) // 2 if probe == "canary_strided_sublane" else rows
+    out = torch.empty((out_rows, LANES), dtype=torch.int32, device=x.device)
+    lib = _cuda_build.load()
+    with torch.cuda.device(x.device):
+        err = lib.blt_probe16(PROBES16.index(probe), x.data_ptr(), out.data_ptr(), rows,
+                              _stream(x.device))
+    _cuda_build.check(err, probe)
+    launches[probe] += 1
     return out

@@ -33,6 +33,8 @@ SMS = 132  # streaming multiprocessors of an H100 SXM
 # the data sheet gives no rate for integer operations outside the tensor cores.
 LANES_ISSUED_PER_SM = 128
 BOOST_SM_MHZ = 1980  # H100 SXM maximum SM clock (data sheet), where no card says
+# H100 SXM dense tensor-core peaks, without sparsity (NVIDIA data sheet)
+TENSOR_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 
 def make_corpus(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -84,6 +86,12 @@ def ops_bound_ms(ops: int, sm_mhz: float) -> float:
     """Least time for ``ops`` 32-bit integer operations, one per lane the
     card's SMs issue per clock at ``sm_mhz``."""
     return ops / (SMS * LANES_ISSUED_PER_SM * sm_mhz * 1e6) * 1e3
+
+
+def tensor_bound_ms(ops: int, dtype: str) -> float:
+    """Least time for ``ops`` tensor-core operations (a multiply-add counts
+    two) in ``dtype`` ("bf16" or "int8") at the card's dense peak."""
+    return ops / TENSOR_OPS_PER_S[dtype] * 1e3
 
 
 def sm_clock_mhz(device: torch.device) -> float:

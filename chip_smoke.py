@@ -46,18 +46,23 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    against their plain versions; T12's two scans at rows_per_block 8 and
    1024 on random masks of density 0.3 and 0.7, single links and chained 1
    and 3 times; T13's five lookups on p inside and outside [0, 65536), once
-   and chained 3 times); (b) the launch counters set to 0, then the ten
+   and chained 3 times; T14 in int8 and bf16 on the same two ranges at tile
+   512 and 48, once and chained 3 times; the eight 16-bit probes of T3 and
+   T11 on the originals' x and on random |x| < 2**30 at 512, 8 and 13 rows);
+   (b) the launch counters set to 0, then the twelve
    tools' measurements in this process at the originals' sizes (K5, T1 and
    K2 chained 96 / 96 / 24 times, T7 at rows_per_block 512 / 2048 / 8192,
    the T8 variants chained 8 times and T9 8 times at 64 MiB; T5 on 16384 x
    128 chained 64 times; T4 on 8 Mi tokens chained 8 times; T6 at 64 MiB
    chained 64 times; T2 and T10 at 64 MiB chained 8 times; T12 at 64 MiB
-   chained 64 times; T13 on 4096 and 131072 rows chained 16 times), each
-   chain timed as launched and as a CUDA-graph replay (median and IQR of
-   5), beside its plain version, its bound (for T5 the larger of its bytes
-   and its operations) and the one PyTorch call that computes the same
-   function where there is one (``clone()``, ``torch.gather``,
-   ``torch.take``); the counters read (T4's and T6's ``full``, T2's
+   chained 64 times; T13 and T14, with the original's three library rows,
+   on 4096 and 131072 rows chained 16 times; T3 at 512 and 131072 rows and
+   T11 at 8 rows, 16 launches each), each chain timed as launched and as a
+   CUDA-graph replay (median and IQR of 5), beside its plain version, its
+   bound (for T5 and T14 the larger of its bytes and its operations) and the
+   one PyTorch call that computes the same function where there is one
+   (``clone()``, ``torch.gather``, ``torch.take``,
+   ``x[0::2].contiguous()``); the counters read (T4's and T6's ``full``, T2's
    ``base`` and T10's ``prod`` are K4, K2, T8's ``full`` and K2: their rows
    take those launches during their own tool's run);
    (c) ``python -m blt_tpu_torch.tools.<name>`` for each tool as a process;
@@ -870,6 +875,14 @@ MEASURED_ROWS = {
        for v in ("i32", "bf16")},
     **{f"gather_{v}": ("lookup.cu", "make_pallas", "tools/exp_gather.py")
        for v in ("chain", "g2d", "g2d_flat", "gax0", "g8bit")},
+    **{f"gather_{v}": ("onehot_mma.cu", "make_pmxu.kernel", "tools/exp_gather.py")
+       for v in ("pmxu_i8", "pmxu_bf16")},
+    **{f"probe16_{b}": ("probe16.cu", body, "tools/exp_16bit.py")
+       for b, body in (("bf16_roll", "k_bf16_roll"), ("bf16_max", "k_bf16_max"),
+                       ("bf16_select", "k_bf16_select"), ("bf16_rowroll", "k_bf16_rowroll"),
+                       ("i16_roll", "k_i16_roll"), ("bf16_scan7", "k_bf16_scan"))},
+    **{f"canary_{b}": ("probe16.cu", f"run_canary.k_{b}", "tools/canary_16bit.py")
+       for b in ("i16_roll", "strided_sublane")},
 }
 # T2's rows by the tool's variant names
 OPT_ROWS = {"opt_base": "base", "opt_p2": "p2", "opt_hoist": "p2+hoist",
@@ -881,22 +894,27 @@ COUNTED_AS = {"token_parts_full": ("exp_mp_ablate", "token_pass"),
               "scan_parts_full": ("exp_scan", "flat_bpe"),
               "opt_base": ("exp_opt", "parts_full"),
               "chd_prod": ("exp_chd", "flat_bpe")}
-# the runs phase 7 makes: label -> (tool, size in MiB, chain length), each
-# original's; T13 at the original's 4096 rows (2 MiB of p) and at 131072
-# (64 MiB, the other tools' size)
-TOOLS = {"exp_chain": ("exp_chain", 64, 96), "exp_sweep": ("exp_sweep", 64, 8),
-         "exp_parts": ("exp_parts", 64, 8), "exp_pack": ("exp_pack", 8, 64),
-         "exp_mp_ablate": ("exp_mp_ablate", 8, 8), "exp_scan": ("exp_scan", 64, 64),
-         "exp_opt": ("exp_opt", 64, 8), "exp_chd": ("exp_chd", 64, 8),
-         "exp_bf16scan": ("exp_bf16scan", 64, 64),
-         "exp_gather_4096": ("exp_gather", 2, 16), "exp_gather": ("exp_gather", 64, 16)}
+# the runs phase 7 makes: label -> (tool, size in bytes, chain length), each
+# original's; T13 and T14 at the original's 4096 rows (2 MiB of p) and at
+# 131072 (64 MiB, the other tools' size); T3 at its 512 rows and 64 MiB; T11
+# at its 8 rows
+TOOLS = {"exp_chain": ("exp_chain", 64 * MIB, 96), "exp_sweep": ("exp_sweep", 64 * MIB, 8),
+         "exp_parts": ("exp_parts", 64 * MIB, 8), "exp_pack": ("exp_pack", 8 * MIB, 64),
+         "exp_mp_ablate": ("exp_mp_ablate", 8 * MIB, 8),
+         "exp_scan": ("exp_scan", 64 * MIB, 64), "exp_opt": ("exp_opt", 64 * MIB, 8),
+         "exp_chd": ("exp_chd", 64 * MIB, 8), "exp_bf16scan": ("exp_bf16scan", 64 * MIB, 64),
+         "exp_gather_4096": ("exp_gather", 2 * MIB, 16),
+         "exp_gather": ("exp_gather", 64 * MIB, 16),
+         "exp_16bit": ("exp_16bit", 64 * MIB, 16), "canary_16bit": ("canary_16bit", 8 * 512, 16)}
+# tools whose size option is rows of 128 int32 in place of --size-mib
+ROWS_OPTION = ("exp_gather", "canary_16bit")
 
 
 def _summary(row: dict) -> dict:
     """A tool's row, short: ms per launch (median, IQR) and GB/s (median)
     as launched and replayed from a graph, beside bound, plain and clone."""
-    out = {k: row[k] for k in ("name", "kernel", "rpb", "blocks", "dtype", "idx_range",
-                               "p_rows", "k", "exact") if k in row}
+    out = {k: row[k] for k in ("name", "kernel", "route", "rpb", "blocks", "dtype", "idx_range",
+                               "p_rows", "x_rows", "tile", "k", "exact") if k in row}
     for mode in ("eager", "graph"):
         t = row[mode]
         out[mode] = {"ms": t["ms_per_launch"]["median"], "iqr_ms": t["ms_per_launch"]["iqr"],
@@ -915,6 +933,8 @@ def phase_measure(corpus, flat_cases, token_cases, err):
 
     from blt_tpu_torch.ops import bpe_cuda, multipass_cuda, tools_cuda
     from blt_tpu_torch.tools import (
+        canary_16bit,
+        exp_16bit,
         exp_bf16scan,
         exp_chain,
         exp_chd,
@@ -1046,6 +1066,30 @@ def phase_measure(corpus, flat_cases, token_cases, err):
                  what)
             hold(f"gather_{v}", exp_gather.chained(v, tbl, p, 3),
                  exp_gather.chained_plain(v, tbl, p, 3), f"{what} k=3")
+    # T14: the same two ranges over 1.5 Mi positions (two pieces of the plain
+    # version), once and chained 3 times, at tile 512 and at 48 (three
+    # m-tiles a step: a warp's second m-tile lies past the tile)
+    planes = {d: tools_cuda.mxu_planes(val16, d).to(dev) for d in tools_cuda.MXU_DTYPES}
+    for lo, hi in ((0, 65536), (-(2**31), 2**31 - 1)):
+        p = torch.from_numpy(rng.integers(lo, hi, (12288, 128), dtype=np.int64)
+                             .astype(np.int32)).to(dev)
+        for dtype, (name, _, _) in tools_cuda.MXU_DTYPES.items():
+            for tile in (512, 48):
+                what = f"p in [{lo}, {hi}) tile={tile}"
+                hold(f"gather_{name}", tools_cuda.pmxu(dtype, planes[dtype], p, tile=tile),
+                     tools_cuda.pmxu_plain(dtype, planes[dtype], p, tile=tile), what)
+                hold(f"gather_{name}", exp_gather.chained_mxu(dtype, planes[dtype], p, 3, tile),
+                     exp_gather.chained_mxu(dtype, planes[dtype], p, 3, tile, plain=True),
+                     f"{what} k=3")
+    # T3 and T11: the originals' x and random |x| < 2**30, at 512, 8 and 13 rows
+    for rows in (512, 8, 13):
+        rand = rng.integers(-(2**30) + 1, 2**30, (rows, 128), dtype=np.int64).astype(np.int32)
+        for name, x in (("arange % 97", exp_16bit.original_x(rows)),
+                        ("random", torch.from_numpy(rand))):
+            x = x.to(dev)
+            for probe in tools_cuda.PROBES16:
+                hold(probe, tools_cuda.probe16(probe, x), tools_cuda.probe16_plain(probe, x),
+                     f"{name}, {rows} rows")
     emit({"phase": "measure_exact", "cases": cases, "tolerance": 0,
           "max_abs_err": {k: err[k] for k in MEASURED_ROWS}})
 
@@ -1053,17 +1097,17 @@ def phase_measure(corpus, flat_cases, token_cases, err):
     modules = {"exp_chain": exp_chain, "exp_sweep": exp_sweep, "exp_parts": exp_parts,
                "exp_pack": exp_pack, "exp_mp_ablate": exp_mp_ablate, "exp_scan": exp_scan,
                "exp_opt": exp_opt, "exp_chd": exp_chd, "exp_bf16scan": exp_bf16scan,
-               "exp_gather": exp_gather}
+               "exp_gather": exp_gather, "exp_16bit": exp_16bit, "canary_16bit": canary_16bit}
     reset_all_launches()
     results, during = {}, {}
-    for name, (tool, mib, k) in TOOLS.items():
+    for name, (tool, size, k) in TOOLS.items():
         t0 = time.perf_counter()
         before = all_launches()
-        results[name] = modules[tool].measure(dev, mib * MIB, k=k)
+        results[name] = modules[tool].measure(dev, size, k=k)
         during[name] = {c: n - before[c] for c, n in all_launches().items()}
         if not results[name]["exact"]:
             fail(f"{name}: a kernel differs from its plain version")
-        emit({"phase": "measure", "tool": name, "size_bytes": mib * MIB,
+        emit({"phase": "measure", "tool": name, "size_bytes": size,
               "seconds": time.perf_counter() - t0,
               "rows": [_summary(r) for r in results[name]["rows"]],
               **({"split": results[name]["split"]} if "split" in results[name] else {})})
@@ -1076,11 +1120,11 @@ def phase_measure(corpus, flat_cases, token_cases, err):
     # (c) the entry points as processes
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    for name, (tool, mib, _) in TOOLS.items():
+    for name, (tool, size_bytes, _) in TOOLS.items():
         if name != tool:
             continue  # one process per tool
-        size = ["--rows", str(mib * MIB // 512)] if tool == "exp_gather" else [
-            "--size-mib", str(mib)]
+        size = ["--rows", str(size_bytes // 512)] if tool in ROWS_OPTION else [
+            "--size-mib", str(size_bytes // MIB)]
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", f"blt_tpu_torch.tools.{tool}", *size],
@@ -1093,7 +1137,8 @@ def phase_measure(corpus, flat_cases, token_cases, err):
             fail(f"{name} as a process: exact {out['exact']}, device {out['device']}")
         emit({"phase": "measure_process", "tool": name, "rc": 0,
               "seconds": time.perf_counter() - t0,
-              "graph_ms": {"/".join(str(r[k]) for k in ("name", "rpb", "dtype", "idx_range")
+              "graph_ms": {"/".join(str(r[k]) for k in ("name", "rpb", "dtype", "idx_range",
+                                                         "x_rows")
                                     if r.get(k) is not None):
                            r["graph"]["ms_per_launch"]["median"] for r in out["rows"]}})
 
@@ -1115,7 +1160,12 @@ def phase_measure(corpus, flat_cases, token_cases, err):
             "chd_prod": row("exp_chd", "prod", rpb=exp_chd.RPB),
             **{f"chd_{v}": row("exp_chd", v) for v in ("novalid", "noscan2")},
             **{f"bf16scan_{v}": row("exp_bf16scan", v) for v in tools_cuda.MASK_SCANS},
-            **{f"gather_{v}": row("exp_gather", v) for v in tools_cuda.LOOKUPS}}
+            **{f"gather_{v}": row("exp_gather", v)
+               for v in tools_cuda.LOOKUPS + tools_cuda.MXU_LOOKUPS},
+            **{p: row("exp_16bit", p.split("_", 1)[1], x_rows=TOOLS["exp_16bit"][1] // 512)
+               for p in exp_16bit.PROBES},
+            **{p: row("canary_16bit", p.split("_", 1)[1])
+               for p in ("canary_i16_roll", "canary_strided_sublane")}}
     return {"launches": {k: launches[k] for k in MEASURED_ROWS}, "rows": rows}
 
 

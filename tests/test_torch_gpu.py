@@ -21,6 +21,7 @@ from blt_tpu_torch.ops.tables import cuckoo_planes, wire_table
 from blt_tpu_torch.pipeline.engines import TorchEngine
 from blt_tpu_torch.tools import (
     _common,
+    exp_16bit,
     exp_bf16scan,
     exp_chain,
     exp_chd,
@@ -387,3 +388,45 @@ def test_mask_scans_and_lookups_equal_plain_versions(cuda):
             assert torch.equal(exp_gather.chained(variant, tbl, p, 3),
                                exp_gather.chained_plain(variant, tbl, p, 3)), (variant, lo)
     assert all(tools_cuda.launches[f"gather_{v}"] == 8 for v in tools_cuda.LOOKUPS)
+
+
+def test_one_hot_lookups_and_probes_equal_plain_versions(cuda):
+    """T14 in int8 and bf16 on p inside and outside [0, 65536), once and
+    chained, at tile 512 and 48; the eight 16-bit probes of T3 and T11 on
+    the originals' x and on random |x| < 2**30 at 512, 8 and 13 rows."""
+    rng = np.random.default_rng(24)
+    tools_cuda.reset_launches()
+    val16, _ = exp_gather.build_table()
+    for lo, hi in ((0, 65536), (-(2**31), 2**31 - 1)):
+        p = torch.from_numpy(rng.integers(lo, hi, (96, 128), dtype=np.int64)
+                             .astype(np.int32)).to(cuda)
+        for dtype in tools_cuda.MXU_DTYPES:
+            planes = tools_cuda.mxu_planes(val16, dtype).to(cuda)
+            for tile in (512, 48):
+                assert torch.equal(tools_cuda.pmxu(dtype, planes, p, tile=tile),
+                                   tools_cuda.pmxu_plain(dtype, planes, p, tile=tile)), (dtype, lo)
+                assert torch.equal(exp_gather.chained_mxu(dtype, planes, p, 3, tile),
+                                   exp_gather.chained_mxu(dtype, planes, p, 3, tile, plain=True))
+    assert all(tools_cuda.launches[f"gather_{v}"] == 16 for v in tools_cuda.MXU_LOOKUPS)
+    for rows in (512, 8, 13):
+        rand = torch.from_numpy(rng.integers(-(2**30) + 1, 2**30, (rows, 128), dtype=np.int64)
+                                .astype(np.int32))
+        for x in (exp_16bit.original_x(rows), rand):
+            x = x.to(cuda)
+            for probe in tools_cuda.PROBES16:
+                assert torch.equal(tools_cuda.probe16(probe, x),
+                                   tools_cuda.probe16_plain(probe, x)), (probe, rows)
+    assert all(tools_cuda.launches[p] == 6 for p in tools_cuda.PROBES16)
+
+
+def test_one_hot_chain_replays_from_a_cuda_graph(cuda):
+    """A captured T14 chain replays with the plain chain's result."""
+    val16, _ = exp_gather.build_table()
+    p = torch.from_numpy(np.random.default_rng(25).integers(0, 65536, (64, 128))
+                         .astype(np.int32)).to(cuda)
+    for dtype in tools_cuda.MXU_DTYPES:
+        planes = tools_cuda.mxu_planes(val16, dtype).to(cuda)
+        expect = exp_gather.chained_mxu(dtype, planes, p, 4, plain=True)
+        timing = _common.time_chain(lambda: (exp_gather.chained_mxu(dtype, planes, p, 4),), 4,
+                                    4 * p.numel(), cuda, (expect,))
+        assert timing["exact"] and timing["graph"] is not None, dtype

@@ -9,8 +9,9 @@ and its copies of the JAX package's host modules behave as the originals.
   compaction policies and the twin route, passthrough, decode) and its
   first six device-rate tools, and then finds no ``blt_tpu``,
   ``blt_tpu.*``, ``tools``, ``tools.*`` or ``jax*`` in ``sys.modules``;
-  a second one does the same with the other four tools, at 1 MiB and one
-  launch each.
+  a second one does the same with the next four tools (``exp_gather``'s
+  T13 rows), at 1 MiB and one launch each, and a third with ``exp_16bit``,
+  ``canary_16bit`` and ``exp_gather``'s T14 and library rows.
 - Parity of the copied host modules with the JAX package's: merges parsing
   and its errors, ``MergeTable`` fields and the cuckoo32 planes and
   constants, chunk planning and size parsing, and decode.
@@ -110,9 +111,34 @@ def test_the_later_tools_run_without_the_jax_package():
     code = """
 import sys, torch
 torch.set_num_threads(1)
+from blt_tpu_torch.ops import tools_cuda
 from blt_tpu_torch.tools import exp_bf16scan, exp_chd, exp_gather, exp_opt
-for tool in (exp_opt, exp_chd, exp_bf16scan, exp_gather):
+for tool in (exp_opt, exp_chd, exp_bf16scan):
     assert tool.measure(torch.device("cpu"), 1 << 20, k=1)["exact"]
+assert exp_gather.measure(torch.device("cpu"), 1 << 20, k=1, only=tools_cuda.LOOKUPS)["exact"]
+bad = sorted(k for k in sys.modules
+             if k in ("blt_tpu", "tools") or k.startswith(("blt_tpu.", "tools.", "jax")))
+assert not bad, bad
+print("isolated")
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, env=env,
+                       timeout=240, cwd=REPO)
+    assert r.returncode == 0, r.stderr.decode()[-3000:]
+    assert r.stdout.decode().strip() == "isolated"
+
+
+def test_the_tensor_core_and_16_bit_tools_run_without_the_jax_package():
+    code = """
+import sys, torch
+torch.set_num_threads(1)
+from blt_tpu_torch.tools import canary_16bit, exp_16bit, exp_gather
+cpu = torch.device("cpu")
+assert exp_16bit.measure(cpu, 1 << 20, k=1)["exact"]
+assert canary_16bit.measure(cpu, k=1)["exact"]
+rows = exp_gather.VARIANTS[5:]  # T14's two and the three library rows
+assert exp_gather.measure(cpu, 64 * 512, k=1, only=rows)["exact"]
 bad = sorted(k for k in sys.modules
              if k in ("blt_tpu", "tools") or k.startswith(("blt_tpu.", "tools.", "jax")))
 assert not bad, bad

@@ -227,8 +227,8 @@ def test_lookup_refuses_what_its_kernel_does_not_take(gather_setup):
         tools_cuda.lookup("g2d", tables["g2d"], p.to(torch.int64))
     with pytest.raises(ValueError, match="previous output"):
         tools_cuda.lookup("g2d", tables["g2d"], p, p[:8])
-    with pytest.raises(ValueError, match="not ported"):
-        exp_gather.measure(torch.device("cpu"), 1 << 16, 1, only=("mxu_int8",))
+    with pytest.raises(ValueError, match="unknown variants"):
+        exp_gather.measure(torch.device("cpu"), 1 << 16, 1, only=("mxu_fp8",))
 
 
 def test_wrappers_count_no_launch_on_the_cpu(gather_setup):
@@ -253,7 +253,7 @@ def _run_tool(tool, *args):
 
 
 @pytest.mark.parametrize("tool,args", [("exp_bf16scan", ["--size-mib", "1", "--k", "3"]),
-                                       ("exp_gather", ["--rows", "512", "--k", "3"])])
+                                       ("exp_gather", ["--rows", "32", "--k", "3"])])
 def test_entry_point_runs_on_the_cpu(tool, args):
     r = _run_tool(tool, "--device", "cpu", *args)
     assert r.returncode == 0, r.stderr[-3000:]
@@ -266,10 +266,14 @@ def test_entry_point_runs_on_the_cpu(tool, args):
     if tool == "exp_bf16scan":
         assert names == ["i32", "bf16"] and out["k1_equal"] is True
     else:
-        assert names == list(tools_cuda.LOOKUPS) and out["p_rows"] == 512
+        # the original's ten rows: T13's five, T14's two, its three XLA rows
+        assert names == list(exp_gather.VARIANTS) and len(names) == 10 and out["p_rows"] == 32
+        assert names[5:] == ["pmxu_i8", "pmxu_bf16", "xla_take", "mxu_bf16", "mxu_int8"]
         assert set(out["results"]) == set(names)
         assert all(r["rate"] > 0 for r in out["results"].values())
-        assert [r["library_ms"] is not None for r in out["rows"]] == [True] * 3 + [False] * 2
+        assert [r["library_ms"] is not None for r in out["rows"]] == (
+            [True] * 3 + [False] * 2 + [True] * 2 + [False] * 3)
+        assert [r["route"] for r in out["rows"]] == ["cuda"] * 7 + ["torch"] * 3
 
 
 @pytest.mark.parametrize("tool", ["exp_bf16scan", "exp_gather"])
