@@ -18,6 +18,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,12 +30,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "blt_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of this process's compile
+ptxas_log: dict[str, str] = {}  # source stem -> what ptxas printed (-v) in this process's compile
 
 
 def _sources() -> list[str]:
@@ -66,19 +68,22 @@ def library_path() -> Path:
     return BUILD_DIR / f"libblt_cuda_{h.hexdigest()[:16]}.so"
 
 
-def _run(cmds: list[list[str]]) -> None:
-    """Run the commands concurrently; raise with the first failure's output."""
+def _run(cmds: list[list[str]]) -> list[str]:
+    """Run the commands concurrently; raise with the first failure's output.
+    Returns each command's standard error."""
     procs = [
         subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for c in cmds
     ]
-    failed = None
+    failed, errs = None, []
     for cmd, proc in zip(cmds, procs):
         _, err = proc.communicate()
+        errs.append(err)
         if proc.returncode != 0 and failed is None:
             failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err[-4000:]}"
     if failed:
         raise RuntimeError(failed)
+    return errs
 
 
 def build() -> Path:
@@ -96,8 +101,9 @@ def build() -> Path:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), src]
-              for src, obj in zip(_sources(), objs)])
+        errs = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), src]
+                     for src, obj in zip(_sources(), objs)])
+        ptxas_log.update((Path(src).stem, err) for src, err in zip(_sources(), errs))
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, out)
     finally:
@@ -149,6 +155,53 @@ def load() -> ctypes.CDLL:
         lib.blt_probe16.restype = i
         _lib = lib
         return lib
+
+
+def kernel_resources(stem: str) -> dict:
+    """Registers, spills and shared memory of each kernel of ``csrc/<stem>.cu``
+    as ptxas printed them in this process's compile, by mangled name; empty
+    when this process did not compile."""
+    out, name = {}, None
+    for line in ptxas_log.get(stem, "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("smem_static", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                out.setdefault(name, {})[key] = int(m.group(1))
+    return out
+
+
+def sass_counts(match: str) -> dict | None:
+    """How many warpgroup products (``HGMMA``, ``IGMMA``: ``wgmma``) the
+    built library's SASS holds, by kernel (mangled names containing
+    ``match``), from ``cuobjdump -sass``; None where the toolkit has no
+    cuobjdump."""
+    opcodes = ("HGMMA", "IGMMA")
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(build())], capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1) if match in m.group(1) else None
+            if name:
+                out[name] = dict.fromkeys(opcodes, 0)
+        elif name:
+            for op in opcodes:
+                if re.search(rf"\b{op}\.", line):
+                    out[name][op] += 1
+    return out
 
 
 def check(err: int, what: str) -> None:

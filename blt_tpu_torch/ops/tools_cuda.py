@@ -24,7 +24,8 @@ These wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
   table, with the tool's chain link fused in (``lookup.cu``;
   ``tools/exp_gather.py::make_pallas``);
 - ``pmxu``: T14, the same lookup as a one-hot matrix product on the tensor
-  cores in int8 or bf16, the link fused in (``onehot_mma.cu``;
+  cores (Hopper ``wgmma``) in int8 or bf16, the link fused in, the planes
+  staged from their shared-memory image ``mxu_image`` (``onehot_mma.cu``;
   ``tools/exp_gather.py::make_pmxu``);
 - ``probe16``: T3 and T11, eight 16-bit elementwise and shuffle probes
   (``probe16.cu``; ``tools/exp_16bit.py``, ``tools/canary_16bit.py``).
@@ -534,6 +535,45 @@ def mxu_planes(val16, dtype: str) -> torch.Tensor:
     return planes.to(torch.bfloat16)
 
 
+def mxu_image(planes: torch.Tensor) -> torch.Tensor:
+    """``onehot_mma.cu``'s shared-memory image of T14's planes (256, 512),
+    int8 or bf16: uint8 of 128 KB or 256 KB on the planes' device. Per
+    plane (columns 0..255, lo, then 256..511, hi), wgmma's K-major operand
+    in the canonical 128-byte swizzle: K slices of 128 bytes (32 KB each),
+    in each the 256 columns in groups of 8, 1024 bytes apart, column n's
+    128 bytes (its K values, little-endian) in one 128-byte row, the 16-byte
+    chunk i at chunk ``i ^ (n & 7)``."""
+    esize = planes.element_size()
+    o = torch.arange(256 * 512 * esize, device=planes.device)
+    plane, o = o // (256 * 256 * esize), o % (256 * 256 * esize)
+    kslice, o = o // (256 * 128), o % (256 * 128)
+    n = plane * 256 + o // 128
+    r = n & 7
+    kbyte = kslice * 128 + (((o % 128) // 16) ^ r) * 16 + o % 16
+    src = (kbyte // esize) * (512 * esize) + n * esize + kbyte % esize
+    return planes.contiguous().view(torch.uint8).reshape(-1)[src]
+
+
+_images: dict = {}  # id(planes) -> (planes, its version, its image)
+
+
+def _image_of(planes: torch.Tensor) -> torch.Tensor:
+    """``mxu_image(planes)``, laid out once per planes tensor and kept while
+    the tensor is not written (its version counter); the last 8 are kept.
+    Not kept while the stream is capturing a CUDA graph, where the image is
+    written only at replay."""
+    hit = _images.get(id(planes))
+    if hit is not None and hit[0] is planes and hit[1] == planes._version:
+        return hit[2]
+    image = mxu_image(planes)
+    if not (planes.is_cuda and torch.cuda.is_current_stream_capturing()):
+        _images.pop(id(planes), None)
+        _images[id(planes)] = (planes, planes._version, image)
+        while len(_images) > 8:
+            _images.pop(next(iter(_images)))
+    return image
+
+
 def _check_pmxu(dtype: str, planes: torch.Tensor, p: torch.Tensor, c, tile: int):
     """Raises on what ``onehot_mma.cu`` does not take; T14's (row, planes'
     type, offset)."""
@@ -589,17 +629,25 @@ def pmxu(dtype: str, planes: torch.Tensor, p: torch.Tensor, c=None,
     """One T14 lookup (or chain link, with ``c``): ``onehot_mma.cu`` on CUDA
     tensors, ``tile`` positions per block step; plain on CPU tensors;
     counted under ``launches["gather_pmxu_i8"]`` or ``["gather_pmxu_bf16"]``.
-    Arguments and results as ``pmxu_plain``."""
+    Arguments and results as ``pmxu_plain``.
+
+    On the card the whole product runs on the tensor cores as Hopper's
+    ``wgmma`` (m64n256k32 s8 -> s32, m64n256k16 bf16 -> f32), the one-hot
+    rows built in registers, the planes read from shared memory, where they
+    arrive by ``cp.async.bulk`` from their image (``mxu_image``, laid out at
+    the first call with a planes tensor and kept while it is unchanged)."""
     row, _, _ = _check_pmxu(dtype, planes, p, c, tile)
     if not _on_cuda(planes, p, *([] if c is None else [c])):
         return pmxu_plain(dtype, planes, p, c, tile)
-    for t, what in ((planes, "planes"), (p, "one-hot lookup input"),
+    for t, what in ((p, "one-hot lookup input"),
                     *([] if c is None else [(c, "one-hot lookup link input")])):
         _check_aligned(t, what, 4)
+    image = _image_of(planes)
+    _check_aligned(image, "planes' image")
     out = torch.empty_like(p)
     lib = _cuda_build.load()
     with torch.cuda.device(p.device):
-        err = lib.blt_pmxu(tuple(MXU_DTYPES).index(dtype), planes.data_ptr(), p.data_ptr(),
+        err = lib.blt_pmxu(tuple(MXU_DTYPES).index(dtype), image.data_ptr(), p.data_ptr(),
                            0 if c is None else c.data_ptr(), out.data_ptr(), p.numel(), tile,
                            _stream(p.device))
     _cuda_build.check(err, f"gather_{row}")

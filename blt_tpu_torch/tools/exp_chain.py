@@ -19,9 +19,11 @@ On the card rows_per_block fixes only the token (``tok + k * (rows // rpb
 - 1)``); the grid is sized to the card. Each chain is timed as launched
 and as a CUDA-graph replay (``_common.time_chain``). One JSON line: per
 chain, ms per launch and GB/s of input bytes (median, IQR), the byte bound,
-the plain version's ms per launch, ``clone()``'s ms on the copy row, and
-whether every timed result equals the plain chain's (``exact``). Exits 1
-when one does not.
+the plain version's ms per launch, the one PyTorch call of the same
+function (``library_ms``: ``clone()`` on the copy row, ``widen_call`` on the
+widen and ``basic_chained`` rows, each held equal to the kernel's output),
+and whether every timed result equals the plain chain's (``exact``). Exits
+1 when one does not.
 """
 
 from __future__ import annotations
@@ -37,6 +39,14 @@ from blt_tpu_torch.tools import _common as C
 
 K = 96
 BPE_K = 24
+
+
+def widen_call(data: torch.Tensor) -> torch.Tensor:
+    """The widen as one PyTorch call: each byte b padded with a 0 byte in
+    front, ``00 b``, read as u16, the little-endian image of ``b << 8``.
+    uint8 of any shape -> uint16 of its shape."""
+    return torch.nn.functional.pad(data.reshape(-1, 1), (1, 0)).view(torch.uint16).reshape(
+        data.shape)
 
 
 def copy_chain_plain(data2, tok, rpb: int = 2048, k: int = K):
@@ -77,14 +87,16 @@ def measure(device: torch.device, size_bytes: int, k: int = K, seed: int = 0) ->
     n = size_bytes
     rows = []
 
-    def row(name, kernel, rpb, fn, plain, k, out_bytes, library=False):
-        """fn(j) / plain(j): a chain of j launches, kernel and plain."""
+    def row(name, kernel, rpb, fn, plain, k, out_bytes, library=None):
+        """fn(j) / plain(j): a chain of j launches, kernel and plain;
+        library: the one PyTorch call of the same function, held equal to
+        the kernel's output."""
         timing = C.time_chain(lambda: fn(k), k, n, device, plain(k))
         rows.append({
             "name": name, "kernel": kernel, "rpb": rpb, **timing,
             "bound_ms": C.bound_ms(n + out_bytes),
             "plain_ms": C.median_ms(lambda: plain(1), device),
-            "library_ms": (C.chained_ms(lambda: (data2.clone(),), k, n, device, (data2,))
+            "library_ms": (C.chained_ms(lambda: (library(data2),), k, n, device, (fn(1)[0],))
                            if library else None),
         })
 
@@ -97,11 +109,11 @@ def measure(device: torch.device, size_bytes: int, k: int = K, seed: int = 0) ->
         row("copy" if copy else "widen", "T1", rpb,
             lambda j, fn=fn, rpb=rpb: fn(data2, tok, rpb, j),
             lambda j, plain=plain, rpb=rpb: plain(data2, tok, rpb, j),
-            k, n if copy else 2 * n, library=copy)
+            k, n if copy else 2 * n, library=torch.clone if copy else widen_call)
     row("basic_chained", "K5", 2048,
         lambda j: bpe_cuda.basic_encode_chained(data2, tok, j, 2048),
         lambda j: bpe_cuda.basic_chained_plain(data2, tok, j, 2048),
-        k, 2 * n)
+        k, 2 * n, library=widen_call)
 
     table = wire_table(C.frequent_pair_table(corpus).dense, device)
     carry = torch.zeros((1, 1), dtype=torch.int32, device=device)

@@ -20,10 +20,13 @@ are hand-written CUDA kernels (``route: "cuda"``):
   a u8[32, 128] table, from shared memory;
   (these five: ``csrc/lookup.cu``, ``tools_cuda.lookup``)
 - ``pmxu_i8``, ``pmxu_bf16``: T14, ``onehot(p >> 8) @ planes`` on the
-  tensor cores (hand-written ``mma.sync``, s8 -> s32 or bf16 -> f32), then
-  the columns ``p & 255`` and ``256 + (p & 255)``, ``--tile`` positions per
-  block step (``csrc/onehot_mma.cu``, ``tools_cuda.pmxu``; planes
-  ``tools_cuda.mxu_planes``);
+  tensor cores (hand-written Hopper ``wgmma``, m64n256k32 s8 -> s32 or
+  m64n256k16 bf16 -> f32, the one-hot rows in registers, the planes in
+  shared memory by ``cp.async.bulk``), then the columns ``p & 255`` and
+  ``256 + (p & 255)``, ``--tile`` positions per block step
+  (``csrc/onehot_mma.cu``, ``tools_cuda.pmxu``; planes
+  ``tools_cuda.mxu_planes``, their shared-memory image
+  ``tools_cuda.mxu_image``);
 
 and the last three are PyTorch's own calls (``route: "torch"``, no kernel
 of the port): ``xla_take`` (``torch.take`` of ``val16`` as int32 with int64

@@ -7,13 +7,18 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
 
 1. device: fails without CUDA; prints ``nvidia-smi``'s name and power limit;
 2. build: compiles ``blt_tpu_torch/csrc/*.cu`` with nvcc (one process per
-   source, in parallel); builds the 8000-rule hierarchical table of leg 4
-   and checks on the host that cuckoo32 places it at 8192 slots;
+   source, in parallel); prints what ptxas reports for T14's two kernels
+   (registers, spills) and counts their ``wgmma`` instructions (``IGMMA``,
+   ``HGMMA``) in the library's SASS (``cuobjdump``), failing on none; builds
+   the 8000-rule hierarchical table of leg 4 and checks on the host that
+   cuckoo32 places it at 8192 slots;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    same CUDA tensors, exactly (tolerance 0: every value is an integer
    token), over the edge cases of the flat pass and of the token passes;
    median times at 16 MiB (16 Mi tokens for the token passes) beside the
-   least time the card could take (bytes over 3.35 TB/s);
+   least time the card could take (bytes over 3.35 TB/s), and K1's beside
+   the one PyTorch call of its function (``exp_chain.widen_call``), held
+   equal to it;
 4. main path: after one small run as set-up (it builds the native host
    library in a fresh checkout), ``blt_tpu_torch.cli.main(... --engine
    torch --type text)`` on a 1 GiB Zipf-text corpus in three legs (basic, BPE with the 500 most
@@ -46,9 +51,10 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    against their plain versions; T12's two scans at rows_per_block 8 and
    1024 on random masks of density 0.3 and 0.7, single links and chained 1
    and 3 times; T13's five lookups on p inside and outside [0, 65536), once
-   and chained 3 times; T14 in int8 and bf16 on the same two ranges at tile
-   512 and 48, once and chained 3 times; the eight 16-bit probes of T3 and
-   T11 on the originals' x and on random |x| < 2**30 at 512, 8 and 13 rows);
+   and chained 3 times; T14 in int8 and bf16 on the same two ranges at tiles
+   512, 48, 16 and 80 and at 133 tiles of 512, once and chained 3 times;
+   the eight 16-bit probes of T3 and T11 on the originals' x and on random
+   |x| < 2**30 at 512, 8 and 13 rows);
    (b) the launch counters set to 0, then the twelve
    tools' measurements in this process at the originals' sizes (K5, T1 and
    K2 chained 96 / 96 / 24 times, T7 at rows_per_block 512 / 2048 / 8192,
@@ -78,6 +84,7 @@ from __future__ import annotations
 import argparse
 import functools
 import hashlib
+import itertools
 import json
 import os
 import shutil
@@ -386,6 +393,7 @@ def phase_kernels(corpus, merges500, merges50k, rng):
 
     from blt_tpu_torch.ops import bpe_cuda
     from blt_tpu_torch.ops.tables import wire_table
+    from blt_tpu_torch.tools.exp_chain import widen_call
 
     dev = torch.device("cuda", 0)
 
@@ -506,6 +514,10 @@ def phase_kernels(corpus, merges500, merges50k, rng):
             cuda_ms(lambda: bpe_cuda.pack_slots_plain(slots, 16 * MIB, p0)),
         ),
     }
+    # the one PyTorch call of K1's function, held equal to the kernel's output
+    if int_err(widen_call(big), bpe_cuda.basic_encode(big)):
+        fail("the widen's single PyTorch call differs from K1")
+    library = {"widen": cuda_ms(lambda: widen_call(big))}
     extra = {
         "flat_bpe_50k_ms": cuda_ms(
             lambda: bpe_cuda.flat_encode_slots(big, 16 * MIB, -1, t50k, c0)
@@ -515,11 +527,12 @@ def phase_kernels(corpus, merges500, merges50k, rng):
     emit({
         "phase": "kernels", "cases": cases, "tolerance": 0,
         "max_abs_err": err,
-        "ms_16mib": {k: {"kernel": v[0], "plain": v[1], "bound": bounds[k]}
+        "ms_16mib": {k: {"kernel": v[0], "plain": v[1], "bound": bounds[k],
+                         "library": library.get(k)}
                      for k, v in ms.items()},
         **extra,
     })
-    return err, ms, bounds, flat_cases
+    return err, ms, bounds, flat_cases, library
 
 
 def phase_multipass_kernels(corpus, rules, rng):
@@ -1067,15 +1080,18 @@ def phase_measure(corpus, flat_cases, token_cases, err):
             hold(f"gather_{v}", exp_gather.chained(v, tbl, p, 3),
                  exp_gather.chained_plain(v, tbl, p, 3), f"{what} k=3")
     # T14: the same two ranges over 1.5 Mi positions (two pieces of the plain
-    # version), once and chained 3 times, at tile 512 and at 48 (three
-    # m-tiles a step: a warp's second m-tile lies past the tile)
+    # version), once and chained 3 times, at tiles 512, 48, 16 and 80 (all but
+    # 512 end inside a 64-row warpgroup tile, whose rows past the tile are
+    # masked), and over 68096 positions at tile 512: 133 tiles, one more
+    # than the SMs
     planes = {d: tools_cuda.mxu_planes(val16, d).to(dev) for d in tools_cuda.MXU_DTYPES}
-    for lo, hi in ((0, 65536), (-(2**31), 2**31 - 1)):
-        p = torch.from_numpy(rng.integers(lo, hi, (12288, 128), dtype=np.int64)
+    for (lo, hi), (rows, tiles) in itertools.product(
+            ((0, 65536), (-(2**31), 2**31 - 1)), ((12240, (512, 48, 16, 80)), (532, (512,)))):
+        p = torch.from_numpy(rng.integers(lo, hi, (rows, 128), dtype=np.int64)
                              .astype(np.int32)).to(dev)
         for dtype, (name, _, _) in tools_cuda.MXU_DTYPES.items():
-            for tile in (512, 48):
-                what = f"p in [{lo}, {hi}) tile={tile}"
+            for tile in tiles:
+                what = f"p in [{lo}, {hi}) rows={rows} tile={tile}"
                 hold(f"gather_{name}", tools_cuda.pmxu(dtype, planes[dtype], p, tile=tile),
                      tools_cuda.pmxu_plain(dtype, planes[dtype], p, tile=tile), what)
                 hold(f"gather_{name}", exp_gather.chained_mxu(dtype, planes[dtype], p, 3, tile),
@@ -1190,13 +1206,18 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    # 2. build
+    # 2. build; T14's kernels must hold wgmma (IGMMA int8, HGMMA bf16)
     t0 = time.perf_counter()
     lib = _cuda_build.build()
     _cuda_build.load()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    sass = _cuda_build.sass_counts(match="pmxu_kernel")
+    if sass is not None and (len(sass) != 2 or not all(sum(c.values()) for c in sass.values())):
+        fail(f"T14's kernels hold no wgmma: {sass}")
+    emit({"phase": "build", "seconds": seconds,
           "compiled": _cuda_build.build_seconds is not None,
-          "library": os.path.relpath(lib, ROOT)})
+          "library": os.path.relpath(lib, ROOT),
+          "onehot_mma": {"ptxas": _cuda_build.kernel_resources("onehot_mma"), "sass": sass}})
 
     rng = np.random.default_rng(args.seed)
     corpus = make_corpus(rng, max(args.size_mib, 256) * MIB)
@@ -1216,7 +1237,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     # 3. kernels against their plain versions
-    err, ms, bounds, flat_cases = phase_kernels(
+    err, ms, bounds, flat_cases, library = phase_kernels(
         corpus,
         numbered(merges500),
         numbered(merges50k),
@@ -1257,7 +1278,7 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": f"blt_tpu_torch/csrc/{src}",
          "replaces": pallas_line(func), "launches": launches[k],
          "max_abs_err": err[k], "ms": ms[k][0], "plain_ms": ms[k][1],
-         "bound_ms": bounds[k], "bound_by": "bytes", "library_ms": None}
+         "bound_ms": bounds[k], "bound_by": "bytes", "library_ms": library.get(k)}
         for k, (src, func) in rows.items()
     ]
     for k, (src, func, rel) in MEASURED_ROWS.items():

@@ -392,22 +392,28 @@ def test_mask_scans_and_lookups_equal_plain_versions(cuda):
 
 def test_one_hot_lookups_and_probes_equal_plain_versions(cuda):
     """T14 in int8 and bf16 on p inside and outside [0, 65536), once and
-    chained, at tile 512 and 48; the eight 16-bit probes of T3 and T11 on
-    the originals' x and on random |x| < 2**30 at 512, 8 and 13 rows."""
+    chained, at tiles 512, 48, 16 and 80 (all but 512 end inside a 64-row
+    warpgroup tile) and at 133 tiles of 512, one more than the SMs; the
+    eight 16-bit probes of T3 and T11 on the originals' x and on random
+    |x| < 2**30 at 512, 8 and 13 rows."""
     rng = np.random.default_rng(24)
     tools_cuda.reset_launches()
     val16, _ = exp_gather.build_table()
     for lo, hi in ((0, 65536), (-(2**31), 2**31 - 1)):
-        p = torch.from_numpy(rng.integers(lo, hi, (96, 128), dtype=np.int64)
-                             .astype(np.int32)).to(cuda)
-        for dtype in tools_cuda.MXU_DTYPES:
-            planes = tools_cuda.mxu_planes(val16, dtype).to(cuda)
-            for tile in (512, 48):
-                assert torch.equal(tools_cuda.pmxu(dtype, planes, p, tile=tile),
-                                   tools_cuda.pmxu_plain(dtype, planes, p, tile=tile)), (dtype, lo)
-                assert torch.equal(exp_gather.chained_mxu(dtype, planes, p, 3, tile),
-                                   exp_gather.chained_mxu(dtype, planes, p, 3, tile, plain=True))
-    assert all(tools_cuda.launches[f"gather_{v}"] == 16 for v in tools_cuda.MXU_LOOKUPS)
+        for rows, tiles in ((120, (512, 48, 16, 80)), (532, (512,))):
+            p = torch.from_numpy(rng.integers(lo, hi, (rows, 128), dtype=np.int64)
+                                 .astype(np.int32)).to(cuda)
+            for dtype in tools_cuda.MXU_DTYPES:
+                planes = tools_cuda.mxu_planes(val16, dtype).to(cuda)
+                for tile in tiles:
+                    assert torch.equal(tools_cuda.pmxu(dtype, planes, p, tile=tile),
+                                       tools_cuda.pmxu_plain(dtype, planes, p, tile=tile)), (
+                        dtype, lo, rows, tile)
+                    assert torch.equal(
+                        exp_gather.chained_mxu(dtype, planes, p, 3, tile),
+                        exp_gather.chained_mxu(dtype, planes, p, 3, tile, plain=True)), (
+                        dtype, lo, rows, tile)
+    assert all(tools_cuda.launches[f"gather_{v}"] == 40 for v in tools_cuda.MXU_LOOKUPS)
     for rows in (512, 8, 13):
         rand = torch.from_numpy(rng.integers(-(2**30) + 1, 2**30, (rows, 128), dtype=np.int64)
                                 .astype(np.int32))

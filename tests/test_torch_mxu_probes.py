@@ -4,10 +4,15 @@ against the JAX tools, on the CPU.
 T14 (``tools_cuda.pmxu``, ``blt_tpu_torch.tools.exp_gather``'s ``pmxu_i8``
 and ``pmxu_bf16`` rows) against ``tools/exp_gather.py::make_pmxu(...,
 interpret=True)`` in int8 and bf16, at 8 and 16 rows and tiles of 256 and
-512 positions, once on p inside and outside ``[0, 65536)`` (outside, the
-one-hot row is all zero: 32896 in int8, 0 in bf16) and chained 3 times; the
-library rows ``xla_take``, ``mxu_bf16`` and ``mxu_int8`` against
-``make_xla_take``, ``make_mxu_bf16`` and ``make_mxu_int8``. T3
+512 positions, at 8 rows and tile 16, and at 5 rows and tile 80, once on p
+inside and outside ``[0, 65536)`` (outside, the one-hot row is all zero:
+32896 in int8, 0 in bf16) and chained 3 times; the library rows
+``xla_take``, ``mxu_bf16`` and ``mxu_int8`` against ``make_xla_take``,
+``make_mxu_bf16`` and ``make_mxu_int8``. The planes' shared-memory image
+(``tools_cuda.mxu_image``), read back through the kernel's descriptor
+offsets and swizzle written out here; the build's readers of ptxas's
+report and of the SASS (``_cuda_build.kernel_resources``, ``sass_counts``)
+on stand-in outputs. T3
 (``tools_cuda.probe16``, ``blt_tpu_torch.tools.exp_16bit``) against
 ``tools/exp_16bit.py``'s six bodies in ``pl.pallas_call(...,
 interpret=True)`` with the tool's BlockSpecs at its 512 rows, on ``arange %
@@ -81,7 +86,8 @@ def _p(seed, rows, lo=0, hi=65536):
 
 
 @pytest.mark.parametrize("dtype", list(tools_cuda.MXU_DTYPES))
-@pytest.mark.parametrize("rows,tile", [(8, 256), (8, 512), (16, 256), (16, 512)])
+@pytest.mark.parametrize("rows,tile", [(8, 256), (8, 512), (16, 256), (16, 512), (8, 16),
+                                       (5, 80)])
 def test_pmxu_equals_tool_kernel(dtype, rows, tile):
     """Once on p inside and outside the domain, and chained 3 times."""
     once, chained = JAX_GATHER.make_pmxu(VAL16, rows, 3, dtype, tile=tile, interpret=True)
@@ -97,6 +103,87 @@ def test_pmxu_equals_tool_kernel(dtype, rows, tile):
     assert np.array_equal(exp_gather.chained_mxu(dtype, planes, _t(p), 3, tile).numpy(), want_k)
     assert np.array_equal(
         exp_gather.chained_mxu(dtype, planes, _t(p), 3, tile, plain=True).numpy(), want_k)
+
+
+def _kernel_offset(esize, n, k, j):
+    """Where ``onehot_mma.cu`` reads byte j of planes[k][n] (numpy arrays),
+    as a byte offset into the image: the wgmma descriptor of n's plane (lo
+    n < 256, hi past) and of the k-step holding K byte k * esize + j starts
+    at the plane (64 KB of s8, 128 KB of bf16) plus 32 KB per 128-byte K
+    slice plus 32 bytes per k-step within it; the canonical K-major layout
+    puts a column's 8-column group SBO = 1024 bytes on, the column 128
+    bytes on within it, its K bytes in order; then the 128-byte swizzle
+    xors address bits 4..6 with bits 7..9 (the image lies 1024-aligned in
+    shared memory)."""
+    plane, col = np.divmod(n, 256)
+    step, within = np.divmod(k * esize + j, 32)
+    start = plane * (256 * 256 * esize) + (step >> 2) * (256 * 128) + (step & 3) * 32
+    addr = start + (col // 8) * 1024 + (col % 8) * 128 + within
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+@pytest.mark.parametrize("dtype", list(tools_cuda.MXU_DTYPES))
+def test_mxu_image_reads_back_planes_by_the_kernels_address_formula(dtype):
+    planes = tools_cuda.mxu_planes(VAL16, dtype)
+    esize = planes.element_size()
+    image = tools_cuda.mxu_image(planes).numpy()
+    assert image.dtype == np.uint8 and image.shape == (256 * 512 * esize,)
+    raw = planes.view(torch.uint8).numpy().reshape(256, 512, esize)
+    k, n, j = np.meshgrid(np.arange(256), np.arange(512), np.arange(esize), indexing="ij")
+    offsets = _kernel_offset(esize, n, k, j)
+    assert np.array_equal(image[offsets], raw)
+    # every byte of the image is some (k, n) byte, once
+    assert np.array_equal(np.sort(offsets.reshape(-1)), np.arange(image.size))
+
+
+def test_mxu_image_is_laid_out_once_per_planes_tensor():
+    planes = tools_cuda.mxu_planes(VAL16, "int8")
+    first = tools_cuda._image_of(planes)
+    assert tools_cuda._image_of(planes) is first
+    other = planes.clone()
+    assert tools_cuda._image_of(other) is not first
+    planes[0, 0] += 1  # written in place: a new image
+    again = tools_cuda._image_of(planes)
+    assert again is not first and not torch.equal(again, first)
+    assert torch.equal(again, tools_cuda.mxu_image(planes))
+
+
+def test_kernel_resources_read_ptxas_report(monkeypatch):
+    from blt_tpu_torch.ops import _cuda_build
+
+    report = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z11pmxu_kernelILi0EEvPKh' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z11pmxu_kernelILi0EEvPKh\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]\n")
+    monkeypatch.setitem(_cuda_build.ptxas_log, "onehot_mma", report)
+    assert _cuda_build.kernel_resources("onehot_mma") == {
+        "_Z11pmxu_kernelILi0EEvPKh": {"registers": 168, "spill_stores": 8, "spill_loads": 4}}
+    assert _cuda_build.kernel_resources("no_such_source") == {}
+
+
+def test_sass_counts_read_cuobjdump(monkeypatch, tmp_path):
+    """A stand-in cuobjdump beside a stand-in nvcc: the warpgroup products
+    of the kernels whose names match are counted, other kernels left out;
+    no cuobjdump gives None."""
+    from blt_tpu_torch.ops import _cuda_build
+
+    sass = ["\t\tFunction : _Z11pmxu_kernelILi0E",
+            "  /*0010*/  WARPGROUP.ARRIVE ;",
+            "  /*0020*/  IGMMA.64x256x32.S8.S8 R24, R152, gdesc[UR8], RZ, !UPT ;",
+            "  /*0030*/  IGMMA.64x256x32.S8.S8 R24, R156, gdesc[UR4], R24, gsb0 ;",
+            "\t\tFunction : _Z5widen",
+            "  /*0010*/  HGMMA.64x8x16.F32.BF16 R0, R4, gdesc[UR4], RZ ;"]
+    tool = tmp_path / "cuobjdump"
+    tool.write_text("#!/bin/sh\nprintf '%s\\n' " + " ".join(f"'{line}'" for line in sass) + "\n")
+    tool.chmod(0o755)
+    monkeypatch.setattr(_cuda_build, "_nvcc", lambda: str(tmp_path / "nvcc"))
+    monkeypatch.setattr(_cuda_build, "build", lambda: tmp_path / "lib.so")
+    assert _cuda_build.sass_counts("pmxu_kernel") == {
+        "_Z11pmxu_kernelILi0E": {"HGMMA": 0, "IGMMA": 2}}
+    tool.unlink()
+    assert _cuda_build.sass_counts("pmxu_kernel") is None
 
 
 @pytest.mark.parametrize("dtype", list(tools_cuda.MXU_DTYPES))

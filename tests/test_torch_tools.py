@@ -172,6 +172,26 @@ def test_exp_chain_equals_tool_bodies(op, k, rpb):
                                                 (got_out, got_tok)))
 
 
+@pytest.mark.parametrize("shape", [(4, LANES), (77,), (2,)])
+def test_widen_call_equals_the_widen(shape):
+    """The single PyTorch call of K1, K5 and T1 widen: ``00 b`` read as
+    little-endian u16 is ``b << 8``, as the tool body writes it."""
+    data = np.random.default_rng(8).integers(0, 256, shape).astype(np.uint8)
+    data.reshape(-1)[:2] = [0, 255]
+    got = exp_chain.widen_call(_t(data))
+    assert got.dtype == torch.uint16 and tuple(got.shape) == shape
+    assert np.array_equal(got.numpy(), data.astype(np.uint16) << 8)
+
+
+def test_exp_chain_rows_carry_their_single_call():
+    out = exp_chain.measure(torch.device("cpu"), 1 << 20, k=2)
+    library = {(r["name"], r["rpb"]): r["library_ms"] for r in out["rows"]}
+    assert list(library) == [("copy", 2048), ("widen", 2048), ("widen", 8192),
+                             ("basic_chained", 2048), ("bpe", None)]
+    assert all(library[key] > 0 for key in list(library)[:4])
+    assert library[("bpe", None)] is None and out["exact"] is True
+
+
 @pytest.mark.parametrize("rpb", [8, 16, 64])
 def test_exp_sweep_copy_equals_tool_body(rpb):
     data = _bytes2(5)
