@@ -74,6 +74,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bulk.cuh"
+
 namespace {
 
 enum MxuType : int { kInt8 = 0, kBf16 = 1 };
@@ -170,42 +172,6 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// One thread: kStageBytes of the image from src into shared memory at dst,
-// completing on bar.
-__device__ __forceinline__ void stage(uint32_t dst, const uint8_t* src, uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(kStageBytes)
-               : "memory");
-  for (int o = 0; o < kStageBytes; o += kCopyBytes) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-        "[%3];\n" ::"r"(dst + o),
-        "l"(src + o), "r"(kCopyBytes), "r"(bar)
-        : "memory");
-  }
-}
-
-// Waits for the phase of bar with this parity to complete; a copy that never
-// completes ends the kernel with a fault after 2**26 tries, never a hang.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
 __device__ __forceinline__ int to_int(int v) { return v; }
 __device__ __forceinline__ int to_int(float v) { return __float2int_rz(v); }
 
@@ -285,7 +251,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int pass = 0; pass < 2 / kPlanes; ++pass) {
     if (pass) __syncthreads();  // every warpgroup has waited on its products of the last plane
-    if (threadIdx.x == 0) stage(img, image + pass * kStageBytes, bar);
+    if (threadIdx.x == 0) stage(img, image + pass * kStageBytes, kStageBytes, kCopyBytes, bar);
     mbar_wait(bar, pass & 1);
 
     int q[2];

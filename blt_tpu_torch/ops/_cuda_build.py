@@ -179,12 +179,12 @@ def kernel_resources(stem: str) -> dict:
     return out
 
 
-def sass_counts(match: str) -> dict | None:
-    """How many warpgroup products (``HGMMA``, ``IGMMA``: ``wgmma``) the
-    built library's SASS holds, by kernel (mangled names containing
+def sass_counts(match: str, opcodes: tuple) -> dict | None:
+    """How many instructions of each of ``opcodes`` (SASS mnemonics, such as
+    ``HGMMA`` and ``IGMMA`` for ``wgmma``, ``UBLKCP`` for ``cp.async.bulk``)
+    the built library's SASS holds, by kernel (mangled names containing
     ``match``), from ``cuobjdump -sass``; None where the toolkit has no
     cuobjdump."""
-    opcodes = ("HGMMA", "IGMMA")
     tool = Path(_nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return None

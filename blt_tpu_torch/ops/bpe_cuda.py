@@ -174,6 +174,40 @@ def chain_passes(pass_fn, carry, k: int):
     return out, carry
 
 
+# chain.cu's copy ring (kStages, kStageBytes, kBlocksPerSm there)
+RING_STAGES = 4
+RING_STAGE_BYTES = 16 * 1024
+RING_BLOCKS_PER_SM = 8
+
+
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def copy_plan(n: int, blocks: int, sms: int) -> dict:
+    """chain.cu's copy launch over n bytes (a multiple of 16), computed as
+    ``copy_chain`` and ``copy_ring_kernel`` compute it, for the CPU tests:
+    the grid, each block's span, the ring's stages and shared memory, and
+    every bulk copy as arrays ``block``, ``offset``, ``length`` (a load and
+    then a store of the same bytes), in each block's order. ``blocks``: the
+    block count (T7: ``rows // rpb``), or 0 for ``RING_BLOCKS_PER_SM`` per
+    SM of ``sms``."""
+    want = blocks if blocks > 0 else sms * RING_BLOCKS_PER_SM
+    span = _ceil_div(_ceil_div(n, want), 16) * 16
+    grid = _ceil_div(n, span)
+    stages = min(RING_STAGES, _ceil_div(span, RING_STAGE_BYTES))
+    begin = np.arange(grid, dtype=np.int64) * span
+    length = np.minimum(span, n - begin)
+    chunks = _ceil_div(length, RING_STAGE_BYTES)
+    block = np.repeat(np.arange(grid, dtype=np.int64), chunks)
+    chunk = np.arange(int(chunks.sum()), dtype=np.int64) - np.repeat(np.cumsum(chunks) - chunks,
+                                                                      chunks)
+    offset = begin[block] + chunk * RING_STAGE_BYTES
+    return {"grid": grid, "span": span, "stages": stages,
+            "smem_bytes": stages * (RING_STAGE_BYTES + 8), "block": block, "offset": offset,
+            "length": np.minimum(RING_STAGE_BYTES, begin[block] + length[block] - offset)}
+
+
 def _chain_steps(name: str, data2: torch.Tensor, tok, k: int, rows_per_block: int) -> int:
     """Validate a chain's arguments; the Pallas grid's steps ``rows //
     rows_per_block``. Raises where that grid would leave rows unwritten."""
@@ -229,6 +263,7 @@ def chain_encode(
     dev = data2.device
     out = torch.empty(data2.shape, dtype=torch.uint16 if widen else torch.uint8,
                       device=dev)
+    _check_aligned(out, "chain output")
     toks = torch.empty((2, 1), dtype=torch.int32, device=dev)
     tok_in = 0
     if tok is not None:

@@ -6,10 +6,11 @@
 Port of ``tools/exp_sweep.py``. ``copy_pallas`` (T7, ``csrc/chain.cu``) is
 the copy floor that every byte-moving kernel is held to. The Pallas copy
 runs a grid of ``rows // rows_per_block`` steps and returns the last step
-(``done``); on the card the copy launches that many CUDA blocks of 256
-threads, each looping over its share, so the sweep over rows_per_block
-512 / 2048 / 8192 is a sweep over the launch's block count. Both are
-recorded. Then K1 (``basic_encode``) and K2 (``flat_encode_slots``, 500
+(``done``); on the card the copy launches that many CUDA blocks, and each
+streams its whole grid step (rows_per_block x 128 bytes) through a ring of
+shared-memory stages by bulk asynchronous copies, so the sweep over
+rows_per_block 512 / 2048 / 8192 is a sweep over the launch's block count:
+1024, 256 and 64 blocks at 64 MiB. Both are recorded. Then K1 (``basic_encode``) and K2 (``flat_encode_slots``, 500
 rules), which have no block-size knob on the card.
 
 Every row is k single launches back to back (the original's ITERS calls),

@@ -8,8 +8,10 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
 1. device: fails without CUDA; prints ``nvidia-smi``'s name and power limit;
 2. build: compiles ``blt_tpu_torch/csrc/*.cu`` with nvcc (one process per
    source, in parallel); prints what ptxas reports for T14's two kernels
-   (registers, spills) and counts their ``wgmma`` instructions (``IGMMA``,
-   ``HGMMA``) in the library's SASS (``cuobjdump``), failing on none; builds
+   and ``chain.cu``'s (registers, spills, shared memory), counts T14's
+   ``wgmma`` instructions (``IGMMA``, ``HGMMA``) and the copy ring's bulk
+   copies (``UBLKCP``) in the library's SASS (``cuobjdump``), failing on
+   none; builds
    the 8000-rule hierarchical table of leg 4 and checks on the host that
    cuckoo32 places it at 8192 slots;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
@@ -39,7 +41,10 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
 7. measure, the device-rate path (``blt_tpu_torch.tools``): (a) K5, T1,
    T7, T8, T9, T5, T4 and T6 against their plain versions on the card,
    exactly (K5 and T1 chained 1 and 3 times from a nonzero token, T7 at
-   three block counts, the T8 variants over every flat case of phase 3,
+   rows_per_block 1, 8, 512, 2048 and 8192; the copy ring's ragged edges:
+   T1's copy chained 1 and 3 times over one row, one stage + 128 B and 64
+   MiB + 128 B, T7 over one grid step at each of those rpb and over three
+   steps of one stage + 128 B; the T8 variants over every flat case of phase 3,
    ``full`` against K2; T9 on in-block and out-of-block indices; T5 in
    int32, int16 and int8 over each type's whole range, chained 1 and 3
    times; the five T4 variants over every token-pass case of phase 3,
@@ -986,9 +991,22 @@ def phase_measure(corpus, flat_cases, token_cases, err):
              exp_chain.copy_chain_plain(data2, tok, 2048, k), f"k={k}")
         hold("chain_widen", exp_chain.widen_chain(data2, tok, 2048, k),
              exp_chain.widen_chain_plain(data2, tok, 2048, k), f"k={k}")
-    for rpb in exp_sweep.RPBS:
+    for rpb in (1, 8, *exp_sweep.RPBS):
         hold("copy_sweep", exp_sweep.copy_pallas(data2, rpb),
              exp_sweep.copy_plain(data2, rpb), f"rpb={rpb}")
+    # the copy ring's ragged edges: one row, a span of one stage + 128 B (a
+    # short last stage), 64 MiB + 128 B over T1's persistent grid; T7 over
+    # one grid step at each rpb, and over three steps of one stage + 128 B
+    stage_rows = bpe_cuda.RING_STAGE_BYTES // 128 + 1
+    big = torch.from_numpy(np.ascontiguousarray(corpus[: 64 * MIB + 128])).to(dev).reshape(-1, 128)
+    for rows in (1, stage_rows, big.shape[0]):
+        for k in (1, 3):
+            hold("chain_copy", exp_chain.copy_chain(big[:rows], tok, 1, k),
+                 exp_chain.copy_chain_plain(big[:rows], tok, 1, k), f"{rows} rows k={k}")
+    for rpb, steps in ((1, 1), (8, 1), (512, 1), (2048, 1), (8192, 1), (stage_rows, 3)):
+        hold("copy_sweep", exp_sweep.copy_pallas(big[: rpb * steps], rpb),
+             exp_sweep.copy_plain(big[: rpb * steps], rpb), f"{steps} steps of rpb={rpb}")
+    del big
     for data, n, nb, table, carry in flat_cases:
         c = torch.tensor([[carry]], dtype=torch.int32, device=dev)
         what = f"n={n} next_byte={nb} carry={carry}"
@@ -1206,18 +1224,24 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    # 2. build; T14's kernels must hold wgmma (IGMMA int8, HGMMA bf16)
+    # 2. build; T14's kernels must hold wgmma (IGMMA int8, HGMMA bf16), the
+    # copy ring bulk copies (UBLKCP)
     t0 = time.perf_counter()
     lib = _cuda_build.build()
     _cuda_build.load()
     seconds = time.perf_counter() - t0
-    sass = _cuda_build.sass_counts(match="pmxu_kernel")
+    sass = _cuda_build.sass_counts("pmxu_kernel", ("HGMMA", "IGMMA"))
     if sass is not None and (len(sass) != 2 or not all(sum(c.values()) for c in sass.values())):
         fail(f"T14's kernels hold no wgmma: {sass}")
+    ring_sass = _cuda_build.sass_counts("copy_ring_kernel", ("UBLKCP",))
+    if ring_sass is not None and (len(ring_sass) != 1
+                                  or not all(c["UBLKCP"] for c in ring_sass.values())):
+        fail(f"the copy ring holds no bulk copy: {ring_sass}")
     emit({"phase": "build", "seconds": seconds,
           "compiled": _cuda_build.build_seconds is not None,
           "library": os.path.relpath(lib, ROOT),
-          "onehot_mma": {"ptxas": _cuda_build.kernel_resources("onehot_mma"), "sass": sass}})
+          "onehot_mma": {"ptxas": _cuda_build.kernel_resources("onehot_mma"), "sass": sass},
+          "chain": {"ptxas": _cuda_build.kernel_resources("chain"), "sass": ring_sass}})
 
     rng = np.random.default_rng(args.seed)
     corpus = make_corpus(rng, max(args.size_mib, 256) * MIB)

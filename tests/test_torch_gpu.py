@@ -184,11 +184,25 @@ def test_chain_kernels_equal_plain_versions(cuda):
                               (exp_chain.widen_chain, exp_chain.widen_chain_plain)):
                 got, ref = fn(data2, tok, rpb, k), plain(data2, tok, rpb, k)
                 assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (k, rpb)
-    for rpb in (8, 64, 1024):
+    for rpb in (1, 8, 64, 1024):
         got, ref = exp_sweep.copy_pallas(data2, rpb), exp_sweep.copy_plain(data2, rpb)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), rpb
+    # the copy ring's edges: one row; a span of one stage + 128 B (T7 over
+    # three such steps, T1 over one), its last stage short; 64 MiB + 128 B
+    # over T1's persistent grid; T1 chained 3 times from a nonzero token
+    stage_rows = bpe_cuda.RING_STAGE_BYTES // 128 + 1
+    big = torch.from_numpy(_text(16, (64 << 20) + 128)).to(cuda).reshape(-1, 128)
+    for rows in (1, stage_rows, big.shape[0]):
+        for k in (1, 3):
+            got = exp_chain.copy_chain(big[:rows], tok, 1, k)
+            ref = exp_chain.copy_chain_plain(big[:rows], tok, 1, k)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (rows, k)
+    for rpb, rows in ((1, 1), (stage_rows, 3 * stage_rows)):
+        got = exp_sweep.copy_pallas(big[:rows], rpb)
+        ref = exp_sweep.copy_plain(big[:rows], rpb)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (rows, rpb)
     assert {k: bpe_cuda.launches[k] for k in bpe_cuda.CHAINS} == {
-        "basic_chained": 12, "chain_copy": 12, "chain_widen": 12, "copy_sweep": 3}
+        "basic_chained": 12, "chain_copy": 24, "chain_widen": 12, "copy_sweep": 6}
 
 
 def test_flat_parts_equal_plain_versions(cuda):

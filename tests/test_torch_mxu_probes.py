@@ -164,9 +164,9 @@ def test_kernel_resources_read_ptxas_report(monkeypatch):
 
 
 def test_sass_counts_read_cuobjdump(monkeypatch, tmp_path):
-    """A stand-in cuobjdump beside a stand-in nvcc: the warpgroup products
-    of the kernels whose names match are counted, other kernels left out;
-    no cuobjdump gives None."""
+    """A stand-in cuobjdump beside a stand-in nvcc: the opcodes asked for
+    (the warpgroup products; the bulk copies) are counted in the kernels
+    whose names match, other kernels left out; no cuobjdump gives None."""
     from blt_tpu_torch.ops import _cuda_build
 
     sass = ["\t\tFunction : _Z11pmxu_kernelILi0E",
@@ -174,16 +174,22 @@ def test_sass_counts_read_cuobjdump(monkeypatch, tmp_path):
             "  /*0020*/  IGMMA.64x256x32.S8.S8 R24, R152, gdesc[UR8], RZ, !UPT ;",
             "  /*0030*/  IGMMA.64x256x32.S8.S8 R24, R156, gdesc[UR4], R24, gsb0 ;",
             "\t\tFunction : _Z5widen",
-            "  /*0010*/  HGMMA.64x8x16.F32.BF16 R0, R4, gdesc[UR4], RZ ;"]
+            "  /*0010*/  HGMMA.64x8x16.F32.BF16 R0, R4, gdesc[UR4], RZ ;",
+            "\t\tFunction : _Z16copy_ring_kernel",
+            "  /*0010*/  UBLKCP.S.G [UR8], [UR4], UR6 ;",
+            "  /*0020*/  SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR9], R3 ;",
+            "  /*0030*/  UBLKCP.G.S [UR10], [UR8], UR6 ;"]
     tool = tmp_path / "cuobjdump"
     tool.write_text("#!/bin/sh\nprintf '%s\\n' " + " ".join(f"'{line}'" for line in sass) + "\n")
     tool.chmod(0o755)
     monkeypatch.setattr(_cuda_build, "_nvcc", lambda: str(tmp_path / "nvcc"))
     monkeypatch.setattr(_cuda_build, "build", lambda: tmp_path / "lib.so")
-    assert _cuda_build.sass_counts("pmxu_kernel") == {
+    assert _cuda_build.sass_counts("pmxu_kernel", ("HGMMA", "IGMMA")) == {
         "_Z11pmxu_kernelILi0E": {"HGMMA": 0, "IGMMA": 2}}
+    assert _cuda_build.sass_counts("copy_ring", ("UBLKCP",)) == {
+        "_Z16copy_ring_kernel": {"UBLKCP": 2}}
     tool.unlink()
-    assert _cuda_build.sass_counts("pmxu_kernel") is None
+    assert _cuda_build.sass_counts("pmxu_kernel", ("HGMMA", "IGMMA")) is None
 
 
 @pytest.mark.parametrize("dtype", list(tools_cuda.MXU_DTYPES))
