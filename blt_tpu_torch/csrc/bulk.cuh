@@ -1,7 +1,7 @@
 // Hopper's bulk asynchronous copies (cp.async.bulk, the TMA engine without a
-// tensor map) and the mbarriers they complete on, for one issuing thread.
-// Shared by onehot_mma.cu (T14 stages its planes) and chain.cu (the copy's
-// ring). Shared-memory operands are 32-bit shared-window addresses
+// tensor map, and cp.async.bulk.tensor through one) and the mbarriers they
+// complete on, for one issuing thread. Shared by onehot_mma.cu (T14 stages
+// its planes), chain.cu (the copy's ring) and subgather.cu (T9's slabs). Shared-memory operands are 32-bit shared-window addresses
 // (__cvta_generic_to_shared); every address and size is a multiple of 16.
 
 #pragma once
@@ -19,13 +19,19 @@ __device__ __forceinline__ void mbar_init(uint32_t bar) {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// One thread: the current phase of bar completes once `bytes` more bytes
+// have arrived (this is the phase's one arrival).
+__device__ __forceinline__ void expect_bytes(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
 // One thread: `bytes` from global src into shared memory at dst, as bulk
 // copies of at most `piece` bytes, completing the current phase of bar.
 __device__ __forceinline__ void stage(uint32_t dst, const uint8_t* src, uint32_t bytes,
                                       uint32_t piece, uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
+  expect_bytes(bar, bytes);
   for (uint32_t o = 0; o < bytes; o += piece) {
     const uint32_t len = bytes - o < piece ? bytes - o : piece;
     asm volatile(
@@ -34,6 +40,19 @@ __device__ __forceinline__ void stage(uint32_t dst, const uint8_t* src, uint32_t
         "l"(src + o), "r"(len), "r"(bar)
         : "memory");
   }
+}
+
+// One thread: the box of the 2D tensor map `map` (a __grid_constant__
+// parameter) whose first element is at column x, row y, into shared memory
+// at dst (rows of the box one after another), completing on bar. Elements
+// past the tensor's edge arrive as zeros and count as bytes.
+__device__ __forceinline__ void tensor_load_2d(uint32_t dst, const void* map, int x, int y,
+                                               uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
 }
 
 // Waits for the phase of bar with this parity to complete; a copy that never

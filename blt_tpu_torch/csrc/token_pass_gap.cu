@@ -33,14 +33,22 @@
 // cache holds.
 //
 // Design: the Pallas grid carries the composition state from block to block
-// in SMEM; CUDA blocks run in no order. So, as flat_bpe.cu does for its max,
-// the composition scan is three launches on one stream with no host sync:
-// tile_reduce (each 4096-position tile's composed code), tile_scan (one
-// block composes the tiles in order and writes the state entering each, and
-// zeroes the count) and tile_emit (recompute, scan inside the tile with
-// order-keeping warp shuffles, write with 16-byte stores, add the tile's
-// alive count with one atomic). Each thread owns 16 consecutive tokens,
-// loaded as four int4, plus the next four as a fifth int4.
+// in SMEM; CUDA blocks run in no order. So, as K2's look-back pass does for
+// its max (flat_pass.cuh, tile_lookback), the round is one launch on one
+// stream, after one cudaMemsetAsync of its status words, ticket and count:
+// a CTA takes its 4096-position tile from an atomic ticket (so tiles start
+// in order and every walk back ends), loads its tokens and looks each alive
+// position's pair up once (each thread owns 16 consecutive tokens, loaded as
+// four int4, plus the next four as a fifth int4), and composes the tile's
+// code (order-keeping warp shuffles). A tile with an alive non-matching
+// position has a constant code (a reset): it publishes its inclusive prefix,
+// the state leaving it, at once; any other publishes its code as an
+// aggregate. Thread 0 then walks back over its predecessors' 64-bit status
+// words, composing their aggregates until it meets a prefix (or passes tile
+// 0, whose entering state is 0), and publishes its own prefix where it had
+// not. The CTA emits from the registers it holds (16-byte stores) and adds
+// the tile's alive count with one atomic. The lookups, not the bytes, bound
+// the round, so no pair is looked up twice.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,8 +61,11 @@ constexpr int kThreads = 256;
 constexpr int kPer = 16;                // positions per thread
 constexpr int kTile = kThreads * kPer;  // positions per block
 constexpr int kLook = 4;                // _GAP_LOOKAHEAD
-constexpr int kScanThreads = 1024;
 constexpr int kIdentity = 2;
+// CTAs resident per SM: the lookups' latency is hidden by warps, so the
+// registers are held to 40 a thread (6, 4 and 1 measured 0.104, 0.110 and
+// 0.112 ms a round, 8 spilled: PERF.md)
+constexpr int kBlocksPerSm = 6;
 
 __device__ __forceinline__ int compose(int later, int earlier) {
   return ((later ^ ((later >> 1) & earlier)) & 1) | (later & earlier & 2);
@@ -70,34 +81,38 @@ struct GapPass {
   Planes t;
 };
 
-// Loads the 16 tokens at i0 (and the 4 after them) and computes each
-// position's pair value and code. False past cap.
-__device__ __forceinline__ bool load_codes(const GapPass& b, int i0,
-                                           int d[kPer], int val[kPer],
-                                           int code[kPer]) {
+// Loads the 16 tokens at i0 (and the 4 after them), looks each alive
+// position's pair up once, and keeps what the emit needs: w[k], the value
+// position k writes when no merge consumes it (the pair's value where it
+// has a rule, else the token), and the codes, two bits per position
+// (position k at bits 2k). False past cap.
+__device__ __forceinline__ bool load_codes(const GapPass& b, int i0, int w[kPer],
+                                           uint32_t& codes) {
   if (i0 >= b.cap) return false;
-  int w[kPer + kLook];
+  int t[kPer + kLook];
   const int4* src = reinterpret_cast<const int4*>(b.tok + i0);
 #pragma unroll
   for (int q = 0; q < (kPer + kLook) / 4; ++q) {
     int4 x = (q < kPer / 4 || i0 + kPer < b.cap) ? src[q]
                                                  : make_int4(-1, -1, -1, -1);
-    w[4 * q] = x.x;
-    w[4 * q + 1] = x.y;
-    w[4 * q + 2] = x.z;
-    w[4 * q + 3] = x.w;
+    t[4 * q] = x.x;
+    t[4 * q + 1] = x.y;
+    t[4 * q + 2] = x.z;
+    t[4 * q + 3] = x.w;
   }
+  codes = 0;
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
-    int nx = w[k + 1];
+    int nx = t[k + 1];
 #pragma unroll
     for (int j = 2; j <= kLook; ++j) {
-      if (nx < 0) nx = w[k + j];
+      if (nx < 0) nx = t[k + j];
     }
-    d[k] = w[k];
-    bool alive = d[k] >= 0;
-    val[k] = (alive && nx >= 0) ? cuckoo32_lookup(b.t, d[k], nx) : -1;
-    code[k] = !alive ? kIdentity : (val[k] >= 0 ? 3 : 0);
+    const bool alive = t[k] >= 0;
+    const int val = (alive && nx >= 0) ? cuckoo32_lookup(b.t, t[k], nx) : -1;
+    const uint32_t code = !alive ? kIdentity : (val >= 0 ? 3 : 0);
+    codes |= code << (2 * k);
+    w[k] = val >= 0 ? val : t[k];
   }
   return true;
 }
@@ -123,64 +138,85 @@ __device__ __forceinline__ int block_excl_compose(int v, int* warp_tot) {
   return compose(excl, prefix);
 }
 
-__device__ __forceinline__ int thread_code(const int code[kPer]) {
+__device__ __forceinline__ int thread_code(uint32_t codes) {
   int f = kIdentity;
 #pragma unroll
-  for (int k = 0; k < kPer; ++k) f = compose(code[k], f);
+  for (int k = 0; k < kPer; ++k) f = compose((codes >> (2 * k)) & 3, f);
   return f;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    tile_reduce(GapPass b, int* __restrict__ tile_code) {
-  __shared__ int warp_tot[kThreads / 32];
-  int i0 = blockIdx.x * kTile + threadIdx.x * kPer;
-  int d[kPer], val[kPer], code[kPer];
-  int f = load_codes(b, i0, d, val, code) ? thread_code(code) : kIdentity;
-  int excl = block_excl_compose<kThreads>(f, warp_tot);
-  if (threadIdx.x == kThreads - 1) tile_code[blockIdx.x] = compose(f, excl);
+// A tile's status word: the kind in the high 32 bits (0 not yet published,
+// kAggregate: the tile's code, kPrefix: the state leaving the tile), the
+// value in the low 32.
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kPrefix = 2ull << 32;
+
+__device__ __forceinline__ void publish(unsigned long long* status, int tile,
+                                        unsigned long long kind, int value) {
+  atomicExch(status + tile, kind | (uint32_t)value);
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-    tile_scan(const int* __restrict__ tile_code, int* __restrict__ tile_state,
-              int nt, int* __restrict__ count) {
-  __shared__ int warp_tot[kScanThreads / 32];
-  int per = (nt + kScanThreads - 1) / kScanThreads;
-  int lo = threadIdx.x * per;
-  int hi = min(nt, lo + per);
-  int local = kIdentity;
-  for (int j = lo; j < hi; ++j) local = compose(tile_code[j], local);
-  // the state entering the buffer is 0: no merge started before it
-  int state = apply(block_excl_compose<kScanThreads>(local, warp_tot), 0);
-  for (int j = lo; j < hi; ++j) {
-    tile_state[j] = state;
-    state = apply(tile_code[j], state);
+// The state entering `tile` (thread 0 only), whose code is `agg`: publishes
+// the tile's status, then composes its predecessors' aggregates, nearest
+// first, until one holds a prefix or the walk passes tile 0 (state 0).
+__device__ int look_back(unsigned long long* status, int tile, int agg) {
+  const bool reset = !(agg & 2);  // a constant code: the state leaving is known
+  if (reset) publish(status, tile, kPrefix, apply(agg, 0));
+  else if (tile > 0) publish(status, tile, kAggregate, agg);
+  int f = kIdentity;  // the predecessors' codes composed so far
+  int state = 0;
+  for (int j = tile - 1; j >= 0; --j) {
+    unsigned long long w;
+    do {
+      w = *reinterpret_cast<volatile unsigned long long*>(status + j);
+    } while (w == 0);
+    if (w >= kPrefix) {
+      state = (int)(uint32_t)w;
+      break;
+    }
+    f = compose(f, (int)(uint32_t)w);
   }
-  if (threadIdx.x == 0) count[0] = 0;  // tile_emit adds to it
+  state = apply(f, state);
+  if (!reset) publish(status, tile, kPrefix, apply(agg, state));
+  return state;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    tile_emit(GapPass b, const int* __restrict__ tile_state,
-              int* __restrict__ out, int* __restrict__ count) {
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    tile_lookback(GapPass b, int* __restrict__ out, int* __restrict__ count,
+                  unsigned long long* __restrict__ status, int* __restrict__ ticket) {
   __shared__ int warp_tot[kThreads / 32];
   __shared__ int warp_alive[kThreads / 32];
-  int i0 = blockIdx.x * kTile + threadIdx.x * kPer;
-  int d[kPer], val[kPer], code[kPer];
-  bool live = load_codes(b, i0, d, val, code);
-  int f = live ? thread_code(code) : kIdentity;
-  int excl = block_excl_compose<kThreads>(f, warp_tot);
+  __shared__ int s_tile, s_state;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1);
+  __syncthreads();
+  const int tile = s_tile;
+  const int i0 = tile * kTile + threadIdx.x * kPer;
+  int w[kPer];
+  uint32_t codes;
+  const bool live = load_codes(b, i0, w, codes);
+  const int f = live ? thread_code(codes) : kIdentity;
+  const int excl = block_excl_compose<kThreads>(f, warp_tot);
+  if (threadIdx.x == 0) {
+    int agg = kIdentity;
+    for (int w = 0; w < kThreads / 32; ++w) agg = compose(warp_tot[w], agg);
+    s_state = look_back(status, tile, agg);
+  }
+  __syncthreads();
   int alive_out = 0;
   if (live) {
-    int state = apply(excl, tile_state[blockIdx.x]);
+    int state = apply(excl, s_state);
     int o[kPer];
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
-      if (code[k] == kIdentity) {
+      const uint32_t code = (codes >> (2 * k)) & 3;
+      if (code == kIdentity) {
         o[k] = -1;  // tombstone or padding stays dead
       } else {
-        bool start = code[k] == 3 && !state;
-        o[k] = state ? -1 : (start ? val[k] : d[k]);
+        // consumed by the merge the previous alive position starts, or
+        // written: the pair's value where this position starts a merge
+        o[k] = state ? -1 : w[k];
         alive_out += !state;
-        state = start;
+        state = code == 3 && !state;
       }
     }
     int4* dst = reinterpret_cast<int4*>(out + i0);
@@ -206,26 +242,24 @@ __global__ void __launch_bounds__(kThreads)
 
 // tokens, out: cap int32 (16-byte aligned, cap a multiple of 16, checked by
 // the wrapper); k1, v1, k2, v2: slots int32 each (slots a power of two);
-// count: one int32; scratch: 2 * ceil(cap / 4096) int32. Returns the first
-// nonzero cudaGetLastError() of the launches.
+// scratch: 2 * ceil(cap / 4096) + 2 int32, 8-byte aligned: the tiles'
+// status words (uint64), the ticket, then the count (one int32, the second
+// result). Returns the first nonzero CUDA error of the memset and the launch.
 extern "C" int blt_token_pass_gap(const void* tokens, int cap, const void* k1,
                                   const void* v1, const void* k2,
                                   const void* v2, int slots, unsigned a1,
                                   unsigned a2, int shift, void* out,
-                                  void* count, void* scratch, void* stream) {
+                                  void* scratch, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   Planes t{(const int*)k1, (const int*)v1, (const int*)k2, (const int*)v2,
            a1, a2, shift, (uint32_t)(slots - 1)};
   GapPass b{(const int*)tokens, cap, t};
   int nt = (cap + kTile - 1) / kTile;
-  int* tile_code = (int*)scratch;
-  int* tile_state = tile_code + nt;
-  tile_reduce<<<nt, kThreads, 0, s>>>(b, tile_code);
-  int err = (int)cudaGetLastError();
+  int* words = (int*)scratch;
+  int err = (int)cudaMemsetAsync(words, 0, (2 * nt + 2) * sizeof(int), s);
   if (err) return err;
-  tile_scan<<<1, kScanThreads, 0, s>>>(tile_code, tile_state, nt, (int*)count);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  tile_emit<<<nt, kThreads, 0, s>>>(b, tile_state, (int*)out, (int*)count);
+  tile_lookback<<<nt, kThreads, 0, s>>>(
+      b, (int*)out, words + 2 * nt + 1,
+      reinterpret_cast<unsigned long long*>(words), words + 2 * nt);
   return (int)cudaGetLastError();
 }

@@ -133,9 +133,9 @@ def load() -> ctypes.CDLL:
         u = ctypes.c_uint
         lib.blt_token_pass.argtypes = [i, p, i, i, p, p, p, p, i, u, u, i, p, p, p]
         lib.blt_token_pass.restype = i
-        lib.blt_token_pass_gap.argtypes = [p, i, p, p, p, p, i, u, u, i, p, p, p, p]
+        lib.blt_token_pass_gap.argtypes = [p, i, p, p, p, p, i, u, u, i, p, p, p]
         lib.blt_token_pass_gap.restype = i
-        lib.blt_subgather.argtypes = [p, p, p, i64, i, p, p]
+        lib.blt_subgather.argtypes = [p, p, p, i64, i, i, p, p]
         lib.blt_subgather.restype = i
         lib.blt_op_mix.argtypes = [i, p, p, i, p, p, p, i, i, p]
         lib.blt_op_mix.restype = i

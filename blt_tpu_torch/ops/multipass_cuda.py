@@ -122,8 +122,9 @@ def _check_planes(planes: CuckooPlanes) -> None:
             raise ValueError("cuckoo32 planes must be contiguous int32 of one size")
 
 
-def _launch_args(tokens: torch.Tensor, planes: CuckooPlanes):
-    """Checks a CUDA launch's buffer; returns (device, capacity, scratch)."""
+def _launch_args(tokens: torch.Tensor, planes: CuckooPlanes, extra: int = 0):
+    """Checks a CUDA launch's buffer; returns (device, capacity, scratch):
+    two int32 per 4096-token tile and ``extra`` more."""
     cap = tokens.numel()
     _check_aligned(tokens, "token pass input")
     if cap % 16 or cap == 0 or cap >= 2**31 - _TILE:
@@ -132,7 +133,7 @@ def _launch_args(tokens: torch.Tensor, planes: CuckooPlanes):
             f"below 2**31 - {_TILE}"
         )
     dev = tokens.device
-    scratch = torch.empty(2 * (-(-cap // _TILE)), dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * (-(-cap // _TILE)) + extra, dtype=torch.int32, device=dev)
     return dev, cap, scratch
 
 
@@ -271,20 +272,20 @@ def token_pass_gap(
     _check_planes(planes)
     if not _on_cuda(tokens, planes.k1, planes.v1, planes.k2, planes.v2):
         return token_pass_gap_plain(tokens, planes)
-    dev, cap, scratch = _launch_args(tokens, planes)
+    # the tiles' status words (uint64), the ticket and the count, zeroed by
+    # one memset on the stream before the launch
+    dev, cap, scratch = _launch_args(tokens, planes, extra=2)
     out = torch.empty(cap, dtype=torch.int32, device=dev)
-    count = torch.empty((), dtype=torch.int32, device=dev)
     lib = _cuda_build.load()
     with torch.cuda.device(dev):
         err = lib.blt_token_pass_gap(
             tokens.data_ptr(), cap, planes.k1.data_ptr(), planes.v1.data_ptr(),
             planes.k2.data_ptr(), planes.v2.data_ptr(), planes.slots, planes.a1,
-            planes.a2, planes.shift, out.data_ptr(), count.data_ptr(),
-            scratch.data_ptr(), _stream(dev),
+            planes.a2, planes.shift, out.data_ptr(), scratch.data_ptr(), _stream(dev),
         )
     _cuda_build.check(err, "token_pass_gap")
     launches["token_pass_gap"] += 1
-    return out, count
+    return out, scratch[-1]
 
 
 # --- the wire ----------------------------------------------------------------

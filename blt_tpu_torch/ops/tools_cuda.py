@@ -4,7 +4,10 @@ in ``tools/``).
 These wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
 
 - ``subgather``: a row gather inside each block of rows, T9
-  (``subgather.cu``; ``tools/exp_parts.py::subgather``);
+  (``subgather.cu``; ``tools/exp_parts.py::subgather``): each (block,
+  column slab) job stages its indices and the table rows they reach in
+  shared memory (``subgather_plan``), or, for blocks too tall for that, the
+  direct gather ``subgather_direct``;
 - ``op_mix``: an integer op mix in int32, int16 or int8, chained through a
   token, T5 (``op_mix.cu``; ``tools/exp_pack.py``);
 - ``copy_tokens``: T4's copy floor (``token_parts.cu``;
@@ -74,8 +77,8 @@ PROBES16 = tuple(f"probe16_{b}" for b in ("bf16_roll", "bf16_max", "bf16_select"
     "canary_i16_roll", "canary_strided_sublane")
 
 # kernel launches made by the wrappers below, by kernel name
-launches = {"subgather": 0, **{f"op_mix_{d}": 0 for d in MIX_DTYPES}, "token_parts_copy": 0,
-            **{f"scan_parts_{v}": 0 for v in BLOCK_SCANS}, "chd_noscan2": 0,
+launches = {"subgather": 0, "subgather_direct": 0, **{f"op_mix_{d}": 0 for d in MIX_DTYPES},
+            "token_parts_copy": 0, **{f"scan_parts_{v}": 0 for v in BLOCK_SCANS}, "chd_noscan2": 0,
             **{f"bf16scan_{v}": 0 for v in MASK_SCANS},
             **{f"gather_{v}": 0 for v in LOOKUPS + MXU_LOOKUPS},
             **dict.fromkeys(PROBES16, 0)}
@@ -98,6 +101,33 @@ def _blocks(rows: int, rpb: int, what: str) -> int:
 
 
 # --- T9: row gather within each block ------------------------------------------
+
+
+# T9's slab path (subgather.cu's kBoxRows, kSmemBytes): a job stages its
+# indices and table rows in boxes of SUBGATHER_BOX_ROWS rows, both in at
+# most SUBGATHER_SMEM_BYTES of shared memory, SUBGATHER_MAX_WIDTH columns
+# wide where that fits
+SUBGATHER_MAX_WIDTH = 8
+SUBGATHER_BOX_ROWS = 32
+SUBGATHER_SMEM_BYTES = 226 * 1024
+
+
+def subgather_plan(rows: int, rpb: int) -> dict:
+    """The launch ``subgather`` makes for ``rows`` rows in blocks of
+    ``rpb``: the slab's columns (``width``: ``SUBGATHER_MAX_WIDTH``, halved
+    until the job's index tile and table slab fit, down to 4; 0 where not
+    even 4 fit, the direct path), their shared memory (``smem_bytes``), the
+    jobs (``jobs``: one CTA per block and slab) and the launch counter
+    (``kernel``)."""
+    blocks = _blocks(rows, rpb, "subgather")
+    staged_rows = -(-rpb // SUBGATHER_BOX_ROWS) * SUBGATHER_BOX_ROWS
+    width = SUBGATHER_MAX_WIDTH
+    while width >= 4 and 2 * staged_rows * width * 4 > SUBGATHER_SMEM_BYTES:
+        width //= 2
+    if width < 4:
+        return {"width": 0, "smem_bytes": 0, "jobs": 0, "kernel": "subgather_direct"}
+    return {"width": width, "smem_bytes": 2 * staged_rows * width * 4,
+            "jobs": blocks * (LANES // width), "kernel": "subgather"}
 
 
 def _check_subgather(tbl: torch.Tensor, idx: torch.Tensor, rpb: int) -> int:
@@ -137,15 +167,16 @@ def subgather(
         return subgather_plain(tbl, idx, rpb)
     _check_aligned(tbl, "subgather table")
     _check_aligned(idx, "subgather indices")
+    plan = subgather_plan(tbl.shape[0], rpb)
     dev = tbl.device
     out = torch.empty_like(tbl)
     done = torch.empty((1, 1), dtype=torch.int32, device=dev)
     lib = _cuda_build.load()
     with torch.cuda.device(dev):
         err = lib.blt_subgather(tbl.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                tbl.shape[0], rpb, done.data_ptr(), _stream(dev))
-    _cuda_build.check(err, "subgather")
-    launches["subgather"] += 1
+                                tbl.shape[0], rpb, plan["width"], done.data_ptr(), _stream(dev))
+    _cuda_build.check(err, plan["kernel"])
+    launches[plan["kernel"]] += 1
     return out, done
 
 

@@ -31,8 +31,11 @@ the function is not defined on the TPU; its log names what it meant, the
 block's row range. So the rows here draw indices from ``[0, 1024)``, then
 from the original's small ranges ``[0, 8)``, ``[0, 64)`` and ``[0, 256)``,
 each k single launches back to back beside ``torch.gather`` on the same
-tensors. One JSON line, as ``exp_chain``, plus the split. Exits 1 when a
-timed result differs from the plain version's.
+tensors; where the rows allow (8 MiB and up), one more row at 16384 rows
+per block over the whole block, where no column slab fits in shared memory
+and the kernel takes its direct path. One JSON line, as ``exp_chain``,
+plus the split. Exits 1 when a timed result differs from the plain
+version's.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ K = 8
 VARIANTS = tuple(bpe_cuda.FLAT_VARIANTS)
 SUBGATHER_RPB = 1024
 SUBGATHER_RANGES = (SUBGATHER_RPB, 8, 64, 256)  # the whole block, then the original's
+SUBGATHER_DIRECT_RPB = 16384  # blocks too tall for a slab (subgather.cu's direct path)
 
 
 def _flags(variant: str | None) -> bpe_cuda.FlatFlags:
@@ -96,28 +100,31 @@ def table_words_read(idx: torch.Tensor, rpb: int) -> int:
 
 
 def subgather_rows(device: torch.device, size_bytes: int, k: int = K, seed: int = 0) -> list:
-    """T9 over ``size_bytes`` of int32 indices, one row per index range."""
+    """T9 over ``size_bytes`` of int32 indices, one row per index range,
+    and the direct path's row where the rows allow it."""
     rng = np.random.default_rng(seed)
     rows = size_bytes // (4 * C.LANES)
-    rpb = SUBGATHER_RPB
-    shape = (rows // rpb, rpb, C.LANES)
+    cases = [(SUBGATHER_RPB, top) for top in SUBGATHER_RANGES]
+    if rows % SUBGATHER_DIRECT_RPB == 0:
+        cases.append((SUBGATHER_DIRECT_RPB, SUBGATHER_DIRECT_RPB))
     tbl = torch.from_numpy(rng.integers(0, 1 << 30, (rows, C.LANES), dtype=np.int32)).to(device)
     out = []
-    for top in SUBGATHER_RANGES:
+    for rpb, top in cases:
+        shape = (rows // rpb, rpb, C.LANES)
         idx = torch.from_numpy(rng.integers(0, top, (rows, C.LANES), dtype=np.int32)).to(device)
         expect = tools_cuda.subgather_plain(tbl, idx, rpb)
         out.append({
             "name": "subgather", "kernel": "T9", "idx_range": top, "rpb": rpb,
-            **C.time_chain(lambda idx=idx: C.repeat(lambda: tools_cuda.subgather(tbl, idx, rpb), k),
-                           k, size_bytes, device, expect),
+            **C.time_chain(lambda idx=idx, rpb=rpb: C.repeat(
+                lambda: tools_cuda.subgather(tbl, idx, rpb), k), k, size_bytes, device, expect),
             # idx read, out and done written, and the table words these
             # indices reach, each once
             "bound_ms": C.bound_ms(2 * size_bytes + 4 + 4 * table_words_read(idx, rpb)),
             "bound_by": "bytes",
-            "plain_ms": C.median_ms(lambda idx=idx: tools_cuda.subgather_plain(tbl, idx, rpb),
-                                    device),
+            "plain_ms": C.median_ms(
+                lambda idx=idx, rpb=rpb: tools_cuda.subgather_plain(tbl, idx, rpb), device),
             "library_ms": C.chained_ms(
-                lambda idx=idx: (torch.gather(tbl.view(shape), 1, idx.view(shape)),),
+                lambda idx=idx, shape=shape: (torch.gather(tbl.view(shape), 1, idx.view(shape)),),
                 k, size_bytes, device, (expect[0].view(shape),)),
         })
     return out

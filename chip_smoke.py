@@ -7,11 +7,12 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
 
 1. device: fails without CUDA; prints ``nvidia-smi``'s name and power limit;
 2. build: compiles ``blt_tpu_torch/csrc/*.cu`` with nvcc (one process per
-   source, in parallel); prints what ptxas reports for T14's two kernels
-   and ``chain.cu``'s (registers, spills, shared memory), counts T14's
-   ``wgmma`` instructions (``IGMMA``, ``HGMMA``) and the copy ring's bulk
-   copies (``UBLKCP``) in the library's SASS (``cuobjdump``), failing on
-   none; builds
+   source, in parallel); prints what ptxas reports for T14's two kernels,
+   ``chain.cu``'s, T9's (``subgather.cu``) and K3's (registers, spills,
+   shared memory), counts T14's ``wgmma`` instructions (``IGMMA``,
+   ``HGMMA``), the copy ring's bulk copies (``UBLKCP``) and T9's slab
+   kernels' TMA loads (``UTMALDG``) in the library's SASS (``cuobjdump``),
+   failing on none; builds
    the 8000-rule hierarchical table of leg 4 and checks on the host that
    cuckoo32 places it at 8192 slots;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
@@ -20,7 +21,8 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    median times at 16 MiB (16 Mi tokens for the token passes) beside the
    least time the card could take (bytes over 3.35 TB/s), and K1's beside
    the one PyTorch call of its function (``exp_chain.widen_call``), held
-   equal to it;
+   equal to it; K3 chained 8 times through its own output at 16 Mi tokens
+   with leg 4's table, replayed from a CUDA graph (``exp_gap.gap_row``);
 4. main path: after one small run as set-up (it builds the native host
    library in a fresh checkout), ``blt_tpu_torch.cli.main(... --engine
    torch --type text)`` on a 1 GiB Zipf-text corpus in three legs (basic, BPE with the 500 most
@@ -45,7 +47,9 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    T1's copy chained 1 and 3 times over one row, one stage + 128 B and 64
    MiB + 128 B, T7 over one grid step at each of those rpb and over three
    steps of one stage + 128 B; the T8 variants over every flat case of phase 3,
-   ``full`` against K2; T9 on in-block and out-of-block indices; T5 in
+   ``full`` against K2; T9 on in-block and out-of-block indices at
+   rows_per_block 8, 16, 1024, 2048 and 4096 (its slab path) and 16384
+   (its direct path); T5 in
    int32, int16 and int8 over each type's whole range, chained 1 and 3
    times; the five T4 variants over every token-pass case of phase 3,
    ``full`` against K4; the six T6 variants over every flat case of phase
@@ -63,7 +67,8 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    (b) the launch counters set to 0, then the twelve
    tools' measurements in this process at the originals' sizes (K5, T1 and
    K2 chained 96 / 96 / 24 times, T7 at rows_per_block 512 / 2048 / 8192,
-   the T8 variants chained 8 times and T9 8 times at 64 MiB; T5 on 16384 x
+   the T8 variants chained 8 times and T9 8 times at 64 MiB (and once at
+   16384 rows per block, its direct path); T5 on 16384 x
    128 chained 64 times; T4 on 8 Mi tokens chained 8 times; T6 at 64 MiB
    chained 64 times; T2 and T10 at 64 MiB chained 8 times; T12 at 64 MiB
    chained 64 times; T13 and T14, with the original's three library rows,
@@ -110,6 +115,7 @@ from blt_tpu_torch.tools._common import (  # noqa: E402
     nvidia_smi,
 )
 from blt_tpu_torch.tools._common import bound_ms as bytes_bound_ms  # noqa: E402
+from blt_tpu_torch.tools import exp_gap  # noqa: E402
 
 
 def fail(msg: str) -> None:
@@ -311,23 +317,6 @@ def rule_arrays(rules):
     items = sorted(((a << 16) | b, v) for (a, b), v in rules.items())
     return (np.array([k for k, _ in items], np.int64),
             np.array([v for _, v in items], np.int64))
-
-
-def hierarchical_rules(corpus, rounds: int = 16, per_round: int = 500):
-    """A general table built from the corpus: ``rounds`` rounds, each adding
-    the ``per_round`` most frequent token pairs of the first 1 MiB after
-    the rounds before (new tokens 256, 257, ...), so later rules merge
-    merged tokens."""
-    import numpy as np
-
-    toks = corpus[:MIB].astype(np.int64)
-    rules = {}
-    for _ in range(rounds):
-        pairs, counts = np.unique((toks[:-1] << 16) | toks[1:], return_counts=True)
-        for p in pairs[np.argsort(-counts, kind="stable")][:per_round]:
-            rules[(int(p) >> 16, int(p) & 0xFFFF)] = 256 + len(rules)
-        toks = multipass_reference(toks, *rule_arrays(rules))
-    return rules
 
 
 def reference_multipass_shas(corpus, rules, chunk: int, first: int):
@@ -645,11 +634,20 @@ def phase_multipass_kernels(corpus, rules, rng):
                 int(c)
 
     host_read_ms = (cuda_ms(lambda: rounds(True)) - cuda_ms(lambda: rounds(False))) / 8
+    # K3 chained 8 times through its own output, replayed from a CUDA graph
+    chained = exp_gap.gap_row(t, table8k)
+    if not chained["exact"]:
+        fail("K3 chained 8 times differs from its plain chain")
     emit({
         "phase": "multipass_kernels", "cases": cases, "tolerance": 0,
         "max_abs_err": err, "slots": table8k.slots,
         "ms_16mi_tokens": {k: {"kernel": v[0], "plain": v[1], "bound": bounds[k]}
                            for k, v in ms.items()},
+        "token_pass_gap_chained_8": {
+            "graph_ms": chained["graph"]["ms_per_launch"]["median"],
+            "graph_iqr_ms": chained["graph"]["ms_per_launch"]["iqr"],
+            "eager_ms": chained["eager"]["ms_per_launch"]["median"],
+            "bound_ms": chained["bound_ms"]},
         "host_read_ms_per_round": host_read_ms,
     })
     return err, ms, bounds, token_cases
@@ -875,6 +873,7 @@ MEASURED_ROWS = {
     **{f"parts_{v}": ("flat_bpe.cu", "chain.call", "tools/exp_parts.py")
        for v in ("emit", "noscan", "nolookup", "full")},
     "subgather": ("subgather.cu", "subgather", "tools/exp_parts.py"),
+    "subgather_direct": ("subgather.cu", "subgather", "tools/exp_parts.py"),
     **{f"op_mix_{d}": ("op_mix.cu", "chain.call", "tools/exp_pack.py")
        for d in ("int32", "int16", "int8")},
     **{f"token_parts_{v}": ("token_pass.cu", "_one_call", "tools/exp_mp_ablate.py")
@@ -1046,15 +1045,18 @@ def phase_measure(corpus, flat_cases, token_cases, err):
                 hold("chd_noscan2", exp_chd.chd_pass("noscan2", data, n, nb, table, c, rpb),
                      exp_chd.chd_pass_plain("noscan2", data, n, nb, table, c, rpb),
                      f"{what} rpb={rpb}")
-    # T9: in-block and out-of-block indices, 16 MiB of each
+    # T9: in-block and out-of-block indices, 16 MiB of each; the slab path
+    # at 8 columns (rpb 8, 16, 1024, 2048) and 4 (4096), the direct path
+    # (16384)
     rng = np.random.default_rng(9)
     rows = 16 * MIB // 512
     tbl = torch.from_numpy(rng.integers(0, 1 << 30, (rows, 128), dtype=np.int32)).to(dev)
-    for rpb in (8, 1024):
+    for rpb in (8, 16, 1024, 2048, 4096, exp_parts.SUBGATHER_DIRECT_RPB):
+        name = tools_cuda.subgather_plan(rows, rpb)["kernel"]
         for lo, hi in ((0, rpb), (-2 * rpb, 2 * rpb), (-(2**31), 2**31 - 1)):
             idx = torch.from_numpy(
                 rng.integers(lo, hi, (rows, 128), dtype=np.int64).astype(np.int32)).to(dev)
-            hold("subgather", tools_cuda.subgather(tbl, idx, rpb),
+            hold(name, tools_cuda.subgather(tbl, idx, rpb),
                  tools_cuda.subgather_plain(tbl, idx, rpb), f"rpb={rpb} idx in [{lo}, {hi})")
     # T5: each type over its whole range, so the multiply and the add wrap
     for name in tools_cuda.MIX_DTYPES:
@@ -1186,6 +1188,8 @@ def phase_measure(corpus, flat_cases, token_cases, err):
             "copy_sweep": row("exp_sweep", "copy", rpb=2048),
             **{f"parts_{v}": row("exp_parts", v) for v in exp_parts.VARIANTS},
             "subgather": row("exp_parts", "subgather", idx_range=exp_parts.SUBGATHER_RPB),
+            "subgather_direct": row("exp_parts", "subgather",
+                                    rpb=exp_parts.SUBGATHER_DIRECT_RPB),
             **{f"op_mix_{d}": row("exp_pack", "op_mix", dtype=d) for d in tools_cuda.MIX_DTYPES},
             **{f"token_parts_{v}": row("exp_mp_ablate", v, rpb=512)
                for v in exp_mp_ablate.VARIANTS},
@@ -1225,7 +1229,7 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     # 2. build; T14's kernels must hold wgmma (IGMMA int8, HGMMA bf16), the
-    # copy ring bulk copies (UBLKCP)
+    # copy ring bulk copies (UBLKCP), T9's slab kernels TMA loads (UTMALDG)
     t0 = time.perf_counter()
     lib = _cuda_build.build()
     _cuda_build.load()
@@ -1237,11 +1241,18 @@ def main() -> int:
     if ring_sass is not None and (len(ring_sass) != 1
                                   or not all(c["UBLKCP"] for c in ring_sass.values())):
         fail(f"the copy ring holds no bulk copy: {ring_sass}")
+    # T9's slab kernels (one per width) stage their rows by TMA
+    slab_sass = _cuda_build.sass_counts("subgather_slab_kernel", ("UTMALDG", "UBLKCP"))
+    if slab_sass is not None and (len(slab_sass) != 2
+                                  or not all(sum(c.values()) for c in slab_sass.values())):
+        fail(f"T9's slab kernels hold no TMA load: {slab_sass}")
     emit({"phase": "build", "seconds": seconds,
           "compiled": _cuda_build.build_seconds is not None,
           "library": os.path.relpath(lib, ROOT),
           "onehot_mma": {"ptxas": _cuda_build.kernel_resources("onehot_mma"), "sass": sass},
-          "chain": {"ptxas": _cuda_build.kernel_resources("chain"), "sass": ring_sass}})
+          "chain": {"ptxas": _cuda_build.kernel_resources("chain"), "sass": ring_sass},
+          "subgather": {"ptxas": _cuda_build.kernel_resources("subgather"), "sass": slab_sass},
+          "token_pass_gap": {"ptxas": _cuda_build.kernel_resources("token_pass_gap")}})
 
     rng = np.random.default_rng(args.seed)
     corpus = make_corpus(rng, max(args.size_mib, 256) * MIB)
@@ -1251,7 +1262,7 @@ def main() -> int:
     from blt_tpu_torch.merges import MergeTable
 
     t0 = time.perf_counter()
-    rules = hierarchical_rules(corpus)
+    rules = exp_gap.hierarchical_rules(corpus)
     table = MergeTable.build(rules)
     built = table.build_cuckoo32()
     if table.flat or built is None or built[0].shape[0] != 8192:

@@ -278,6 +278,88 @@ def test_probe_kernels_equal_plain_versions(cuda):
     assert all(tools_cuda.launches[f"op_mix_{d}"] == 4 for d in tools_cuda.MIX_DTYPES)
 
 
+# T9's slab path at rpb 8, 16, 1000 (not a multiple of a box's rows), 1024
+# and 2048 (8 columns), 4096 (4 columns), and 16384 (no job fits: the
+# direct path)
+SUBGATHER_RPBS = (8, 16, 1000, 1024, 2048, 4096, 16384)
+
+
+@pytest.mark.parametrize("rpb", SUBGATHER_RPBS)
+def test_subgather_paths_equal_plain_version(cuda, rpb):
+    """T9 on indices in [0, 8), in the block, in [-rpb, 0) (the wrap from the
+    end), far outside it (every element filled) and mixed, on two blocks;
+    each launch counts under its path."""
+    rng = np.random.default_rng(rpb)
+    rows = 2 * rpb
+    tbl = torch.from_numpy(rng.integers(0, 1 << 30, (rows, 128), dtype=np.int32)).to(cuda)
+    ranges = ((0, 8), (0, rpb), (-rpb, 0), (rpb, 2**31 - 1), (-(2**31), 2**31 - 1),
+              (-2 * rpb, 2 * rpb))
+    kernel = tools_cuda.subgather_plan(rows, rpb)["kernel"]
+    assert (kernel == "subgather_direct") == (rpb == 16384)
+    tools_cuda.reset_launches()
+    for lo, hi in ranges:
+        idx = torch.from_numpy(
+            rng.integers(lo, hi, (rows, 128), dtype=np.int64).astype(np.int32)).to(cuda)
+        assert _equal(tools_cuda.subgather(tbl, idx, rpb),
+                      tools_cuda.subgather_plain(tbl, idx, rpb)), (lo, hi)
+    assert tools_cuda.launches[kernel] == len(ranges)
+
+
+def _gap_cases(rng, planes_chain, planes_big, alphabet):
+    """K3 inputs whose tiles are all identity (dead), all flips (one long
+    match run), reset-bearing, and tombstone runs across tile edges."""
+    cap = 64 * 4096
+    dead = np.full(cap, -1, np.int32)
+    dead[:100] = 97
+    dead[-4096 - 50 :] = 97  # live tokens, 60 dead tiles between
+    flips = np.full(cap, 97, np.int32)  # every pair of CHAIN matches
+    flips[5 * 4096 + 7] = 98  # one reset in tile 5
+    mixed = rng.choice(alphabet, cap).astype(np.int32)
+    runs = mixed.copy()
+    for edge in range(4096, cap, 4096):
+        run = int(rng.integers(1, 6))
+        runs[edge - run // 2 : edge - run // 2 + run] = -1
+    return [(dead, planes_chain), (flips, planes_chain), (mixed, planes_big),
+            (runs, planes_big)]
+
+
+def test_gap_round_equals_plain_version_on_look_back_cases(cuda):
+    """K3's look-back over dead tiles, all-flip tiles, reset-bearing and
+    tombstone-run tiles, and over its own output for three more rounds."""
+    rng = np.random.default_rng(23)
+    chain = cuckoo_planes(MergeTable.build({(97, 97): 256, (256, 256): 257, (257, 257): 258}),
+                          cuda)
+    table = _big_table()
+    big = cuckoo_planes(table, cuda)
+    alphabet = np.array(sorted({x for p in table.merges for x in p})[:600], np.int32)
+    for toks, planes in _gap_cases(rng, chain, big, alphabet):
+        g = torch.from_numpy(toks).to(cuda)
+        for r in range(4):
+            out, count = multipass_cuda.token_pass_gap(g, planes)
+            ref, ref_count = multipass_cuda.token_pass_gap_plain(g, planes)
+            assert torch.equal(out, ref) and int(count) == int(ref_count), r
+            g = out
+
+
+def test_gap_round_replays_from_a_cuda_graph(cuda):
+    """A chain of K3 rounds captured once replays with the same result: the
+    status words, ticket and count are zeroed on the stream each round."""
+    rng = np.random.default_rng(24)
+    table = _big_table()
+    planes = cuckoo_planes(table, cuda)
+    alphabet = np.array(sorted({x for p in table.merges for x in p})[:600], np.int32)
+    t = torch.from_numpy(rng.choice(alphabet, 1 << 20).astype(np.int32)).to(cuda)
+    expect = exp_mp_ablate.feed_back(
+        lambda x: multipass_cuda.token_pass_gap_plain(x, planes), t, 4)
+    multipass_cuda.reset_launches()
+    timing = _common.time_chain(
+        lambda: exp_mp_ablate.feed_back(lambda x: multipass_cuda.token_pass_gap(x, planes), t, 4),
+        4, t.numel() * 4, cuda, expect)
+    assert timing["exact"] and timing["graph"] is not None
+    # the warm-up, the timed runs and the capture; replays launch nothing new
+    assert multipass_cuda.launches["token_pass_gap"] == 4 * (2 + _common.REPS)
+
+
 def test_ablation_kernels_equal_plain_versions(cuda):
     """T4 (K4's round under other flags, and token_parts.cu) chained three
     times through its tombstones, full against K4; T6 (K2's pass under

@@ -163,6 +163,169 @@ def test_token_pass_gap_edges():
         assert np.array_equal(got.numpy(), ref) and int(count) == ref_count
 
 
+# --- K3's look-back (token_pass_gap.cu), mirrored on the host --------------
+
+GAP_TILE = 4096  # positions per CTA in token_pass_gap.cu
+IDENTITY, FLIP, RESET = 2, 3, 0  # the codes x -> a ^ (b & x), as a | b << 1
+
+
+def _compose(later, earlier):
+    return ((later ^ ((later >> 1) & earlier)) & 1) | (later & earlier & 2)
+
+
+def _apply(f, x):
+    return (f & 1) ^ ((f >> 1) & x)
+
+
+def _gap_codes(toks, planes):
+    """Each position's (code, value): identity where dead, flip where the
+    pair with the next alive token (of the next four) has a rule, else
+    reset."""
+    d = torch.from_numpy(toks)
+    nxt = torch.full_like(d, -1)
+    for k in range(multipass_cuda.GAP_LOOKAHEAD, 0, -1):
+        t = torch.full_like(d, -1)
+        t[:-k] = d[k:]
+        nxt = torch.where(t >= 0, t, nxt)
+    hit, val = multipass_cuda._lookup(d, nxt, planes)
+    alive = d >= 0
+    code = torch.where(~alive, IDENTITY, torch.where(hit & (nxt >= 0), FLIP, RESET))
+    return code.numpy(), val.numpy()
+
+
+def _tile_codes(code):
+    """Each tile's code: its positions' codes composed in order."""
+    out = []
+    for t in range(0, code.shape[0], GAP_TILE):
+        f = IDENTITY
+        for c in code[t : t + GAP_TILE]:
+            f = _compose(int(c), f)
+        out.append(f)
+    return out
+
+
+def _look_back(aggs, rng):
+    """Each tile's entering state by the kernel's protocol, the tiles'
+    steps interleaved in the order ``rng`` draws: a tile publishes its
+    status (a prefix at once where its code is constant, else its code as
+    an aggregate; tile 0 nothing yet), then reads its predecessors' words
+    nearest first, one read per step, waiting at an unpublished one and
+    composing aggregates until a prefix (or past tile 0: state 0), then
+    publishes its own prefix where it had not."""
+    status = [None] * len(aggs)  # ("aggregate", code) or ("prefix", state)
+    entering = [None] * len(aggs)
+
+    def tile(t):
+        agg = aggs[t]
+        reset = not agg & 2
+        if reset:
+            status[t] = ("prefix", _apply(agg, 0))
+        elif t > 0:
+            status[t] = ("aggregate", agg)
+        yield
+        f, state = IDENTITY, 0
+        for j in range(t - 1, -1, -1):
+            while status[j] is None:
+                yield
+            kind, value = status[j]
+            if kind == "prefix":
+                state = value
+                break
+            f = _compose(f, value)
+            yield
+        entering[t] = _apply(f, state)
+        if not reset:
+            status[t] = ("prefix", _apply(agg, entering[t]))
+
+    running = {t: tile(t) for t in range(len(aggs))}
+    while running:
+        t = list(running)[int(rng.integers(len(running)))]
+        if next(running[t], "done") == "done":
+            del running[t]
+    return entering
+
+
+def _emit(toks, code, val, entering):
+    """Each tile emits from its entering state: (tokens, alive count)."""
+    out = np.full_like(toks, -1)
+    for t, state in enumerate(entering):
+        for i in range(t * GAP_TILE, min((t + 1) * GAP_TILE, toks.shape[0])):
+            if code[i] == IDENTITY:
+                continue
+            start = code[i] == FLIP and not state
+            out[i] = -1 if state else (val[i] if start else toks[i])
+            state = int(start)
+    return out, int((out >= 0).sum())
+
+
+def _look_back_cases(rng):
+    """(name, merges, tokens over 6 tiles): dead tiles between live ones,
+    one match run over every tile, random pairs, tombstone runs."""
+    cap = 6 * GAP_TILE
+    dead = np.full(cap, -1, np.int32)
+    dead[:50] = 97
+    dead[4 * GAP_TILE + 7 : 4 * GAP_TILE + 90] = 97  # tiles 1-3 all dead
+    flips = np.full(cap, 97, np.int32)  # every pair of CHAIN matches
+    flips[3 * GAP_TILE + 5] = -1  # tile 3: 4095 flips compose to a flip
+    flips[-1] = -1
+    hier = rng.choice(_alphabet(HIER), cap).astype(np.int32)
+    runs = hier.copy()
+    for edge in range(GAP_TILE, cap, GAP_TILE):
+        runs[edge - 3 : edge + 2] = -1  # a run of 5 over each tile edge
+    runs[100:5000:9] = -1
+    return [("identity", CHAIN, dead), ("flip", CHAIN, flips), ("reset", HIER, hier),
+            ("tombstones", HIER, runs)]
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_look_back_gives_the_sequential_prefix(case):
+    """Tiles publish in random orders; each tile's walk gives the state the
+    sequential composition of the tiles before it gives, and emitting from
+    it gives token_pass_gap_plain and the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(case)
+    name, merges, toks = _look_back_cases(rng)[case]
+    planes = _port_planes(merges)
+    code, val = _gap_codes(toks, planes)
+    aggs = _tile_codes(code)
+    if name == "identity":
+        assert aggs[1:4] == [IDENTITY] * 3
+    if name == "flip":
+        # 4096 flips compose to the identity, tile 3's 4095 to a flip
+        assert aggs[:-1] == [IDENTITY] * 3 + [FLIP, IDENTITY]
+    if name == "reset":
+        assert all(not a & 2 for a in aggs)  # every tile holds a reset
+    sequential = [0]
+    for a in aggs[:-1]:
+        sequential.append(_apply(a, sequential[-1]))
+    for order in range(3):
+        assert _look_back(aggs, np.random.default_rng(100 + order)) == sequential
+    out, count = _emit(toks, code, val, sequential)
+    got, got_count = token_pass_gap_plain(torch.from_numpy(toks), planes)
+    assert np.array_equal(out, got.numpy()) and count == int(got_count)
+    ref, ref_count = _pallas_gap_pass(merges, toks)
+    assert np.array_equal(out, ref) and count == ref_count
+
+
+def test_exp_gap_table_and_rounds_on_the_cpu():
+    """exp_gap's table is leg 4's (8000 rules, later ones over merged
+    tokens, placed at 8192 slots), and its row times rounds that each take
+    the last one's tokens."""
+    from blt_tpu_torch.tools import _common, exp_gap, exp_mp_ablate
+
+    corpus = _common.make_corpus(np.random.default_rng(0), 4 << 20)
+    rules = exp_gap.hierarchical_rules(corpus)
+    assert len(rules) == 8000 and max(max(p) for p in rules) >= 256
+    planes = cuckoo_planes(MergeTable.build(rules), CPU)
+    assert planes.slots == 8192
+    toks = torch.from_numpy(corpus[:CAP].astype(np.int32))
+    out, count = exp_mp_ablate.feed_back(lambda t: token_pass_gap(t, planes), toks, 2)
+    once, _ = token_pass_gap_plain(toks, planes)
+    assert torch.equal(out, token_pass_gap_plain(once, planes)[0])
+    assert int(count) == int((out >= 0).sum()) < CAP
+    row = exp_gap.gap_row(toks, planes, k=2)
+    assert row["exact"] and row["graph"] is None and row["bound_by"] == "bytes"
+
+
 def test_wrappers_dispatch_on_the_tensor_device_only():
     planes = _port_planes(HIER)
     toks = torch.full((CAP,), 97, dtype=torch.int32)

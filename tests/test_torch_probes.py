@@ -18,6 +18,7 @@ is in tests/test_torch_tools.py).
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -137,6 +138,116 @@ def test_subgather_refuses_what_the_grid_would_not_cover():
         tools_cuda.subgather(tbl[:8], tbl[:8].to(torch.int64), RPB)
     with pytest.raises(ValueError, match="one shape"):
         tools_cuda.subgather(tbl[:8], tbl[:8].reshape(4, 256), RPB)
+
+
+# --- T9's slab plan: the jobs subgather.cu launches, mirrored on the host -------
+
+SUBGATHER_CU = REPO / "blt_tpu_torch" / "csrc" / "subgather.cu"
+
+
+def test_subgather_mirror_constants_are_the_kernels():
+    """subgather_plan's box height and shared-memory budget are the ones
+    subgather.cu's slab path uses."""
+    src = SUBGATHER_CU.read_text()
+    consts = {name: int(np.prod([int(f) for f in v.split("*")])) for name, v in
+              re.findall(r"constexpr int (kBoxRows|kSmemBytes) = ([\d *]+);", src)}
+    assert consts == {"kBoxRows": tools_cuda.SUBGATHER_BOX_ROWS,
+                      "kSmemBytes": tools_cuda.SUBGATHER_SMEM_BYTES}
+    # the widths the C entry instantiates
+    assert set(re.findall(r"case (\d+): return launch_slab", src)) == {"8", "4"}
+
+
+@pytest.mark.parametrize("rpb, width", [(8, 8), (16, 8), (1000, 8), (1024, 8), (2048, 8),
+                                        (3616, 8), (3617, 4), (4096, 4), (7232, 4),
+                                        (7233, 0), (16384, 0)])
+def test_subgather_plan_widths(rpb, width):
+    """8 columns where a job's index tile and table slab fit, 4 (16-byte
+    rows) for taller blocks, the direct path past that; a job always fits
+    the budget."""
+    plan = tools_cuda.subgather_plan(2 * rpb, rpb)
+    assert plan["width"] == width
+    if width:
+        staged = -(-rpb // tools_cuda.SUBGATHER_BOX_ROWS) * tools_cuda.SUBGATHER_BOX_ROWS
+        assert plan["smem_bytes"] == 2 * staged * width * 4 <= tools_cuda.SUBGATHER_SMEM_BYTES
+        assert plan["jobs"] == 2 * LANES // width and plan["kernel"] == "subgather"
+    else:
+        assert plan["kernel"] == "subgather_direct"
+
+
+def _slab_jobs(idx, rpb):
+    """The plan and each (block, slab) job: (block, first column, the first
+    and last row of the block its indices reach, None where they reach none,
+    and the first row of each box it stages)."""
+    plan = tools_cuda.subgather_plan(idx.shape[0], rpb)
+    width, box = plan["width"], tools_cuda.SUBGATHER_BOX_ROWS
+    jobs = []
+    for b in range(idx.shape[0] // rpb):
+        for col0 in range(0, LANES, width):
+            x = idx[b * rpb : (b + 1) * rpb, col0 : col0 + width].astype(np.int64)
+            r = np.where(x < 0, x + rpb, x)[(x >= -rpb) & (x < rpb)]
+            if r.size == 0:
+                jobs.append((b, col0, None, None, []))
+            else:
+                lo, hi = int(r.min()), int(r.max())
+                jobs.append((b, col0, lo, hi, list(range(lo, hi + 1, box))))
+    return plan, jobs
+
+
+def _gather_by_plan(tbl, idx, rpb):
+    """The slab path's arithmetic on the host: each job's slab holds only
+    the boxes it stages (rows past the table arrive as zeros), and every
+    element is gathered from its own job's slab."""
+    plan, jobs = _slab_jobs(idx, rpb)
+    width, box = plan["width"], tools_cuda.SUBGATHER_BOX_ROWS
+    padded = np.concatenate([tbl, np.zeros((box, LANES), tbl.dtype)])
+    out = np.full_like(idx, INT32_MIN)
+    for b, col0, lo, hi, boxes in jobs:
+        if lo is None:
+            continue
+        rows = [b * rpb + y + k for y in boxes for k in range(box)]
+        slab = padded[rows, col0 : col0 + width]
+        assert slab.nbytes <= plan["smem_bytes"] // 2  # the index tile takes the rest
+        x = idx[b * rpb : (b + 1) * rpb, col0 : col0 + width].astype(np.int64)
+        inside = (x >= -rpb) & (x < rpb)
+        r = np.clip(np.where(x < 0, x + rpb, x) - lo, 0, slab.shape[0] - 1)
+        got = np.take_along_axis(slab, r, axis=0)
+        out[b * rpb : (b + 1) * rpb, col0 : col0 + width] = np.where(inside, got, INT32_MIN)
+    return out
+
+
+# index ranges by name, as (lo, hi) for rows_per_block rpb
+SLAB_RANGES = {"block": lambda rpb: (0, rpb), "first3": lambda rpb: (0, 3),
+               "wrap": lambda rpb: (-rpb, 0), "outside": lambda rpb: (rpb, 2**31 - 1),
+               "int32": lambda rpb: (INT32_MIN, 2**31 - 1)}
+
+
+@pytest.mark.parametrize("name", list(SLAB_RANGES))
+@pytest.mark.parametrize("rpb", [8, 16, 1000, 1024])
+def test_slab_jobs_stage_the_rows_they_reach(rpb, name):
+    """Indices in the block, in [0, 3), in [-rpb, 0) (the wrap from the
+    end), far outside (nothing staged) and over all of int32, on two blocks:
+    each job stages its reached rows in boxes from the lowest, and gathering
+    from the staged rows alone gives subgather_plain and the Pallas body in
+    interpret mode. rpb 1000 is not a whole number of boxes."""
+    lo, hi = SLAB_RANGES[name](rpb)
+    rng = np.random.default_rng(rpb + len(name))
+    rows = 2 * rpb
+    tbl = _table(5, rows)
+    idx = rng.integers(lo, hi, (rows, LANES), dtype=np.int64).astype(np.int32)
+    plan, jobs = _slab_jobs(idx, rpb)
+    box = tools_cuda.SUBGATHER_BOX_ROWS
+    assert len(jobs) == plan["jobs"]
+    for _, _, first, last, boxes in jobs:
+        if first is None:
+            assert name in ("outside", "int32") and boxes == []
+            continue
+        assert boxes[0] == first and boxes[-1] <= last < boxes[-1] + box
+        assert len(boxes) == (last - first) // box + 1
+    if name == "first3":
+        assert all(boxes == [0] for *_, boxes in jobs)  # one box, not the block
+    got = _gather_by_plan(tbl, idx, rpb)
+    assert np.array_equal(got, tools_cuda.subgather_plain(_t(tbl), _t(idx), rpb)[0].numpy())
+    assert np.array_equal(got, _subgather_pallas(tbl, idx, rpb)[0])
 
 
 # --- T5: the op mix --------------------------------------------------------------
@@ -287,7 +398,8 @@ def test_subgather_table_words_read():
     assert words == 2 * LANES + 2
 
 
-@pytest.mark.parametrize("tool", ["exp_parts", "exp_pack", "exp_mp_ablate", "exp_scan"])
+@pytest.mark.parametrize("tool", ["exp_parts", "exp_pack", "exp_mp_ablate", "exp_scan",
+                                  "exp_gap"])
 def test_tools_without_a_card_exit_naming_cuda(tool):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
