@@ -16,6 +16,20 @@ the native host library, decode) and imports nothing of ``blt_tpu`` or
 
 from blt_tpu_torch._version import __version__, version
 from blt_tpu_torch.api import ByteTokenizer
-from blt_tpu_torch.merges import load_bpe_merges
+from blt_tpu_torch.config import ContentType, CoreConfig, Engine, Mode
+from blt_tpu_torch.merges import MergeTable, load_bpe_merges, load_bpe_merges_from_path
+from blt_tpu_torch.pipeline.runner import run_tokenizer
 
-__all__ = ["ByteTokenizer", "load_bpe_merges", "version", "__version__"]
+__all__ = [
+    "ByteTokenizer",
+    "load_bpe_merges",
+    "load_bpe_merges_from_path",
+    "version",
+    "__version__",
+    "CoreConfig",
+    "ContentType",
+    "Engine",
+    "Mode",
+    "MergeTable",
+    "run_tokenizer",
+]

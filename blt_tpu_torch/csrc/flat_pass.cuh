@@ -2,7 +2,10 @@
 // decoupled look-back, templated on what the pass computes: K2, its cost
 // split T8, four of its ablations T6 and the design probes T2 and T10 are
 // flag sets of this one pass, launched through one entry, blt_flat_pass
-// (flat_bpe.cu). scan_parts.cu reuses its helpers for the block-local scans.
+// (flat_bpe.cu). scan_parts.cu reuses its helpers for the block-local scans,
+// and flat_bpe.cu's flat_packed_kernel (K2 fused with its pack, the main
+// path's) its pairs and look-back. The tile layout, the parity scan and the
+// look-back's protocol are max_lookback.cuh's, shared with token_pass.cuh.
 //
 // Per position i of a batch with n valid bytes (the function of the Pallas
 // _kernel_body when kLookup, kScan, kValid, !kSwap, !kOdd and !kRowWrap):
@@ -56,13 +59,10 @@
 #include <cuda_runtime.h>
 #include <utility>
 
+#include "max_lookback.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPer = 16;                // positions per thread
-constexpr int kTile = kThreads * kPer;  // positions per block
-constexpr int kScanThreads = 1024;
-constexpr int kNeg = -2147483647;       // -(2^31) + 1, the Pallas _NEG
 constexpr int kTableEntries = 65536;
 
 struct Batch {
@@ -131,33 +131,6 @@ __device__ __forceinline__ bool load_pairs(const Batch& b, int i0,
   return true;
 }
 
-// Last non-match position among the 16 at i0 (kNeg if all match).
-__device__ __forceinline__ int last_nonmatch(int i0, uint32_t match) {
-  uint32_t non = ~match & 0xFFFFu;
-  return non ? i0 + 31 - __clz(non) : kNeg;
-}
-
-// Exclusive max-scan across the threads of a block of N threads. After it,
-// warp_tot holds each warp's inclusive maximum.
-template <int N>
-__device__ __forceinline__ int block_excl_max(int v, int* warp_tot) {
-  int lane = threadIdx.x & 31;
-  int warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl = max(incl, y);
-  }
-  if (lane == 31) warp_tot[warp] = incl;
-  __syncthreads();
-  int prefix = kNeg;
-  for (int w = 0; w < warp; ++w) prefix = max(prefix, warp_tot[w]);
-  int excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = kNeg;
-  return max(prefix, excl);
-}
-
 template <bool kLookup, bool kRowWrap, bool kValid = true>
 __global__ void __launch_bounds__(kThreads)
     tile_reduce(Batch b, int* __restrict__ tile_lnm) {
@@ -195,22 +168,6 @@ __global__ void __launch_bounds__(kScanThreads)
     tile_excl[j] = run;
     run = max(run, tile_lnm[j]);
   }
-}
-
-// The start bits of the 16 positions at i0 under the scan, run being the
-// last non-match before i0 (the sentinel included).
-__device__ __forceinline__ uint32_t scan_starts(int i0, uint32_t match, int run) {
-  uint32_t starts = 0;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    int i = i0 + k;
-    if (!((match >> k) & 1u)) {
-      run = i;
-    } else if ((i - run) & 1) {
-      starts |= 1u << k;
-    }
-  }
-  return starts;
 }
 
 // Writes one thread's 16 slots of tile `tile` from its start bits, and
@@ -301,38 +258,6 @@ __global__ void __launch_bounds__(kThreads)
       carry_out, last_start);
 }
 
-// A tile's status word for the look-back: the state in the high 32 bits
-// (0 not yet, kAggregate: all match, prefix not known; kPrefix: the
-// inclusive prefix), the value in the low 32.
-constexpr unsigned long long kAggregate = 1ull << 32;
-constexpr unsigned long long kPrefix = 2ull << 32;
-
-__device__ __forceinline__ void publish(unsigned long long* status, int tile,
-                                        unsigned long long state, int value) {
-  atomicExch(status + tile, state | (uint32_t)value);
-}
-
-// The exclusive prefix of `tile` (thread 0 only): publishes the tile's own
-// status, then reads its predecessors' until one holds a prefix.
-__device__ int look_back(unsigned long long* status, int tile, int agg,
-                         int sentinel) {
-  if (agg != kNeg) publish(status, tile, kPrefix, agg);
-  else if (tile > 0) publish(status, tile, kAggregate, kNeg);
-  int excl = sentinel;
-  for (int j = tile - 1; j >= 0; --j) {
-    unsigned long long w;
-    do {
-      w = *reinterpret_cast<volatile unsigned long long*>(status + j);
-    } while (w == 0);
-    if (w >= kPrefix) {
-      excl = (int)(uint32_t)w;
-      break;
-    }
-  }
-  if (agg == kNeg) publish(status, tile, kPrefix, excl);
-  return excl;
-}
-
 template <bool kLookup, bool kSwap, bool kValid, bool kSmem>
 __global__ void __launch_bounds__(kThreads)
     tile_lookback(Batch b, int nt, const int* __restrict__ carry_in,
@@ -362,9 +287,7 @@ __global__ void __launch_bounds__(kThreads)
     int mx = live ? last_nonmatch(i0, match) : kNeg;
     int excl = block_excl_max<kThreads>(mx, warp_tot);
     if (threadIdx.x == 0) {
-      int agg = kNeg;
-      for (int w = 0; w < kThreads / 32; ++w) agg = max(agg, warp_tot[w]);
-      s_prefix = look_back(status, tile, agg, -1 - carry_in[0]);
+      s_prefix = look_back(status, tile, tile_max(warp_tot), -1 - carry_in[0]);
     }
     __syncthreads();
     int tile_prefix = s_prefix;
@@ -437,7 +360,6 @@ enum FlatFlag : int {
   kFlagLookback = 32,
   kFlagSmemTable = 64,
   kFlagValid = 128,
-  kFlagSets = 256,
 };
 
 // launch_flat_pass for flag set F.

@@ -1,7 +1,7 @@
-// One general-table merge round over int32 tokens as reduce / tile max-scan /
-// emit, templated on what the round computes: K4 and the four variants of its
-// ablation T4 that are rounds are flag sets of it, launched through one
-// entry, blt_token_pass (token_pass.cu). T4's copy is token_parts.cu.
+// One general-table merge round over int32 tokens, templated on what the
+// round computes: K4 and the four variants of its ablation T4 that are
+// rounds are flag sets of it, launched through one entry, blt_token_pass
+// (token_pass.cu). T4's copy is token_parts.cu.
 //
 // Per position i of a buffer of cap tokens with n valid (the function of the
 // Pallas _token_pass_kernel when kLookup, kScan and kShift, with the carry 0
@@ -22,13 +22,21 @@
 //
 // Design: the Pallas grid carries the parity from block to block in SMEM
 // because a TPU grid runs in order. CUDA blocks run in no order, so the
-// prefix maximum is split into three launches on one stream, with no host
-// sync, as in flat_pass.cuh: tile_reduce (each 4096-position tile's last
-// non-match), tile_scan (one block's exclusive max-scan over the tiles,
-// seeded with -1) and tile_emit (recompute the pairs, scan inside the tile
-// with warp shuffles, write with 16-byte stores). Without the scan a round
-// is tile_emit alone. Each thread owns 16 consecutive tokens, loaded as four
-// int4.
+// prefix maximum crosses tiles in one of two ways (max_lookback.cuh):
+//   - three launches on one stream, with no host sync, as in flat_pass.cuh:
+//     tile_reduce (each 4096-position tile's last non-match), tile_scan (one
+//     block's exclusive max-scan over the tiles, seeded with -1) and
+//     tile_emit (recompute the pairs, scan inside the tile with warp
+//     shuffles, write with 16-byte stores). Without the scan a round is
+//     tile_emit alone. T4's variants and the parent design of K4 run so.
+//   - kLookback (K4 on the main path): one launch, tile_lookback, after one
+//     cudaMemsetAsync of the tiles' status words and the ticket. A CTA takes
+//     its tile from the ticket, looks each pair up once, publishes its
+//     inclusive prefix at once where the tile holds a non-match (else an
+//     aggregate), thread 0 walks back to a prefix, and the CTA emits from
+//     the registers it holds. The three-launch round looks every pair up
+//     twice (reduce and emit); the lookups, not the bytes, bound it.
+// Each thread owns 16 consecutive tokens, loaded as four int4.
 
 #pragma once
 
@@ -37,14 +45,14 @@
 #include <utility>
 
 #include "cuckoo32.cuh"
+#include "max_lookback.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPer = 16;                // positions per thread
-constexpr int kTile = kThreads * kPer;  // positions per block
-constexpr int kScanThreads = 1024;
-constexpr int kNeg = -2147483647;       // -(2^31) + 1, the Pallas _NEG
+// CTAs resident per SM for the look-back round: the lookups' latency is
+// hidden by warps, so its registers are held to 40 a thread, as K3's (4 and
+// 8 ran slower, 8 spilled: PERF.md)
+constexpr int kLookbackBlocksPerSm = 6;
 
 struct Pass {
   const int* tok;
@@ -92,32 +100,6 @@ __device__ __forceinline__ bool load_pairs(const Pass& b, int i0, int d[kPer],
     match |= (uint32_t)m << k;
   }
   return true;
-}
-
-// Last non-match position among the 16 at i0 (kNeg if all match).
-__device__ __forceinline__ int last_nonmatch(int i0, uint32_t match) {
-  uint32_t non = ~match & 0xFFFFu;
-  return non ? i0 + 31 - __clz(non) : kNeg;
-}
-
-// Exclusive max-scan across the threads of a block of N threads.
-template <int N>
-__device__ __forceinline__ int block_excl_max(int v, int* warp_tot) {
-  int lane = threadIdx.x & 31;
-  int warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl = max(incl, y);
-  }
-  if (lane == 31) warp_tot[warp] = incl;
-  __syncthreads();
-  int prefix = kNeg;
-  for (int w = 0; w < warp; ++w) prefix = max(prefix, warp_tot[w]);
-  int excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = kNeg;
-  return max(prefix, excl);
 }
 
 template <bool kLookup, bool kShift>
@@ -176,17 +158,8 @@ __global__ void __launch_bounds__(kThreads)
   if (kScan) {
     tile_prefix = tile_excl[blockIdx.x];  // holds the sentinel too
     int mx = live ? last_nonmatch(i0, match) : kNeg;
-    int run = max(tile_prefix, block_excl_max<kThreads>(mx, warp_tot));
-    starts = 0;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      int i = i0 + k;
-      if (!((match >> k) & 1u)) {
-        run = i;
-      } else if ((i - run) & 1) {
-        starts |= 1u << k;
-      }
-    }
+    starts = scan_starts(i0, match,
+                         max(tile_prefix, block_excl_max<kThreads>(mx, warp_tot)));
   }
   last_start[t] = (starts >> (kPer - 1)) & 1u;
   __syncthreads();
@@ -220,11 +193,93 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The round's launches on one stream. scratch: 2 * ceil(cap / 4096) int32
-// (unused without the scan). Returns the first nonzero cudaGetLastError().
-template <bool kLookup, bool kScan, bool kShift>
+// K4 as one launch (kLookup, kScan and kShift): see the design note above.
+// Each thread keeps, per position, the one value it writes unless a merge
+// consumes it: the pair's value where the pair matches, else the token. A
+// match that does not start is always consumed (it follows a start in its
+// run of matches), so out = consumed ? -1 : that value.
+__global__ void __launch_bounds__(kThreads, kLookbackBlocksPerSm)
+    tile_lookback(Pass b, int* __restrict__ out,
+                  unsigned long long* __restrict__ status,
+                  int* __restrict__ ticket) {
+  __shared__ int warp_tot[kThreads / 32];
+  __shared__ unsigned char last_start[kThreads];
+  __shared__ int s_tile, s_prefix, s_prev_start;
+  const int t = threadIdx.x;
+  if (t == 0) s_tile = atomicAdd(ticket, 1);
+  __syncthreads();
+  const int tile = s_tile;
+  const int tile0 = tile * kTile;
+  const int i0 = tile0 + t * kPer;
+  const bool live = i0 < b.cap;
+  int w[kPer];
+  uint32_t match = 0;
+  if (live) {
+    const int4* src = reinterpret_cast<const int4*>(b.tok + i0);
+#pragma unroll
+    for (int q = 0; q < kPer / 4; ++q) {
+      int4 x = src[q];
+      w[4 * q] = x.x;
+      w[4 * q + 1] = x.y;
+      w[4 * q + 2] = x.z;
+      w[4 * q + 3] = x.w;
+    }
+    const int after = i0 + kPer < b.cap ? b.tok[i0 + kPer] : 0;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      // the pair (w[k], w[k+1]) while w[k+1] still holds the token
+      int v;
+      const bool m = pair_at<true, true>(b, i0 + k, w[k],
+                                         k + 1 < kPer ? w[k + 1] : after, v);
+      if (m) w[k] = v;
+      match |= (uint32_t)m << k;
+    }
+  }
+  const int excl = block_excl_max<kThreads>(live ? last_nonmatch(i0, match) : kNeg, warp_tot);
+  if (t == 0) {
+    // the pair at i0 - 1 (the boundary rule of tile_emit): whether it
+    // matches does not depend on the prefix, so look it up before the walk
+    const int ip = tile0 - 1;
+    int v;
+    const bool m = tile > 0 && pair_at<true, true>(b, ip, b.tok[ip], b.tok[tile0], v);
+    const int prefix = look_back(status, tile, tile_max(warp_tot), -1);
+    s_prefix = prefix;
+    s_prev_start = m && ((ip - prefix) & 1);
+  }
+  __syncthreads();
+  const uint32_t starts = scan_starts(i0, match, max(s_prefix, excl));
+  last_start[t] = (starts >> (kPer - 1)) & 1u;
+  __syncthreads();
+  if (!live) return;
+  const uint32_t consumed = (starts << 1) | (t > 0 ? last_start[t - 1] : s_prev_start);
+  int4* dst = reinterpret_cast<int4*>(out + i0);
+#pragma unroll
+  for (int q = 0; q < kPer / 4; ++q) {
+    int o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      o[j] = ((consumed >> (4 * q + j)) & 1u) ? -1 : w[4 * q + j];
+    }
+    dst[q] = make_int4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// The round's launches on one stream. scratch: 2 * ceil(cap / 4096) + 1
+// int32, 8-byte aligned: the scan's tile words (unused without the scan),
+// or the look-back's status words (uint64) and its ticket. Returns the
+// first nonzero CUDA error of the launches and the calls before them.
+template <bool kLookup, bool kScan, bool kShift, bool kLookback>
 int launch_token_pass(const Pass& b, int* out, int* scratch, cudaStream_t s) {
+  static_assert(!kLookback || (kLookup && kScan && kShift),
+                "the look-back round is K4's");
   int nt = (b.cap + kTile - 1) / kTile;
+  if constexpr (kLookback) {
+    int err = (int)cudaMemsetAsync(scratch, 0, (2 * nt + 1) * sizeof(int), s);
+    if (err) return err;
+    tile_lookback<<<nt, kThreads, 0, s>>>(
+        b, out, reinterpret_cast<unsigned long long*>(scratch), scratch + 2 * nt);
+    return (int)cudaGetLastError();
+  }
   int* tile_lnm = scratch;
   int* tile_excl = kScan ? scratch + nt : nullptr;
   if (kScan) {
@@ -244,23 +299,24 @@ enum TokenFlag : int {
   kFlagLookup = 1,
   kFlagScan = 2,
   kFlagShift = 4,
-  kFlagSets = 8,
+  kFlagLookback = 8,
 };
-
-using TokenPassFn = int (*)(const Pass&, int*, int*, cudaStream_t);
 
 template <int F>
 int token_pass_of(const Pass& b, int* out, int* scratch, cudaStream_t s) {
   return launch_token_pass<(F & kFlagLookup) != 0, (F & kFlagScan) != 0,
-                           (F & kFlagShift) != 0>(b, out, scratch, s);
+                           (F & kFlagShift) != 0, (F & kFlagLookback) != 0>(
+      b, out, scratch, s);
 }
 
+// The round of flag set `flags` among the sets F...: only those are
+// instantiated; any other set is cudaErrorInvalidValue.
 template <int... F>
 int dispatch_token_pass(int flags, std::integer_sequence<int, F...>,
                         const Pass& b, int* out, int* scratch, cudaStream_t s) {
-  static constexpr TokenPassFn passes[] = {&token_pass_of<F>...};
-  if (flags < 0 || flags >= kFlagSets) return (int)cudaErrorInvalidValue;
-  return passes[flags](b, out, scratch, s);
+  int err = (int)cudaErrorInvalidValue;
+  (void)((flags == F && ((err = token_pass_of<F>(b, out, scratch, s)), true)) || ...);
+  return err;
 }
 
 }  // namespace

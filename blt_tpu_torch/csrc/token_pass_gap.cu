@@ -263,3 +263,11 @@ extern "C" int blt_token_pass_gap(const void* tokens, int cap, const void* k1,
       reinterpret_cast<unsigned long long*>(words), words + 2 * nt);
   return (int)cudaGetLastError();
 }
+
+// CTAs of K3's round (tile_lookback) that one SM of the current
+// device holds at once, as the CUDA runtime computes them from the compiled
+// kernel's registers and shared memory. Returns the CUDA error of the query.
+extern "C" int blt_token_pass_gap_ctas_per_sm(int* ctas) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, tile_lookback, kThreads, 0);
+}

@@ -128,6 +128,8 @@ def load() -> ctypes.CDLL:
         lib.blt_flat_pass.restype = i
         lib.blt_pack_slots.argtypes = [p, i, i, p, p, p, p]
         lib.blt_pack_slots.restype = i
+        lib.blt_flat_packed.argtypes = [p, i, i, i, p, p, p, p, p, p, p, p]
+        lib.blt_flat_packed.restype = i
         lib.blt_chain.argtypes = [i, p, p, i64, p, p, p, i, i, i, p]
         lib.blt_chain.restype = i
         u = ctypes.c_uint
@@ -153,8 +155,28 @@ def load() -> ctypes.CDLL:
         lib.blt_pmxu.restype = i
         lib.blt_probe16.argtypes = [i, p, p, i, p]
         lib.blt_probe16.restype = i
+        for entry in CTAS_PER_SM.values():
+            getattr(lib, entry).argtypes = [ctypes.POINTER(i)]
+            getattr(lib, entry).restype = i
         _lib = lib
         return lib
+
+
+# the occupancy query of each one-launch look-back kernel, by the source
+# that holds it
+CTAS_PER_SM = {
+    "token_pass_gap": "blt_token_pass_gap_ctas_per_sm",
+    "token_pass": "blt_token_pass_ctas_per_sm",
+    "flat_bpe": "blt_flat_packed_ctas_per_sm",
+}
+
+
+def ctas_per_sm(stem: str) -> int:
+    """CTAs per SM of the current device of the look-back kernel in
+    ``csrc/<stem>.cu``, as the CUDA runtime's occupancy query gives them."""
+    n = ctypes.c_int(0)
+    check(getattr(load(), CTAS_PER_SM[stem])(ctypes.byref(n)), CTAS_PER_SM[stem])
+    return n.value
 
 
 def kernel_resources(stem: str) -> dict:

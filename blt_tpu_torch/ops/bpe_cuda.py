@@ -1,7 +1,7 @@
 """The main path's kernels and their encoders (port of the Pallas flat and
 basic encoders in ``blt_tpu/ops/bpe_pallas.py``).
 
-Four wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
+Five wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
 
 - ``basic_encode``: the widen, K1 (``widen.cu``);
 - ``flat_encode_slots``: one flat-BPE pass, K2 (``flat_bpe.cu``), or with
@@ -9,6 +9,9 @@ Four wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
   cost split, four of T6's ablations, T2's design probes and T10's
   ``novalid`` (``FLAT_PASSES``);
 - ``pack_slots``: K2's packed-wire epilogue (``flat_bpe.cu``);
+- ``flat_encode_packed``: K2 and its packed-wire epilogue fused into one
+  launch with a decoupled look-back (``flat_bpe.cu``), the main path's
+  flat pass;
 - ``chain_encode``: a copy or widen launched k times through a token
   (``chain.cu``): K5 (``basic_encode_chained``, what ``bench.py`` times)
   and the device-rate tools' T1 and T7.
@@ -97,7 +100,7 @@ _FLAT_NAMES = {flags: name for name, flags in FLAT_PASSES.items()}
 FLAT_VARIANTS = {v: FLAT_PASSES[f"parts_{v}"] for v in ("emit", "noscan", "nolookup", "full")}
 
 # kernel launches made by the wrappers below, by kernel name
-launches = {"widen": 0, "pack_slots": 0, **dict.fromkeys(CHAINS, 0),
+launches = {"widen": 0, "pack_slots": 0, "flat_bpe_packed": 0, **dict.fromkeys(CHAINS, 0),
             **dict.fromkeys(FLAT_PASSES, 0)}
 
 
@@ -533,6 +536,67 @@ def pack_slots(
     return wire, last
 
 
+# --- K2 and its epilogue in one launch ----------------------------------------
+
+
+def flat_packed_plain(
+    data: torch.Tensor,
+    n: int,
+    next_byte: int,
+    table: torch.Tensor,
+    carry_in: torch.Tensor,
+    prev_slot: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``flat_encode_packed`` as plain tensor ops: K2's slots, packed.
+    Returns (wire uint8[cap + cap // 8], carry_out int32 (1,1), last_slot
+    int32 ())."""
+    slots, carry_out = flat_pass_plain(data, n, next_byte, table, carry_in)
+    wire, last = pack_slots_plain(slots, n, prev_slot)
+    return wire, carry_out, last
+
+
+def flat_encode_packed(
+    data: torch.Tensor,
+    n: int,
+    next_byte: int,
+    table: torch.Tensor,
+    carry_in: torch.Tensor,
+    prev_slot: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 and its packed-wire epilogue as one launch (``blt_flat_packed``):
+    kernel on CUDA tensors, plain on CPU tensors. The arguments of
+    ``flat_encode_slots`` (K2's flags) plus ``prev_slot`` (int32, one
+    element: the raw slot before position 0); the results of
+    ``flat_packed_plain``. The carry and the slot before stay on the device,
+    so batches chain without a host sync; no slot reaches device memory."""
+    if prev_slot.numel() != 1:
+        raise ValueError("the packed pass takes one prev slot")
+    on_cuda = check_flat(data, n, next_byte, table, carry_in)
+    _on_cuda(data, prev_slot)  # raises unless prev_slot lies where data does
+    if not on_cuda:
+        return flat_packed_plain(data, n, next_byte, table, carry_in, prev_slot)
+    if prev_slot.dtype != torch.int32:
+        raise ValueError("the packed pass takes an int32 prev slot")
+    cap = data.numel()
+    dev = data.device
+    wire = torch.empty(cap + cap // 8, dtype=torch.uint8, device=dev)
+    carry_out = torch.empty((1, 1), dtype=torch.int32, device=dev)
+    last = torch.empty((), dtype=torch.int32, device=dev)
+    # the tiles' status words and the ticket
+    scratch = torch.empty(2 * (-(-cap // _TILE)) + 2, dtype=torch.int32, device=dev)
+    lib = _cuda_build.load()
+    with torch.cuda.device(dev):
+        err = lib.blt_flat_packed(
+            data.data_ptr(), cap, n, next_byte, table.data_ptr(),
+            carry_in.contiguous().data_ptr(), prev_slot.contiguous().data_ptr(),
+            wire.data_ptr(), carry_out.data_ptr(), last.data_ptr(), scratch.data_ptr(),
+            _stream(dev),
+        )
+    _cuda_build.check(err, "flat_bpe_packed")
+    launches["flat_bpe_packed"] += 1
+    return wire, carry_out, last
+
+
 # --- encoders -----------------------------------------------------------------
 
 
@@ -597,9 +661,10 @@ class CudaBasicEncoder(_Uploader):
 class CudaFlatEncoder(_Uploader):
     """Flat-table BPE encoder (port of ``PallasFlatEncoder``).
 
-    Holds the wire table on ``device`` and runs ``flat_encode_slots`` (and
-    ``pack_slots``) over padded batches. ``capacity_bytes`` fixes the batch
-    shape; 0 sizes each ``encode`` call to its input.
+    Holds the wire table on ``device`` and runs ``flat_encode_slots``, or
+    ``flat_encode_packed`` for the packed wire, over padded batches.
+    ``capacity_bytes`` fixes the batch shape; 0 sizes each ``encode`` call
+    to its input.
     """
 
     def __init__(self, table: MergeTable, device, capacity_bytes: int = 0):
@@ -643,16 +708,16 @@ class CudaFlatEncoder(_Uploader):
     def encode_packed_device(
         self, data: torch.Tensor, n: int, carry_in, next_byte: int, prev_slot
     ):
-        """Pass + packed-wire epilogue. Returns (wire uint8[capacity +
+        """Pass + packed-wire epilogue in one launch
+        (``flat_encode_packed``). Returns (wire uint8[capacity +
         capacity//8], carry_out, last_slot); split the wire at
         ``self.capacity``. ``last_slot`` is the raw slot at n-1 (it may be
         a merge start) and threads into the next batch's ``prev_slot``."""
         if not self.capacity:
             raise ValueError("packed encode requires a fixed capacity")
-        slots, _, carry_out = self.encode_device(data, n, carry_in, next_byte)
+        carry = _as_state(carry_in, (1, 1), self.device)
         prev = _as_state(prev_slot, (), self.device)
-        wire, last = pack_slots(slots.reshape(-1)[: self.capacity], n, prev)
-        return wire, carry_out, last
+        return flat_encode_packed(data.reshape(-1), n, next_byte, self.table, carry, prev)
 
     def encode(self, data: np.ndarray, carry_in, next_byte: int):
         """Pad one batch and run the pass (the Pallas encoder's ``encode``)."""

@@ -6,9 +6,12 @@ Two wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
 - ``token_pass_gap``: one merge round over a tombstoned stream, K3
   (``token_pass_gap.cu``), the round of the default resident loop;
 - ``token_pass``: one merge round over compacted tokens, K4
-  (``token_pass.cu``), the round of ``encode`` and of the
-  ``BLT_MP_COMPACT=sort`` loop; with other ``TokenFlags``, the rounds of
-  the device-rate tool T4's ablation (``TOKEN_PASSES``).
+  (``token_pass.cu``): under the default ``TokenFlags`` (``K4_FLAGS``)
+  one launch with a decoupled look-back, the round of ``encode`` and of
+  the ``BLT_MP_COMPACT=sort`` loop; under ``TokenFlags(lookback=False)``
+  the same function as reduce / tile scan / emit; with other
+  ``TokenFlags``, the rounds of the device-rate tool T4's ablation
+  (``TOKEN_PASSES``).
 
 Each has a plain PyTorch version of the same function beside it
 (``*_plain``). Dispatch is by the tensors alone: CUDA tensors launch the
@@ -56,11 +59,15 @@ _NEG = -(2**31) + 1
 class TokenFlags(NamedTuple):
     """The switches of one merge round (``csrc/token_pass.cuh``; see
     ``token_pass_plain``), in ``blt_token_pass``'s bit order. The defaults
-    are K4."""
+    are K4 as the main path runs it; ``lookback`` changes how the round
+    runs (one launch with a decoupled look-back, or three), not what it
+    computes. Only K4's function has the look-back launch, so the other
+    rounds of ``TOKEN_PASSES`` clear it."""
 
     lookup: bool = True
     scan: bool = True
     shift: bool = True
+    lookback: bool = True
 
     @property
     def bits(self) -> int:
@@ -68,14 +75,18 @@ class TokenFlags(NamedTuple):
 
 
 # The merge rounds the port launches, by the name each counts its launches
-# under: K4, and T4's ablations that are rounds (T4's ``full`` is K4 itself).
+# under: K4 as the main path runs it (one look-back launch), K4's function
+# in three launches (T4's ``full``), and T4's ablations that are rounds.
+# ``token_pass.cu`` instantiates these flag sets and no other.
 TOKEN_PASSES = {
-    "token_pass": TokenFlags(),
-    "token_parts_noscan": TokenFlags(scan=False),
-    "token_parts_nolookup": TokenFlags(lookup=False),
-    "token_parts_noshift": TokenFlags(shift=False),
+    "token_pass_lookback": TokenFlags(),
+    "token_pass": TokenFlags(lookback=False),
+    "token_parts_noscan": TokenFlags(scan=False, lookback=False),
+    "token_parts_nolookup": TokenFlags(lookup=False, lookback=False),
+    "token_parts_noshift": TokenFlags(shift=False, lookback=False),
 }
 _TOKEN_NAMES = {flags: name for name, flags in TOKEN_PASSES.items()}
+K4_FLAGS = TOKEN_PASSES["token_pass_lookback"]  # the main path's round
 
 # kernel launches made by the wrappers below, by kernel name
 launches = {"token_pass_gap": 0, **dict.fromkeys(TOKEN_PASSES, 0)}
@@ -159,7 +170,7 @@ def token_pass_plain(
     value at a merge start, -1 at a consumed position, else the token.
     No ``shift``: each token pairs with itself. No ``lookup``: m =
     ((d ^ next) & 7) == 3, val = d + 1 (int32 wrap). No ``scan``: every
-    match starts.
+    match starts. ``lookback`` computes the same function as without it.
     """
     _token_name(flags)
     d = tokens.reshape(-1)
@@ -191,9 +202,11 @@ def token_pass(
     tokens: torch.Tensor, n: int, planes: CuckooPlanes, flags: TokenFlags = TokenFlags()
 ) -> torch.Tensor:
     """One merge round: kernel on CUDA tensors, plain on CPU tensors. Same
-    arguments and result as ``token_pass_plain``. The default ``flags``
-    launch K4; every flag set of ``TOKEN_PASSES`` runs through the one
-    entry ``blt_token_pass`` and counts under its name there."""
+    arguments and result as ``token_pass_plain``. The default flags
+    (``K4_FLAGS``) launch K4 as the main path runs it, ``lookback=False``
+    its three-launch design;
+    every flag set of ``TOKEN_PASSES`` runs through the one entry
+    ``blt_token_pass`` and counts under its name there."""
     name = _token_name(flags)
     if tokens.dtype != torch.int32:
         raise ValueError(f"token pass takes int32 tokens, got {tokens.dtype}")
@@ -202,7 +215,8 @@ def token_pass(
     _check_planes(planes)
     if not _on_cuda(tokens, planes.k1, planes.v1, planes.k2, planes.v2):
         return token_pass_plain(tokens, n, planes, flags)
-    dev, cap, scratch = _launch_args(tokens, planes)
+    # the scan's tile words, or the look-back's status words and ticket
+    dev, cap, scratch = _launch_args(tokens, planes, extra=2)
     out = torch.empty(cap, dtype=torch.int32, device=dev)
     lib = _cuda_build.load()
     with torch.cuda.device(dev):
@@ -369,7 +383,7 @@ class CudaTokenEncoder(_Uploader):
     def encode_pass(self, tokens: np.ndarray) -> np.ndarray:
         """Run one merge round (K4); returns int32 tokens with -1 tombstones."""
         buf, n, _ = self._buffer(tokens, 0)
-        return token_pass(buf, n, self.planes)[:n].cpu().numpy()
+        return token_pass(buf, n, self.planes, K4_FLAGS)[:n].cpu().numpy()
 
     def encode(self, data: np.ndarray) -> np.ndarray:
         """Full multipass encode of one chunk with host compaction."""
@@ -406,7 +420,7 @@ class CudaTokenEncoder(_Uploader):
         m, prev, rounds = n, n + 1, 0
         count = None
         while count is None or (m < prev and m > 1):
-            out = token_pass(buf, m, self.planes)
+            out = token_pass(buf, m, self.planes, K4_FLAGS)
             buf, count = _compact(out, (out != -1) & (idx < m))
             rounds += 1
             prev, m = m, int(count)  # the round's one host read

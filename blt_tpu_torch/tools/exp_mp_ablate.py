@@ -51,7 +51,7 @@ SORT_K = 4
 HIER = {(97, 98): 256, (256, 99): 257, (257, 257): 258, (32, 97): 259}
 # the variants in the original's order: a merge round's switches, or None
 # for the copy
-VARIANTS = {"full": multipass_cuda.TokenFlags(),
+VARIANTS = {"full": multipass_cuda.TOKEN_PASSES["token_pass"],
             **{v: multipass_cuda.TOKEN_PASSES[f"token_parts_{v}"]
                for v in ("noscan", "nolookup", "noshift")},
             "copy": None}
@@ -170,7 +170,8 @@ def measure(device: torch.device, size_bytes: int, k: int = K, seed: int = 0) ->
             k, 8 * cap + plane_bytes + 4,
             plain=lambda: multipass_cuda.token_pass_gap_plain(tokens, planes), rpb=rpb)
     row("plain_control", "K4",
-        lambda: (feed_back(lambda t: multipass_cuda.token_pass(t, n, planes), tokens, k),),
+        lambda: (feed_back(lambda t: multipass_cuda.token_pass(t, n, planes, _flags("full")),
+                           tokens, k),),
         (feed_back(lambda t: multipass_cuda.token_pass_plain(t, n, planes), tokens, k),),
         k, 8 * cap + plane_bytes,
         plain=lambda: multipass_cuda.token_pass_plain(tokens, n, planes), rpb=512)

@@ -9,35 +9,45 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
 2. build: compiles ``blt_tpu_torch/csrc/*.cu`` with nvcc (one process per
    source, in parallel); prints what ptxas reports for T14's two kernels,
    ``chain.cu``'s, T9's (``subgather.cu``) and K3's (registers, spills,
-   shared memory), counts T14's ``wgmma`` instructions (``IGMMA``,
-   ``HGMMA``), the copy ring's bulk copies (``UBLKCP``) and T9's slab
+   shared memory), and for the main path's three one-launch look-back
+   kernels (K3, K4 and K2 fused with its pack) the CTAs per SM the CUDA
+   runtime's occupancy query gives, counts T14's ``wgmma`` instructions
+   (``IGMMA``, ``HGMMA``), the copy ring's bulk copies (``UBLKCP``) and T9's slab
    kernels' TMA loads (``UTMALDG``) in the library's SASS (``cuobjdump``),
    failing on none; builds
    the 8000-rule hierarchical table of leg 4 and checks on the host that
    cuckoo32 places it at 8192 slots;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    same CUDA tensors, exactly (tolerance 0: every value is an integer
-   token), over the edge cases of the flat pass and of the token passes;
-   median times at 16 MiB (16 Mi tokens for the token passes) beside the
-   least time the card could take (bytes over 3.35 TB/s), and K1's beside
-   the one PyTorch call of its function (``exp_chain.widen_call``), held
-   equal to it; K3 chained 8 times through its own output at 16 Mi tokens
-   with leg 4's table, replayed from a CUDA graph (``exp_gap.gap_row``);
+   token), over the edge cases of the flat pass and of the token passes
+   (among them lengths 0, 1, 7, 8, 4095, 4096 and 4097, a merge starting on
+   a tile's last position, carry_in 1 and a prev_slot that is a merge
+   start): K2 and its pack, K2 fused with its pack into one launch
+   (``flat_bpe_packed``, the main path's), K3, and K4 as one look-back
+   launch (``token_pass_lookback``, the main path's) and as three; median
+   times at 16 MiB (16 Mi tokens for the token passes) beside the least
+   time the card could take (bytes over 3.35 TB/s), the fused pass beside
+   K2 then the pack, and K1's beside the one PyTorch call of its function
+   (``exp_chain.widen_call``), held equal to it; K3, and K4 in both
+   designs, chained 8 times through their own output at 16 Mi tokens with
+   leg 4's table, replayed from a CUDA graph (``exp_gap.gap_row``,
+   ``exp_lookback.k4_rows``);
 4. main path: after one small run as set-up (it builds the native host
    library in a fresh checkout), ``blt_tpu_torch.cli.main(... --engine
    torch --type text)`` on a 1 GiB Zipf-text corpus in three legs (basic, BPE with the 500 most
    frequent pairs, BPE with 50k rules), each output's sha256 held against
    a NumPy reference written here, independent of both packages; the
    launch counters, set to 0 before each leg, must equal the number of
-   batches; then each leg once more under ``torch.profiler`` for the
+   batches (one fused K2 launch a BPE batch, and no launch of K2's three
+   or of the pack); then each leg once more under ``torch.profiler`` for the
    device's busy time, idle share and time by kernel and copy;
 5. general-table BPE through ``blt_tpu_torch.ByteTokenizer(merges=...,
    engine="torch", chunk_size="16MB").tokenize_file``: leg 4 on the 1 GiB
    corpus (K3 rounds, the default loop), leg 5 on its first 256 MiB under
-   ``BLT_MP_COMPACT=sort`` (K4 rounds); each sha256 held against a NumPy
-   multipass reference written here, run per 16 MiB chunk on a process
-   pool; the launches must equal the rounds the loop counted; each leg
-   traced once more;
+   ``BLT_MP_COMPACT=sort`` (K4 rounds, each one look-back launch); each
+   sha256 held against a NumPy multipass reference written here, run per
+   16 MiB chunk on a process pool; the launches must equal the rounds the
+   loop counted; each leg traced once more;
 6. the CLI as a process, from a 64 MiB stdin pipe, byte for byte, and
    the seconds a fresh process takes to import the CLI and reach the card;
 7. measure, the device-rate path (``blt_tpu_torch.tools``): (a) K5, T1,
@@ -64,8 +74,8 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    512, 48, 16 and 80 and at 133 tiles of 512, once and chained 3 times;
    the eight 16-bit probes of T3 and T11 on the originals' x and on random
    |x| < 2**30 at 512, 8 and 13 rows);
-   (b) the launch counters set to 0, then the twelve
-   tools' measurements in this process at the originals' sizes (K5, T1 and
+   (b) the launch counters set to 0, then the twelve ported tools' and
+   ``exp_lookback``'s measurements in this process at the originals' sizes (K5, T1 and
    K2 chained 96 / 96 / 24 times, T7 at rows_per_block 512 / 2048 / 8192,
    the T8 variants chained 8 times and T9 8 times at 64 MiB (and once at
    16384 rows per block, its direct path); T5 on 16384 x
@@ -73,14 +83,19 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    chained 64 times; T2 and T10 at 64 MiB chained 8 times; T12 at 64 MiB
    chained 64 times; T13 and T14, with the original's three library rows,
    on 4096 and 131072 rows chained 16 times; T3 at 512 and 131072 rows and
-   T11 at 8 rows, 16 launches each), each chain timed as launched and as a
+   T11 at 8 rows, 16 launches each; ``exp_lookback``: K2 fused with its
+   pack beside K2 then the pack at 64 MiB, and K4's look-back launch
+   beside its three launches at 8 Mi tokens, chained 8 times), each chain
+   timed as launched and as a
    CUDA-graph replay (median and IQR of 5), beside its plain version, its
    bound (for T5 and T14 the larger of its bytes and its operations) and the
    one PyTorch call that computes the same function where there is one
    (``clone()``, ``torch.gather``, ``torch.take``,
    ``x[0::2].contiguous()``); the counters read (T4's and T6's ``full``, T2's
    ``base`` and T10's ``prod`` are K4, K2, T8's ``full`` and K2: their rows
-   take those launches during their own tool's run);
+   take those launches during their own tool's run; the three-launch K2,
+   the pack and the three-launch K4, which the main path no longer runs,
+   report the launches of this run);
    (c) ``python -m blt_tpu_torch.tools.<name>`` for each tool as a process;
 8. neither ``jax`` nor ``blt_tpu`` was ever imported.
 
@@ -115,11 +130,30 @@ from blt_tpu_torch.tools._common import (  # noqa: E402
     nvidia_smi,
 )
 from blt_tpu_torch.tools._common import bound_ms as bytes_bound_ms  # noqa: E402
-from blt_tpu_torch.tools import exp_gap  # noqa: E402
+from blt_tpu_torch.tools import exp_gap, exp_lookback  # noqa: E402
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def lookback_resources() -> dict:
+    """ptxas's figures for the three one-launch look-back kernels of the
+    main path (K3, K4 and the fused K2), with the CTAs per SM the CUDA
+    runtime's occupancy query gives for each."""
+    from blt_tpu_torch.ops import _cuda_build
+
+    out = {}
+    for label, stem, match in (("K3", "token_pass_gap", "tile_lookback"),
+                               ("K4", "token_pass", "tile_lookback"),
+                               ("K2_packed", "flat_bpe", "flat_packed_kernel")):
+        found = {name: r for name, r in _cuda_build.kernel_resources(stem).items()
+                 if match in name}
+        if _cuda_build.build_seconds is not None and len(found) != 1:
+            fail(f"ptxas reported {len(found)} kernels matching {match} in {stem}.cu")
+        out[label] = {**next(iter(found.values()), {}),
+                      "ctas_per_sm": _cuda_build.ctas_per_sm(stem)}
+    return out
 
 
 def pallas_line(func: str, rel: str = "blt_tpu/ops/bpe_pallas.py") -> str:
@@ -397,11 +431,13 @@ def phase_kernels(corpus, merges500, merges50k, rng):
     def on_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    err = {"widen": 0, "flat_bpe": 0, "pack_slots": 0}
+    err = {"widen": 0, "flat_bpe": 0, "pack_slots": 0, "flat_bpe_packed": 0}
     cases = 0
     flat_cases = []  # (data, n, next_byte, table, carry): phase 7 replays them
 
     def check_flat(data, n, nb, table, carry, prev):
+        """K2, the pack, and the two fused into one launch, each against its
+        plain version."""
         nonlocal cases
         flat_cases.append((data, n, nb, table, carry))
         c_in = torch.tensor([[carry]], dtype=torch.int32, device=dev)
@@ -410,14 +446,18 @@ def phase_kernels(corpus, merges500, merges50k, rng):
         ref_slots, ref_c = bpe_cuda.flat_pass_plain(data, n, nb, table, c_in)
         wire, last = bpe_cuda.pack_slots(slots, n, p_in)
         ref_wire, ref_last = bpe_cuda.pack_slots_plain(ref_slots, n, p_in)
+        fused = bpe_cuda.flat_encode_packed(data, n, nb, table, c_in, p_in)
+        ref_fused = bpe_cuda.flat_packed_plain(data, n, nb, table, c_in, p_in)
         torch.cuda.synchronize()
         e_flat = max(int_err(slots, ref_slots), int_err(c_out, ref_c))
         e_pack = max(int_err(wire, ref_wire), int_err(last, ref_last))
-        if e_flat or e_pack:
-            fail(f"flat pass n={n} next_byte={nb} carry={carry}: "
-                 f"slot/carry err {e_flat}, wire/last err {e_pack}")
+        e_fused = max(int_err(a, b) for a, b in zip(fused, ref_fused, strict=True))
+        if e_flat or e_pack or e_fused:
+            fail(f"flat pass n={n} next_byte={nb} carry={carry} prev_slot={prev:#x}: "
+                 f"slot/carry err {e_flat}, wire/last err {e_pack}, fused err {e_fused}")
         err["flat_bpe"] = max(err["flat_bpe"], e_flat)
         err["pack_slots"] = max(err["pack_slots"], e_pack)
+        err["flat_bpe_packed"] = max(err["flat_bpe_packed"], e_fused)
         cases += 1
         return wire, c_out, last
 
@@ -466,22 +506,35 @@ def phase_kernels(corpus, merges500, merges50k, rng):
         for carry in (0, 1):
             check_flat(small, 1, nb, t500, carry, 0)
     check_flat(small, 0, -1, t500, 1, 0x6100)
+    # the fused pass's edges: lengths 0 to one past a tile, carry 1, a
+    # prev_slot that is a merge start (low byte nonzero), and a merge
+    # starting on the last position of every tile ((x, 97) has no rule in
+    # t_aa, (97, 97) has)
+    edges = rng.integers(98, 123, 64 * 1024).astype(np.uint8)
+    for e in range(4096, edges.shape[0], 4096):
+        edges[e - 1 : e + 1] = 97
+    for n in (0, 1, 7, 8, 4095, 4096, 4097, edges.shape[0]):
+        for carry, nb, prev in ((0, -1, 0), (1, 97, 0x0161)):
+            check_flat(on_dev(edges), n, nb, t_aa, carry, prev)
 
-    # four 16 MiB batches chained through carry and prev_slot, kernel chain
-    # against plain chain
-    carry_k = carry_p = torch.zeros((1, 1), dtype=torch.int32, device=dev)
-    prev_k = prev_p = torch.zeros((), dtype=torch.int32, device=dev)
+    # four 16 MiB batches chained through carry and prev_slot, kernel chains
+    # (K2 then the pack, and the fused pass) against the plain chain
+    carry_k = carry_p = carry_f = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    prev_k = prev_p = prev_f = torch.zeros((), dtype=torch.int32, device=dev)
     for j in range(4):
         piece = on_dev(corpus[j * 16 * MIB : (j + 1) * 16 * MIB])
         nb = int(corpus[(j + 1) * 16 * MIB]) if j < 3 else -1
         slots, carry_k = bpe_cuda.flat_encode_slots(piece, 16 * MIB, nb, t500, carry_k)
         wire_k, prev_k = bpe_cuda.pack_slots(slots, 16 * MIB, prev_k)
+        wire_f, carry_f, prev_f = bpe_cuda.flat_encode_packed(piece, 16 * MIB, nb, t500,
+                                                              carry_f, prev_f)
         s_p, carry_p = bpe_cuda.flat_pass_plain(piece, 16 * MIB, nb, t500, carry_p)
         wire_p, prev_p = bpe_cuda.pack_slots_plain(s_p, 16 * MIB, prev_p)
         torch.cuda.synchronize()
         e = max(int_err(wire_k, wire_p), int_err(carry_k, carry_p), int_err(prev_k, prev_p))
-        if e:
-            fail(f"chained batch {j}: err {e}")
+        e_f = max(int_err(wire_f, wire_p), int_err(carry_f, carry_p), int_err(prev_f, prev_p))
+        if e or e_f:
+            fail(f"chained batch {j}: err {e}, fused err {e_f}")
         cases += 1
 
     # times at 16 MiB: kernel and plain on the same tensors
@@ -493,6 +546,8 @@ def phase_kernels(corpus, merges500, merges50k, rng):
         "widen": bound_ms(big, bpe_cuda.basic_encode(big)),
         "flat_bpe": bound_ms(big, t500, c0, slots, c1),
         "pack_slots": bound_ms(slots, p0, wire, last),
+        # the bytes in and the wire out, no slots: 2.125 bytes a position
+        "flat_bpe_packed": bound_ms(big, t500, c0, p0, wire, c1, last),
     }
     ms = {
         "widen": (
@@ -507,6 +562,10 @@ def phase_kernels(corpus, merges500, merges50k, rng):
             cuda_ms(lambda: bpe_cuda.pack_slots(slots, 16 * MIB, p0)),
             cuda_ms(lambda: bpe_cuda.pack_slots_plain(slots, 16 * MIB, p0)),
         ),
+        "flat_bpe_packed": (
+            cuda_ms(lambda: bpe_cuda.flat_encode_packed(big, 16 * MIB, -1, t500, c0, p0)),
+            cuda_ms(lambda: bpe_cuda.flat_packed_plain(big, 16 * MIB, -1, t500, c0, p0)),
+        ),
     }
     # the one PyTorch call of K1's function, held equal to the kernel's output
     if int_err(widen_call(big), bpe_cuda.basic_encode(big)):
@@ -517,6 +576,9 @@ def phase_kernels(corpus, merges500, merges50k, rng):
             lambda: bpe_cuda.flat_encode_slots(big, 16 * MIB, -1, t50k, c0)
         ),
         "d2d_copy_16mib_ms": cuda_ms(lambda: big.clone()),
+        # the design the fused pass replaces, one call of it in the same run
+        "flat_bpe_then_pack_ms": cuda_ms(lambda: bpe_cuda.pack_slots(
+            bpe_cuda.flat_encode_slots(big, 16 * MIB, -1, t500, c0)[0], 16 * MIB, p0)),
     }
     emit({
         "phase": "kernels", "cases": cases, "tolerance": 0,
@@ -550,13 +612,14 @@ def phase_multipass_kernels(corpus, rules, rng):
     def on_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
 
-    err = {"token_pass_gap": 0, "token_pass": 0}
+    err = {"token_pass_gap": 0, "token_pass": 0, "token_pass_lookback": 0}
     cases = 0
     token_cases = []  # (tokens, n, planes): phase 7 replays them
 
     def check(toks, n, planes, what, gap=None):
-        """K4 on toks[:n], and K3 on ``gap`` (default: toks with -1 past
-        n); returns K3's output, to chain rounds."""
+        """K4 on toks[:n] (the look-back round and the three launches), and
+        K3 on ``gap`` (default: toks with -1 past n); returns K3's output,
+        to chain rounds."""
         nonlocal cases
         t = on_dev(toks)
         token_cases.append((t, n, planes))
@@ -564,15 +627,19 @@ def phase_multipass_kernels(corpus, rules, rng):
             gap = np.array(toks, np.int32)
             gap[n:] = -1
         g = on_dev(gap)
-        e4 = int_err(mc.token_pass(t, n, planes), mc.token_pass_plain(t, n, planes))
+        ref4 = mc.token_pass_plain(t, n, planes)
+        e4 = int_err(mc.token_pass(t, n, planes, mc.TOKEN_PASSES["token_pass"]), ref4)
+        e4l = int_err(mc.token_pass(t, n, planes, mc.K4_FLAGS), ref4)
         out, count = mc.token_pass_gap(g, planes)
         ref, ref_count = mc.token_pass_gap_plain(g, planes)
         torch.cuda.synchronize()
         e3 = max(int_err(out, ref), int_err(count, ref_count))
-        if e3 or e4:
-            fail(f"token passes, {what} (n={n}): K3 err {e3}, K4 err {e4}")
+        if e3 or e4 or e4l:
+            fail(f"token passes, {what} (n={n}): K3 err {e3}, K4 err {e4l}, "
+                 f"three-launch K4 err {e4}")
         err["token_pass_gap"] = max(err["token_pass_gap"], e3)
         err["token_pass"] = max(err["token_pass"], e4)
+        err["token_pass_lookback"] = max(err["token_pass_lookback"], e4l)
         cases += 1
         return out.cpu().numpy()
 
@@ -587,6 +654,13 @@ def phase_multipass_kernels(corpus, rules, rng):
     a = np.full(4096, 97, np.int32)
     for n in (0, 1, 2):
         check(a, n, chain, "short")
+    # lengths 0 to one past a tile, and a merge starting on the last
+    # position of tiles 0 and 1 ((120, 97) has no rule, (97, 97) has)
+    edges = rng.choice(np.array([98, 99, 120], np.int32), 3 * 4096 + 128)
+    for e in (4096, 8192):
+        edges[e - 2 : e + 1] = [120, 97, 97]
+    for n in (0, 1, 7, 8, 4095, 4096, 4097, 8193, edges.shape[0]):
+        check(edges, n, chain, "tile edges")
     # a hierarchical chain over tile edges, four rounds fed back through K3
     gap = np.full(3 * 4096 + 128, 97, np.int32)
     for _ in range(4):
@@ -616,12 +690,16 @@ def phase_multipass_kernels(corpus, rules, rng):
     bounds = {
         "token_pass_gap": bound_ms(t, *planes, g_out, g_count),
         "token_pass": bound_ms(t, *planes, k_out),
+        "token_pass_lookback": bound_ms(t, *planes, k_out),
     }
+    k4_plain_ms = cuda_ms(lambda: mc.token_pass_plain(t, cap, table8k))
+    three = mc.TOKEN_PASSES["token_pass"]  # the design the look-back replaced
     ms = {
         "token_pass_gap": (cuda_ms(lambda: mc.token_pass_gap(t, table8k)),
                            cuda_ms(lambda: mc.token_pass_gap_plain(t, table8k))),
-        "token_pass": (cuda_ms(lambda: mc.token_pass(t, cap, table8k)),
-                       cuda_ms(lambda: mc.token_pass_plain(t, cap, table8k))),
+        "token_pass": (cuda_ms(lambda: mc.token_pass(t, cap, table8k, three)), k4_plain_ms),
+        "token_pass_lookback": (cuda_ms(lambda: mc.token_pass(t, cap, table8k, mc.K4_FLAGS)),
+                                k4_plain_ms),
     }
 
     # what the loop's one host read per round costs: 8 chained K3 rounds
@@ -638,6 +716,10 @@ def phase_multipass_kernels(corpus, rules, rng):
     chained = exp_gap.gap_row(t, table8k)
     if not chained["exact"]:
         fail("K3 chained 8 times differs from its plain chain")
+    # K4 chained 8 times the same way, its look-back launch beside its three
+    k4_chained = exp_lookback.k4_rows(t, cap, table8k)
+    if not all(r["exact"] for r in k4_chained):
+        fail("K4 chained 8 times differs from its plain chain")
     emit({
         "phase": "multipass_kernels", "cases": cases, "tolerance": 0,
         "max_abs_err": err, "slots": table8k.slots,
@@ -648,6 +730,11 @@ def phase_multipass_kernels(corpus, rules, rng):
             "graph_iqr_ms": chained["graph"]["ms_per_launch"]["iqr"],
             "eager_ms": chained["eager"]["ms_per_launch"]["median"],
             "bound_ms": chained["bound_ms"]},
+        "token_pass_chained_8": {
+            r["name"]: {"graph_ms": r["graph"]["ms_per_launch"]["median"],
+                        "graph_iqr_ms": r["graph"]["ms_per_launch"]["iqr"],
+                        "eager_ms": r["eager"]["ms_per_launch"]["median"],
+                        "bound_ms": r["bound_ms"]} for r in k4_chained},
         "host_read_ms_per_round": host_read_ms,
     })
     return err, ms, bounds, token_cases
@@ -690,8 +777,8 @@ def phase_main_path(corpus, merges500, merges50k, workdir):
     header = (0xFF01).to_bytes(2, "big")  # the text content-type token
 
     legs = [("basic", None, None, "widen"),
-            ("bpe_500", m500, merges500, "flat_bpe"),
-            ("bpe_50k", m50k, merges50k, "flat_bpe")]
+            ("bpe_500", m500, merges500, "flat_bpe_packed"),
+            ("bpe_50k", m50k, merges50k, "flat_bpe_packed")]
 
     def out_of(name):
         return os.path.join(workdir, f"out_{name}.bin")
@@ -713,7 +800,8 @@ def phase_main_path(corpus, merges500, merges50k, workdir):
         seconds = time.perf_counter() - t0
         stages = stage_stats(reset=True)
         got = all_launches()
-        if got[kernel] != batches or (merges and got["pack_slots"] != batches):
+        # one fused launch a batch: K2's three and the pack's one no more
+        if got[kernel] != batches or got["flat_bpe"] or got["pack_slots"]:
             fail(f"leg {name}: launches {got}, expected {batches} batches")
         for k, v in got.items():
             totals[k] += v
@@ -736,7 +824,7 @@ def phase_main_path(corpus, merges500, merges50k, workdir):
             "stages": {k: {m: round(v, 4) for m, v in st.items()}
                        for k, st in stages.items()},
         })
-    if not all(totals[k] for k in ("widen", "flat_bpe", "pack_slots")):
+    if not all(totals[k] for k in ("widen", "flat_bpe_packed")):
         fail(f"a kernel of the path was never launched: {totals}")
 
     # where the time goes: each leg once more, traced (counts already read)
@@ -762,7 +850,7 @@ def phase_multipass(corpus, inp, rules, workdir, chunk: int = 16 * MIB,
     head.tofile(part)
     out = os.path.join(workdir, "out_multipass.bin")
     legs = [("multipass_gap", inp, corpus.shape[0], "gap", "token_pass_gap"),
-            ("multipass_sort", part, head.shape[0], "sort", "token_pass")]
+            ("multipass_sort", part, head.shape[0], "sort", "token_pass_lookback")]
 
     def run_leg(src, mode):
         os.environ["BLT_MP_COMPACT"] = mode
@@ -785,7 +873,9 @@ def phase_multipass(corpus, inp, rules, workdir, chunk: int = 16 * MIB,
         loops = list(multipass_cuda.loop_log)
         rounds = [r for r, _ in loops]
         chunks = -(-size // chunk)
-        if len(loops) != chunks or got[kernel] != sum(rounds) or not got[kernel]:
+        # the sort loop's rounds are the look-back K4, never the three launches
+        if (len(loops) != chunks or got[kernel] != sum(rounds) or not got[kernel]
+                or got["token_pass"]):
             fail(f"leg {name}: launches {got}, {len(loops)} loops of {sum(rounds)} "
                  f"rounds, expected {chunks} chunks")
         totals[kernel] = got[kernel]
@@ -922,7 +1012,11 @@ TOOLS = {"exp_chain": ("exp_chain", 64 * MIB, 96), "exp_sweep": ("exp_sweep", 64
          "exp_chd": ("exp_chd", 64 * MIB, 8), "exp_bf16scan": ("exp_bf16scan", 64 * MIB, 64),
          "exp_gather_4096": ("exp_gather", 2 * MIB, 16),
          "exp_gather": ("exp_gather", 64 * MIB, 16),
-         "exp_16bit": ("exp_16bit", 64 * MIB, 16), "canary_16bit": ("canary_16bit", 8 * 512, 16)}
+         "exp_16bit": ("exp_16bit", 64 * MIB, 16), "canary_16bit": ("canary_16bit", 8 * 512, 16),
+         "exp_lookback": ("exp_lookback", 64 * MIB, 8)}
+# the three-launch designs the main path no longer runs (K2, its pack, K4):
+# their launches are phase 7's (exp_lookback, exp_mp_ablate, exp_chain, ...)
+OFF_PATH = ("flat_bpe", "pack_slots", "token_pass")
 # tools whose size option is rows of 128 int32 in place of --size-mib
 ROWS_OPTION = ("exp_gather", "canary_16bit")
 
@@ -956,6 +1050,7 @@ def phase_measure(corpus, flat_cases, token_cases, err):
         exp_chain,
         exp_chd,
         exp_gather,
+        exp_lookback,
         exp_mp_ablate,
         exp_opt,
         exp_pack,
@@ -1133,7 +1228,8 @@ def phase_measure(corpus, flat_cases, token_cases, err):
     modules = {"exp_chain": exp_chain, "exp_sweep": exp_sweep, "exp_parts": exp_parts,
                "exp_pack": exp_pack, "exp_mp_ablate": exp_mp_ablate, "exp_scan": exp_scan,
                "exp_opt": exp_opt, "exp_chd": exp_chd, "exp_bf16scan": exp_bf16scan,
-               "exp_gather": exp_gather, "exp_16bit": exp_16bit, "canary_16bit": canary_16bit}
+               "exp_gather": exp_gather, "exp_16bit": exp_16bit, "canary_16bit": canary_16bit,
+               "exp_lookback": exp_lookback}
     reset_all_launches()
     results, during = {}, {}
     for name, (tool, size, k) in TOOLS.items():
@@ -1146,10 +1242,10 @@ def phase_measure(corpus, flat_cases, token_cases, err):
         emit({"phase": "measure", "tool": name, "size_bytes": size,
               "seconds": time.perf_counter() - t0,
               "rows": [_summary(r) for r in results[name]["rows"]],
-              **({"split": results[name]["split"]} if "split" in results[name] else {})})
+              **{key: results[name][key] for key in ("split", "ratio") if key in results[name]}})
     launches = {**all_launches(),
                 **{row: during[tool][c] for row, (tool, c) in COUNTED_AS.items()}}
-    missing = [k for k in MEASURED_ROWS if not launches[k]]
+    missing = [k for k in (*MEASURED_ROWS, *OFF_PATH) if not launches[k]]
     if missing:
         fail(f"kernels of the device-rate path never launched: {missing}")
 
@@ -1204,7 +1300,8 @@ def phase_measure(corpus, flat_cases, token_cases, err):
                for p in exp_16bit.PROBES},
             **{p: row("canary_16bit", p.split("_", 1)[1])
                for p in ("canary_i16_roll", "canary_strided_sublane")}}
-    return {"launches": {k: launches[k] for k in MEASURED_ROWS}, "rows": rows}
+    return {"launches": {k: launches[k] for k in (*MEASURED_ROWS, *OFF_PATH)}, "rows": rows,
+            "exp_lookback": results["exp_lookback"]}
 
 
 def main() -> int:
@@ -1252,7 +1349,8 @@ def main() -> int:
           "onehot_mma": {"ptxas": _cuda_build.kernel_resources("onehot_mma"), "sass": sass},
           "chain": {"ptxas": _cuda_build.kernel_resources("chain"), "sass": ring_sass},
           "subgather": {"ptxas": _cuda_build.kernel_resources("subgather"), "sass": slab_sass},
-          "token_pass_gap": {"ptxas": _cuda_build.kernel_resources("token_pass_gap")}})
+          "token_pass_gap": {"ptxas": _cuda_build.kernel_resources("token_pass_gap")},
+          "look_back_kernels": lookback_resources()})
 
     rng = np.random.default_rng(args.seed)
     corpus = make_corpus(rng, max(args.size_mib, 256) * MIB)
@@ -1304,9 +1402,11 @@ def main() -> int:
 
     rows = {  # name: (source, the Pallas function it replaces)
         "widen": ("widen.cu", "basic_encode_pallas"),
+        "flat_bpe_packed": ("flat_bpe.cu", "_flat_encode_packed"),
         "flat_bpe": ("flat_bpe.cu", "_flat_encode_pallas_call"),
         "pack_slots": ("flat_bpe.cu", "_pack_slots_core"),
         "token_pass_gap": ("token_pass_gap.cu", "_token_pass_gap_call"),
+        "token_pass_lookback": ("token_pass.cu", "_token_pass_call"),
         "token_pass": ("token_pass.cu", "_token_pass_call"),
     }
     kernels = [

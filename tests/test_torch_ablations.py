@@ -322,15 +322,16 @@ def test_scan_parts_refuse_what_their_kernels_do_not_take(scan_setup):
         "scan_parts_noshifts": 147, "opt_p2": 167, "opt_hoist": 231, "opt_swap": 227,
         "chd_novalid": 3}),
     (multipass_cuda.TokenFlags, "token_pass.cuh", {
-        "token_pass": 7, "token_parts_noscan": 5, "token_parts_nolookup": 6,
-        "token_parts_noshift": 3}),
+        "token_pass_lookback": 15, "token_pass": 7, "token_parts_noscan": 5,
+        "token_parts_nolookup": 6, "token_parts_noshift": 3}),
 ])
 def test_flag_bits_are_the_c_entries(flags, header, passes):
     """The flag sets' bits are the ``kFlag*`` values of the header whose
-    one C entry takes them (K2 is 131, K4 is 7), field by field."""
+    one C entry takes them (K2 is 131, K4 15, its three-launch design 7),
+    field by field; the sets each entry instantiates are held to the tables
+    by ``test_torch_flat_opt.py`` and ``test_torch_lookback.py``."""
     text = (REPO / "blt_tpu_torch" / "csrc" / header).read_text()
     in_c = {m[1].lower(): int(m[2]) for m in re.finditer(r"kFlag(\w+) = (\d+)", text)}
-    assert in_c.pop("sets") == 1 << len(flags._fields)
     assert in_c == {f.replace("_", ""): 1 << i for i, f in enumerate(flags._fields)}
     table = bpe_cuda.FLAT_PASSES if flags is bpe_cuda.FlatFlags else multipass_cuda.TOKEN_PASSES
     assert {name: f.bits for name, f in table.items()} == passes

@@ -26,6 +26,7 @@ from blt_tpu_torch.tools import (
     exp_chain,
     exp_chd,
     exp_gather,
+    exp_lookback,
     exp_mp_ablate,
     exp_opt,
     exp_parts,
@@ -90,7 +91,9 @@ def test_engine_streams_reuse_pinned_buffers(cuda):
     bpe_cuda.reset_launches()
     got = _join(eng.bpe_stream(iter(chunks), table, hint))
     assert got == bpe_encode_flat(data, table).astype(">u2").tobytes()
-    assert bpe_cuda.launches["flat_bpe"] == bpe_cuda.launches["pack_slots"] == 65
+    # one fused launch per batch: K2's three and the pack's no more
+    assert bpe_cuda.launches["flat_bpe_packed"] == 65
+    assert bpe_cuda.launches["flat_bpe"] == bpe_cuda.launches["pack_slots"] == 0
     got = _join(eng.basic_stream(iter(chunks), hint))
     assert got == data.astype(">u2").tobytes()
     assert bpe_cuda.launches["widen"] == 65
@@ -125,9 +128,10 @@ def _big_table(seed=3, n=7000):
 
 
 def test_token_passes_equal_plain_versions(cuda):
-    """K3 and K4 against their plain versions: empty, one and two tokens,
-    tombstone runs of 1 to 5 across a tile edge, a hierarchical chain,
-    tokens >= 32768 with 0xFFFF, and a table placed at 8192 slots."""
+    """K3 and every round of ``TOKEN_PASSES`` (K4 in one launch and in
+    three, T4's ablations) against their plain versions: empty, one and
+    two tokens, tombstone runs of 1 to 5 across a tile edge, a hierarchical
+    chain, tokens >= 32768 with 0xFFFF, and a table placed at 8192 slots."""
     rng = np.random.default_rng(20)
     tables = [MergeTable.build(GENERAL), _big_table()]
     assert cuckoo_planes(tables[1]).slots == 8192
@@ -140,8 +144,9 @@ def test_token_passes_equal_plain_versions(cuda):
         toks[4000:4200] = 97  # a chain across the tile edge at 4096
         for n in (0, 1, 2, 4095, 4097, cap):
             t = torch.from_numpy(toks).to(cuda)
-            assert torch.equal(multipass_cuda.token_pass(t, n, planes),
-                               multipass_cuda.token_pass_plain(t, n, planes)), n
+            for flags in multipass_cuda.TOKEN_PASSES.values():
+                assert torch.equal(multipass_cuda.token_pass(t, n, planes, flags),
+                                   multipass_cuda.token_pass_plain(t, n, planes, flags)), (n, flags)
             for run in range(1, 6):
                 gap = toks.copy()
                 gap[n:] = -1
@@ -165,7 +170,7 @@ def test_multipass_engine_on_the_card(cuda, mode, monkeypatch):
     expected = b"".join(bpe_encode_multipass(c, table).astype(">u2").tobytes() for c in chunks)
     assert got == expected
     rounds = sum(r for r, _ in multipass_cuda.loop_log)
-    kernel = "token_pass" if mode == "sort" else "token_pass_gap"
+    kernel = "token_pass_lookback" if mode == "sort" else "token_pass_gap"
     assert len(multipass_cuda.loop_log) == len(chunks)
     assert multipass_cuda.launches[kernel] == rounds > 0
 
@@ -455,6 +460,83 @@ def test_look_back_replays_from_a_cuda_graph(cuda):
             lambda variant=variant: exp_opt.chain(variant, data, 1 << 20, 97, table, c, 4), 4,
             data.numel(), cuda, expect)
         assert timing["exact"] and timing["graph"] is not None, variant
+
+
+def test_look_back_k4_equals_plain_version(cuda):
+    """K4 as the main path runs it (one look-back launch) against its plain
+    version: short buffers, a match run over a whole tile, a merge starting
+    on a tile's last position, over its own output for two more rounds,
+    and the 8192-slot table."""
+    rng = np.random.default_rng(25)
+    cap = 3 * 4096 + 256
+    for table in (MergeTable.build(GENERAL), _big_table()):
+        planes = cuckoo_planes(table, cuda)
+        alphabet = np.array(sorted({x for p in table.merges for x in p})[:600]
+                            + [97, 98, 99, 0xFFFF, 32768, 40000], np.int32)
+        toks = rng.choice(alphabet, cap).astype(np.int32)
+        toks[4090:8300] = 97  # (97, 97) matches in GENERAL: tile 1 holds no non-match
+        toks[12285:12288] = [120, 97, 98]  # (97, 98) starts on tile 2's last position
+        for n in (0, 1, 7, 8, 4095, 4096, 4097, 12289, cap):
+            t = torch.from_numpy(toks).to(cuda)
+            for r in range(3):
+                got = multipass_cuda.token_pass(t, n, planes, multipass_cuda.K4_FLAGS)
+                ref = multipass_cuda.token_pass_plain(t, n, planes)
+                assert torch.equal(got, ref), (n, r)
+                t = got
+
+
+def test_look_back_k4_replays_from_a_cuda_graph(cuda):
+    """A chain of look-back K4 rounds captured once replays with the same
+    result (the status words and ticket are zeroed on the stream), beside
+    the three-launch rounds."""
+    planes = cuckoo_planes(_big_table(), cuda)
+    rng = np.random.default_rng(26)
+    toks = torch.from_numpy(rng.integers(0, 600, 1 << 20).astype(np.int32)).to(cuda)
+    multipass_cuda.reset_launches()
+    rows = exp_lookback.k4_rows(toks, toks.numel() - 5, planes, k=4)
+    assert [r["name"] for r in rows] == ["lookback", "three_launch"]
+    assert all(r["exact"] and r["graph"] is not None for r in rows)
+    # the warm-up, the timed runs and the capture; replays launch nothing new
+    assert multipass_cuda.launches["token_pass_lookback"] == 4 * (2 + _common.REPS)
+    assert multipass_cuda.launches["token_pass"] == 4 * (2 + _common.REPS)
+
+
+def test_packed_pass_equals_plain_version(cuda):
+    """K2 and its pack as one launch against K2's plain pass packed by the
+    plain pack: short and tile-edge lengths, both carries, a prev_slot that
+    is a merge start, next_byte -1, 0 and 97, an all-match run over many
+    tiles, and a merge starting on a tile's last position."""
+    table = wire_table(MergeTable.build(MERGES).dense, cuda)
+    data = _text(27, (1 << 20) + 4096)
+    data[4093:4096] = [32, 97, 98]  # (32, 97) no rule, (97, 98) starts at 4095
+    d = torch.from_numpy(data).to(cuda)
+    run = torch.full((4 << 20,), 97, dtype=torch.uint8, device=cuda)
+    bpe_cuda.reset_launches()
+    cases = [(d, n, carry, nb, prev) for n in (0, 1, 7, 8, 4095, 4096, 4097, 5000, 1 << 20)
+             for carry, nb, prev in ((0, -1, 0), (1, 97, 0x0161), (1, 0, 0x6100), (0, 97, 0x0262))]
+    cases += [(run, (4 << 20) - 3, carry, 97, 0x0161) for carry in (0, 1)]
+    for x, n, carry, nb, prev in cases:
+        c = torch.tensor([[carry]], dtype=torch.int32, device=cuda)
+        p = torch.tensor(prev, dtype=torch.int32, device=cuda)
+        got = bpe_cuda.flat_encode_packed(x, n, nb, table, c, p)
+        want = bpe_cuda.flat_packed_plain(x, n, nb, table, c, p)
+        assert _equal(got, want), (x.numel(), n, carry, nb, prev)
+    assert bpe_cuda.launches["flat_bpe_packed"] == len(cases)
+    assert bpe_cuda.launches["flat_bpe"] == bpe_cuda.launches["pack_slots"] == 0
+
+
+def test_packed_pass_replays_from_a_cuda_graph(cuda):
+    """Fused passes chained through carry and last_slot, captured once,
+    replay with the same wire, beside K2 + pack chained the same way."""
+    table = wire_table(MergeTable.build(MERGES).dense, cuda)
+    data = torch.from_numpy(_text(28, 1 << 20)).to(cuda)
+    bpe_cuda.reset_launches()
+    rows = exp_lookback.k2_rows(data, (1 << 20) - 3, table, k=4)
+    assert [r["name"] for r in rows] == ["packed", "k2_pack"]
+    assert all(r["exact"] and r["graph"] is not None for r in rows)
+    assert bpe_cuda.launches["flat_bpe_packed"] == 4 * (2 + _common.REPS)
+    assert bpe_cuda.launches["flat_bpe"] == bpe_cuda.launches["pack_slots"] == 4 * (
+        2 + _common.REPS)
 
 
 def test_mask_scans_and_lookups_equal_plain_versions(cuda):
