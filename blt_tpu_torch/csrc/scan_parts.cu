@@ -1,6 +1,6 @@
 // The flat-BPE pass's ablations with the parity scan run block by block,
 // and a block-local parity scan of a bare match mask:
-//   T6's scan16 and swarpack (block_scan, block_fixup),
+//   T6's scan16 and swarpack (segment_scan),
 //   T10's noscan2 (row_carry_map, walk_carries, row_scan_emit),
 //   T12's scan in int32 and in bf16x2 (mask_scan).
 //
@@ -58,15 +58,47 @@
 // about 60 us at 3.35 TB/s); mask_scan reads 1 and writes 1 (128 MiB at
 // 64 MiB, about 40 us).
 //
-// Design: all are block-local, so one CUDA block of 256 threads takes one
-// Pallas block of rpb rows, a warp per row and 4 lanes per thread, in steps
-// with shared memory between them (the match bits of each row, and what a
-// step needs of the rows before):
-//   scan16, swarpack (36 bytes per row): the match bits and each row's last
-//   non-match, the exclusive max over the rows, the start bits, then the
-//   slots with 8-byte stores (the batch is read and looked up twice); a
-//   second launch applies consumed at each block's first position, which
-//   needs the previous block's last start (or carry_in).
+// Design of scan16 and swarpack (segment_scan, their Hopper design): one
+// launch after one cudaMemsetAsync of the jobs' flags and a ticket. A job is
+// whole segments (a segment: a block of rpb rows, rpb x 128 positions), as
+// many as fit in a 4096-position tile and at least one (jobs_of); a CTA of
+// 256 threads takes one job from the ticket and streams its tiles in order
+// through two stages of kTile + 16 bytes in shared memory, each filled by
+// one bulk copy (cp.async.bulk onto the stage's mbarrier, bulk.cuh) two
+// tiles ahead of the tile being scanned. Each thread owns 16 consecutive
+// positions of a tile, as K2 does:
+//   scan16: the tile's pairs looked up once into registers, the exclusive
+//   max across the tile's threads, and lz = max(that, the running max of the
+//   job's earlier tiles, s - 1 for the segment start s at or before the
+//   thread): K2's max-scan with the reset at every segment start; then the
+//   slots from registers with 16-byte stores. No look-back: a segment never
+//   leaves its CTA.
+//   swarpack: pass 1 keeps the job's match bits in shared memory (2 bytes a
+//   16 positions) and each row's parity of the last non-match before it in
+//   its segment (a byte a row); then 8 threads a row pair run the SWAR steps
+//   of rows 2q and 2q + 1 once, giving row q its low fields and row
+//   q + rpb/2 its high fields, and keep the start bits (2 bytes a 16
+//   positions; 33 KiB in all at rpb 1024); pass 2 streams the tiles again
+//   and looks up each start's pair for its value.
+// consumed at a job's first position is the previous job's last start: a
+// job publishes its own in its flag word (2 | start) as soon as it knows it,
+// and only then waits for its predecessor's to fix its first slot; the
+// predecessor holds an earlier ticket, so it has started and the wait ends.
+// The flags and ticket are reset on the stream, so a captured chain replays.
+// tools_cuda.block_scan_plan mirrors the jobs; tests/test_torch_segment_scan.py
+// plays the protocol on the host.
+// What holds them (an H100 80GB HBM3 at 700 W, exp_scan at 64 MiB chained
+// 64, PERF.md): at rpb 1024 scan16 takes 0.142-0.145 ms and swarpack
+// 0.329-0.334 against the bytes' 0.060 (the two-launch design before them
+// 0.394-0.397 and 0.595-0.602). A 64 MiB batch holds 512 jobs of 32 tiles,
+// under 4 an SM, each walking its tiles one after another: latency and
+// issue, not bytes, bound a step (K2's pass without its scan, a tile a CTA
+// at 8 CTAs an SM, takes 0.091). swarpack adds its SWAR steps (7 steps of
+// 16 lanes a thread a row pair) and its second pass.
+//
+// Design of the others: block-local, so one CUDA block of 256 threads takes
+// one Pallas block of rpb rows, a warp per row and 4 lanes per thread, in
+// steps with shared memory between them:
 //   noscan2: three launches on one stream. row_carry_map: a warp per block
 //   records the block's carry out for carry in 0 and for 1 (only the row of
 //   its last position can depend on it, through the sentinel);
@@ -77,6 +109,7 @@
 
 #include <cuda_bf16.h>
 
+#include "bulk.cuh"
 #include "flat_pass.cuh"
 
 namespace {
@@ -123,185 +156,385 @@ __device__ __forceinline__ uint32_t swar_step(uint32_t s, uint32_t c) {
   return (s & k) | (c & ~k);
 }
 
-template <bool kSwar>
-__global__ void __launch_bounds__(kThreads)
-    block_scan(Batch b, int rpb, uint16_t* __restrict__ slots,
-               int* __restrict__ carry_out, int* __restrict__ blk_last) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* mbits = smem;              // rpb x 4 words: match bits
-  uint32_t* sbits = smem + 4 * rpb;    // rpb x 4 words: start bits
-  int* excl = (int*)(smem + 8 * rpb);  // rpb: last non-match of the rows before
-  __shared__ int warp_tot[kWarps];
-  int lane = threadIdx.x & 31;
-  int warp = threadIdx.x >> 5;
-  int base = blockIdx.x * rpb * 128;
+// --- T6 scan16, swarpack: one launch, segments streamed per CTA ----------
 
-  // 1. match bits and each row's last non-match position (kNeg if none)
-  for (int j = warp; j < rpb; j += kWarps) {
-    int i0 = base + j * 128 + 4 * lane;
-    int d[4], after;
-    load4(b, i0, lane, d, after);
-    uint32_t nib = 0;
-    int lnm = kNeg;
+constexpr int kSegThreads = 256;              // threads of a segment_scan CTA
+constexpr int kSegTile = kSegThreads * kPer;  // positions of its tile
+constexpr int kSegWarps = kSegThreads / 32;
+
+// A launch's work: a job is whole segments of rpb x 128 positions, as many
+// as fit in a tile (at least one), taken by one CTA from a ticket; the last
+// job of a buffer may hold fewer segments. tools_cuda.block_scan_plan
+// mirrors this.
+struct Jobs {
+  int seg;    // positions of a segment, rpb * 128
+  int job;    // positions of a job: max(1, kSegTile / seg) segments
+  int count;  // jobs, ceil(cap / job)
+};
+
+inline Jobs jobs_of(int cap, int rpb) {
+  Jobs j;
+  j.seg = rpb * 128;
+  j.job = (kSegTile / j.seg > 1 ? kSegTile / j.seg : 1) * j.seg;
+  j.count = (cap + j.job - 1) / j.job;
+  return j;
+}
+
+constexpr int kStageBytes = kSegTile + kPer;  // a tile's bytes and the 16 after it
+constexpr int kStages = 2;
+constexpr int kBarOffset = kStages * kStageBytes;
+constexpr int kBitsOffset = kBarOffset + 16;  // swarpack's bits after the barriers
+static_assert(kStageBytes % 16 == 0, "bulk copies move multiples of 16 bytes");
+
+constexpr int kMaxSegment = 1024 * 128;  // positions of a segment at the largest rpb
+
+// Dynamic shared memory of segment_scan: the ring of two tile stages and
+// their barriers; swarpack adds a job's match bits and start bits (a u16
+// per 16 positions each) and one parity byte a row.
+inline int segment_smem(bool swar, int job) {
+  return kBitsOffset + (swar ? 2 * (job / kPer) * 2 + job / 128 : 0);
+}
+
+// Byte k of a thread's 16 staged bytes.
+__device__ __forceinline__ int byte_of(uint4 x, int k) {
+  const uint32_t w = k < 4 ? x.x : k < 8 ? x.y : k < 12 ? x.z : x.w;
+  return (w >> (8 * (k & 3))) & 0xFF;
+}
+
+// The 16 pairs of a thread's positions at i0 from its staged bytes x and
+// the byte after them: bit k of the result is m[i0 + k], and the value a
+// start there emits is the 16-bit half k & 1 of vals[k / 2]. Where every
+// pair lies inside the batch (i0 + 16 < n), the lookup alone decides.
+__device__ __forceinline__ uint32_t staged_pairs(const Batch& b, int i0, uint4 x, int after,
+                                                 uint32_t vals[kPer / 2]) {
+  uint32_t match = 0;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      int v;
-      bool m = pair_at<true>(b, i0 + q, d[q], q < 3 ? d[q + 1] : after, v);
-      nib |= (uint32_t)m << q;
-      if (!m) lnm = i0 + q;
+  for (int k = 0; k < kPer / 2; ++k) vals[k] = 0;
+  if (i0 + kPer < b.n) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int nx = k + 1 < kPer ? byte_of(x, k + 1) : after;
+      const uint32_t v = __ldg(b.table + ((byte_of(x, k) << 8) | nx));
+      match |= (uint32_t)(v != 0) << k;
+      vals[k >> 1] |= v << (16 * (k & 1));
     }
-    put_nibbles(mbits + 4 * j, nib, lane);
+  } else {
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) lnm = max(lnm, __shfl_xor_sync(kFull, lnm, o));
-    if (lane == 0) excl[j] = lnm;
+    for (int k = 0; k < kPer; ++k) {
+      int v;
+      const int nx = k + 1 < kPer ? byte_of(x, k + 1) : after;
+      match |= (uint32_t)pair_at<true>(b, i0 + k, byte_of(x, k), nx, v) << k;
+      vals[k >> 1] |= ((uint32_t)v & 0xFFFFu) << (16 * (k & 1));
+    }
   }
-  __syncthreads();
+  return match;
+}
 
-  // 2. exclusive max over the rows of this block (kNeg for row 0)
-  int per = (rpb + kThreads - 1) / kThreads;
-  int lo = min(rpb, (int)threadIdx.x * per);
-  int hi = min(rpb, lo + per);
-  int local = kNeg;
-  for (int j = lo; j < hi; ++j) local = max(local, excl[j]);
-  int run = block_excl_max<kThreads>(local, warp_tot);
-  for (int j = lo; j < hi; ++j) {
-    int row_last = excl[j];
-    excl[j] = run;
-    run = max(run, row_last);
+// A thread's 16 slots from its bytes x, its values, its start bits and
+// consumed bits (bit k: the start at i0 + k - 1), written with two 16-byte
+// stores.
+__device__ __forceinline__ void store_slots(uint16_t* __restrict__ slots, int i0, uint4 x,
+                                            const uint32_t vals[kPer / 2], uint32_t starts,
+                                            uint32_t consumed) {
+  uint32_t w[kPer / 2];
+#pragma unroll
+  for (int j = 0; j < kPer / 2; ++j) {
+    uint32_t s[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 2 * j + h;
+      s[h] = ((consumed >> k) & 1u) ? 0u
+             : ((starts >> k) & 1u) ? (vals[j] >> (16 * h)) & 0xFFFFu
+                                    : (uint32_t)byte_of(x, k) << 8;
+    }
+    w[j] = s[0] | (s[1] << 16);
   }
-  __syncthreads();
+  uint4* out = reinterpret_cast<uint4*>(slots + i0);
+  out[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  out[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
 
-  // 3. start bits; a position's parity is its lane's (rows and blocks
-  // start at even positions), and kNeg counts as odd
-  int half = rpb / 2;
-  for (int j = warp; j < rpb; j += kWarps) {
-    uint32_t nib = get_nibble(mbits + 4 * j, lane);
-    int row_par = excl[j] & 1;
-    int par[4];
-    if (!kSwar) {
-      // the last non-match lane at or before each of the 4, within the row
-      int last = -1, lastq[4];
+// The tile's maximum, for every thread (after block_excl_max filled warp_tot).
+__device__ __forceinline__ int all_max(const int* warp_tot) {
+  int m = kNeg;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (!((nib >> q) & 1u)) last = 4 * lane + q;
-        lastq[q] = last;
-      }
-      int incl = last;
+  for (int w = 0; w < kSegWarps; ++w) m = max(m, warp_tot[w]);
+  return m;
+}
+
+// swarpack's SWAR scan of one row pair (rows 2q and 2q + 1 of a segment,
+// their match bits me and mo at this thread's 16 lanes 16 tr + k): s[k]
+// packs lane l's codes as code_2q | code_2q+1 << 16, then 7 Hillis-Steele
+// steps, each lane taking the old value of lane l - sh (0 below sh): every
+// shuffle of a step is issued before its updates, so their latencies
+// overlap. The 8 threads of a row pair are 8 neighbouring lanes of a warp,
+// and every thread of the warp calls this.
+__device__ __forceinline__ void swar_pair(uint32_t me, uint32_t mo, int tr, uint32_t s[kPer]) {
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        int y = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl = max(incl, y);
-      }
-      int before = __shfl_up_sync(kFull, incl, 1);
-      if (lane == 0) before = -1;
+  for (int k = 0; k < kPer; ++k) {
+    const int l = kPer * tr + k;
+    s[k] = (code_of(me >> k, l) & 0x7FFFu) | (code_of(mo >> k, l) << 16);
+  }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        int lz = max(before, lastq[q]);
-        par[q] = lz >= 0 ? (lz & 1) : row_par;
+  for (int sh = 1; sh < 128; sh <<= 1) {
+    uint32_t c[kPer];
+    if (sh < kPer) {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (k >= sh) {
+          c[k] = s[k - sh];
+        } else {
+          const uint32_t up = __shfl_up_sync(kFull, s[k - sh + kPer], 1);
+          c[k] = tr >= 1 ? up : 0u;
+        }
       }
     } else {
-      int pr = j < half ? j : j - half;
-      uint32_t me = get_nibble(mbits + 4 * (2 * pr), lane);
-      uint32_t mo = get_nibble(mbits + 4 * (2 * pr + 1), lane);
-      uint32_t s[4];
+      const int o = sh / kPer;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        int l = 4 * lane + q;
-        s[q] = (code_of(me >> q, l) & 0x7FFFu) | (code_of(mo >> q, l) << 16);
-      }
-#pragma unroll
-      for (int sh = 1; sh < 128; sh <<= 1) {
-        uint32_t c[4];
-        if (sh == 1) {
-          uint32_t up = __shfl_up_sync(kFull, s[3], 1);
-          c[0] = lane >= 1 ? up : 0u;
-          c[1] = s[0];
-          c[2] = s[1];
-          c[3] = s[2];
-        } else if (sh == 2) {
-          uint32_t up2 = __shfl_up_sync(kFull, s[2], 1);
-          uint32_t up3 = __shfl_up_sync(kFull, s[3], 1);
-          c[0] = lane >= 1 ? up2 : 0u;
-          c[1] = lane >= 1 ? up3 : 0u;
-          c[2] = s[0];
-          c[3] = s[1];
-        } else {
-          int o = sh / 4;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            uint32_t up = __shfl_up_sync(kFull, s[q], o);
-            c[q] = lane >= o ? up : 0u;
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) s[q] = swar_step(s[q], c[q]);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        int f = (int)((j < half ? s[q] : s[q] >> 16) & 0xFFFFu);
-        par[q] = f > 0 ? (f & 1) : row_par;
+      for (int k = 0; k < kPer; ++k) {
+        const uint32_t up = __shfl_up_sync(kFull, s[k], o);
+        c[k] = tr >= o ? up : 0u;
       }
     }
-    uint32_t st = 0;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if (((nib >> q) & 1u) && (((4 * lane + q) & 1) ^ par[q])) st |= 1u << q;
-    }
-    put_nibbles(sbits + 4 * j, st, lane);
+    for (int k = 0; k < kPer; ++k) s[k] = swar_step(s[k], c[k]);
   }
-  __syncthreads();
-
-  // 4. slots; consumed at the block's first position waits for block_fixup
-  for (int j = warp; j < rpb; j += kWarps) {
-    int i0 = base + j * 128 + 4 * lane;
-    uint32_t st = get_nibble(sbits + 4 * j, lane);
-    uint32_t prev = (__shfl_up_sync(kFull, st, 1) >> 3) & 1u;
-    if (lane == 0) prev = j > 0 ? sbits[4 * (j - 1) + 3] >> 31 : 0u;
-    uint32_t consumed = (st << 1) | prev;
-    int d[4], after;
-    load4(b, i0, lane, d, after);
-    uint32_t s[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      int v;
-      pair_at<true>(b, i0 + q, d[q], q < 3 ? d[q + 1] : after, v);
-      s[q] = ((consumed >> q) & 1u) ? 0u
-             : ((st >> q) & 1u)     ? (uint32_t)v & 0xFFFFu
-                                    : (uint32_t)d[q] << 8;
-    }
-    *reinterpret_cast<uint2*>(slots + i0) =
-        make_uint2(s[0] | (s[1] << 16), s[2] | (s[3] << 16));
-    int last = b.n - 1;
-    if (last >= i0 && last < i0 + 4) carry_out[0] = (st >> (last - i0)) & 1u;
-  }
-  if (threadIdx.x == 0) blk_last[blockIdx.x] = sbits[4 * (rpb - 1) + 3] >> 31;
 }
 
-// consumed at each block's first position: the previous block's last start,
-// or carry_in for block 0; and carry_out = carry_in when n == 0.
-__global__ void block_fixup(uint16_t* __restrict__ slots,
-                            const int* __restrict__ blk_last, int nb,
-                            int block_positions, const int* __restrict__ carry_in,
-                            int n, int* __restrict__ carry_out) {
-  int bi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (bi < nb && (bi == 0 ? carry_in[0] != 0 : blk_last[bi - 1] != 0)) {
-    slots[bi * block_positions] = 0;
+// Publishes a job's last start for the next job (2 | start: 0 is "not yet").
+__device__ __forceinline__ void publish_last(int* flags, int job, uint32_t start) {
+  atomicExch(flags + job, 2 | (int)start);
+}
+
+// consumed at the job's first position: carry_in for job 0, else the start
+// at the previous job's last position, which that job publishes before it
+// waits for its own predecessor; the previous ticket's CTA has started, so
+// the wait ends (a flag never published ends the kernel with a fault after
+// 2**26 reads, never a hang). Where it is a start, the job's first slot
+// becomes 0.
+__device__ __forceinline__ void fix_first(const int* __restrict__ carry_in, int* flags, int job,
+                                          int job0, uint16_t* __restrict__ slots) {
+  int prev;
+  if (job == 0) {
+    prev = carry_in[0] != 0;
+  } else {
+    int w = 0;
+    for (uint32_t tries = 0; w == 0; ++tries) {
+      if (tries == (1u << 26)) __trap();
+      w = *reinterpret_cast<volatile int*>(flags + job - 1);
+    }
+    prev = w & 1;
   }
-  if (bi == 0 && n == 0) carry_out[0] = carry_in[0];
+  if (prev) slots[job0] = 0;
+}
+
+// Thread 0: the tile of a job's step (tile step % tiles of the job at job0:
+// its bytes and the 16 after it, or up to cap) into stage step % 2 by one
+// bulk copy, completing that stage's barrier.
+__device__ __forceinline__ void stage_tile(const Batch& b, uint32_t base, uint32_t bars,
+                                           int job0, int tiles, int step) {
+  const int tile0 = job0 + (step % tiles) * kSegTile;
+  const uint32_t bytes = (uint32_t)min(kStageBytes, b.cap - tile0);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  stage(base + (step & 1) * kStageBytes, b.data + tile0, bytes, bytes, bars + 8 * (step & 1));
+}
+
+// Waits for step's stage (its barrier's phase step / 2); this thread's 16
+// bytes at i0 and the byte after them (0 past cap).
+__device__ __forceinline__ void read_stage(const Batch& b, const uint8_t* smem, uint32_t bars,
+                                           int step, int i0, uint4& x, int& after) {
+  mbar_wait(bars + 8 * (step & 1), (step >> 1) & 1);
+  const uint8_t* st = smem + (step & 1) * kStageBytes + threadIdx.x * kPer;
+  x = *reinterpret_cast<const uint4*>(st);
+  after = i0 + kPer < b.cap ? st[kPer] : 0;
+}
+
+// CTAs an SM must hold (launch bounds): scan16 fits 8 in 32 registers;
+// swarpack's SWAR steps keep 32 words a thread live, so 5 in 47 (held to
+// 4, ptxas took 61 registers and rpb 8 ran 0.379-0.380 ms against
+// 0.366-0.369 at 5, on an H100 80GB HBM3 at 700 W).
+template <bool kSwar>
+__global__ void __launch_bounds__(kSegThreads, kSwar ? 5 : 8)
+    segment_scan(Batch b, Jobs J, const int* __restrict__ carry_in,
+                 uint16_t* __restrict__ slots, int* __restrict__ carry_out,
+                 int* __restrict__ flags, int* __restrict__ ticket) {
+  extern __shared__ __align__(128) uint8_t seg_smem[];
+  __shared__ int warp_tot[kSegWarps];
+  __shared__ unsigned char last_start[kSegThreads];
+  __shared__ int s_job;
+  const int t = threadIdx.x;
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(seg_smem);
+  const uint32_t bars = base + kBarOffset;
+  uint16_t* mbits = reinterpret_cast<uint16_t*>(seg_smem + kBitsOffset);
+  uint16_t* sbits = mbits + J.job / kPer;
+  uint8_t* rpar = reinterpret_cast<uint8_t*>(sbits + J.job / kPer);
+
+  if (t == 0) {
+    s_job = atomicAdd(ticket, 1);
+    mbar_init(bars);
+    mbar_init(bars + 8);
+  }
+  __syncthreads();
+  const int job = s_job;
+  const int job0 = job * J.job;
+  const int job_end = min(job0 + J.job, b.cap);
+  const int tiles = (job_end - job0 + kSegTile - 1) / kSegTile;
+  // scan16 reads each tile once; swarpack twice (its match bits, then its
+  // slots) where the job spans more than one tile, else it keeps the stage
+  const int steps = kSwar && tiles > 1 ? 2 * tiles : tiles;
+  if (t == 0) {
+    stage_tile(b, base, bars, job0, tiles, 0);
+    if (steps > 1) stage_tile(b, base, bars, job0, tiles, 1);
+  }
+  const int last = b.n - 1;
+  if (b.n == 0 && job == 0 && t == 0) carry_out[0] = carry_in[0];
+  // the last non-match before the current tile within its segment (the
+  // reset: seg0 - 1 for a segment starting at seg0, odd, "1 if none")
+  int run = job0 - 1;
+
+  if constexpr (!kSwar) {
+    uint32_t prev_last = 0;  // the start before the tile; the job's first: fix_first
+    for (int step = 0; step < tiles; ++step) {
+      const int i0 = job0 + step * kSegTile + t * kPer;
+      const bool live = i0 < job_end;
+      uint32_t vals[kPer / 2];
+      uint4 x;
+      uint32_t match = 0;
+      if (live) {
+        int after;
+        read_stage(b, seg_smem, bars, step, i0, x, after);
+        match = staged_pairs(b, i0, x, after, vals);
+      }
+      const int excl =
+          block_excl_max<kSegThreads>(live ? last_nonmatch(i0, match) : kNeg, warp_tot);
+      const int tile_max = all_max(warp_tot);
+      if (t == 0 && step + 2 < steps) stage_tile(b, base, bars, job0, tiles, step + 2);
+      const int seg0 = J.job == J.seg ? job0 : job0 + (i0 - job0) / J.seg * J.seg;
+      const uint32_t starts = live ? scan_starts(i0, match, max(max(run, excl), seg0 - 1)) : 0u;
+      run = max(run, tile_max);
+      last_start[t] = (starts >> (kPer - 1)) & 1u;
+      if (live && i0 + kPer == job_end) publish_last(flags, job, (starts >> (kPer - 1)) & 1u);
+      __syncthreads();
+      if (live) {
+        const uint32_t prev = t > 0 ? last_start[t - 1] : prev_last;
+        store_slots(slots, i0, x, vals, starts, (starts << 1) | prev);
+        if (last >= i0 && last < i0 + kPer) carry_out[0] = (starts >> (last - i0)) & 1u;
+      }
+      prev_last = last_start[kSegThreads - 1];
+    }
+  } else {
+    // 1. the job's match bits, and each row's parity of the last non-match
+    // before it in its segment
+    for (int step = 0; step < tiles; ++step) {
+      const int i0 = job0 + step * kSegTile + t * kPer;
+      const bool live = i0 < job_end;
+      uint32_t match = 0;
+      if (live) {
+        uint4 x;
+        int after;
+        uint32_t vals[kPer / 2];
+        read_stage(b, seg_smem, bars, step, i0, x, after);
+        match = staged_pairs(b, i0, x, after, vals);
+      }
+      const int excl =
+          block_excl_max<kSegThreads>(live ? last_nonmatch(i0, match) : kNeg, warp_tot);
+      const int tile_max = all_max(warp_tot);
+      if (t == 0 && step + 2 < steps) stage_tile(b, base, bars, job0, tiles, step + 2);
+      if (live) {
+        const int chunk = (i0 - job0) / kPer;
+        mbits[chunk] = (uint16_t)match;
+        if ((t & 7) == 0) {
+          const int seg0 = J.job == J.seg ? job0 : job0 + (i0 - job0) / J.seg * J.seg;
+          rpar[chunk >> 3] = (uint8_t)(max(max(run, excl), seg0 - 1) & 1);
+        }
+      }
+      run = max(run, tile_max);
+      __syncthreads();  // warp_tot's next use; the bits for step 2
+    }
+    // 2. start bits: row pair q of each segment, 8 threads a pair, gives
+    // row q its low fields and row q + rpb / 2 its high fields
+    const int rpb = J.seg / 128;
+    const int half = rpb / 2;
+    const int units = (job_end - job0) / J.seg * half;
+    const int tr = t & 7;
+    for (int u0 = 0; u0 < units; u0 += kSegThreads / 8) {
+      const int u = u0 + (t >> 3);
+      const bool mine = u < units;
+      const int r0 = mine ? u / half * rpb : 0;
+      const int q = mine ? u % half : 0;
+      uint32_t s[kPer];
+      swar_pair(mbits[(r0 + 2 * q) * 8 + tr], mbits[(r0 + 2 * q + 1) * 8 + tr], tr, s);
+      if (mine) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + q + h * half;
+          const uint32_t m = mbits[row * 8 + tr];
+          const int rp = rpar[row];
+          uint32_t st = 0;
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) {
+            const int f = (int)((h ? s[k] >> 16 : s[k]) & 0xFFFFu);
+            const int par = f > 0 ? (f & 1) : rp;
+            if (((m >> k) & 1u) && ((k & 1) ^ par)) st |= 1u << k;
+          }
+          sbits[row * 8 + tr] = (uint16_t)st;
+        }
+      }
+    }
+    __syncthreads();
+    const int chunks = (job_end - job0) / kPer;
+    if (t == 0) {
+      publish_last(flags, job, (uint32_t)sbits[chunks - 1] >> (kPer - 1));
+      if (last >= job0 && last < job_end) {
+        carry_out[0] = ((uint32_t)sbits[(last - job0) / kPer] >> ((last - job0) % kPer)) & 1u;
+      }
+    }
+    // 3. the slots, each start's pair looked up again
+    for (int k = 0; k < tiles; ++k) {
+      const int step = tiles > 1 ? tiles + k : 0;
+      const int i0 = job0 + k * kSegTile + t * kPer;
+      const bool live = i0 < job_end;
+      uint4 x;
+      int after = 0;
+      if (live) read_stage(b, seg_smem, bars, step, i0, x, after);
+      if (tiles > 1) {
+        __syncthreads();  // the stage is read: it may take step + 2
+        if (t == 0 && step + 2 < steps) stage_tile(b, base, bars, job0, tiles, step + 2);
+      }
+      if (!live) continue;
+      const int chunk = (i0 - job0) / kPer;
+      const uint32_t starts = sbits[chunk];
+      const uint32_t prev = chunk > 0 ? (uint32_t)sbits[chunk - 1] >> (kPer - 1) : 0u;
+      uint32_t vals[kPer / 2];
+#pragma unroll
+      for (int j = 0; j < kPer / 2; ++j) vals[j] = 0;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        int v = 0;
+        if ((starts >> j) & 1u) {
+          pair_at<true>(b, i0 + j, byte_of(x, j), j + 1 < kPer ? byte_of(x, j + 1) : after, v);
+        }
+        vals[j >> 1] |= ((uint32_t)v & 0xFFFFu) << (16 * (j & 1));
+      }
+      store_slots(slots, i0, x, vals, starts, (starts << 1) | prev);
+    }
+  }
+  if (t == 0) fix_first(carry_in, flags, job, job0, slots);
 }
 
 template <bool kSwar>
-int launch_block_scan(const Batch& b, int rpb, const int* carry_in,
-                      uint16_t* slots, int* carry_out, int* blk_last,
-                      cudaStream_t s) {
-  int block_positions = rpb * 128;
-  int nb = b.cap / block_positions;
-  size_t smem = (size_t)rpb * 9 * sizeof(uint32_t);
-  block_scan<kSwar><<<nb, kThreads, smem, s>>>(b, rpb, slots, carry_out, blk_last);
-  int err = (int)cudaGetLastError();
+int launch_segment_scan(const Batch& b, int rpb, const int* carry_in, uint16_t* slots,
+                        int* carry_out, int* scratch, cudaStream_t s) {
+  const Jobs J = jobs_of(b.cap, rpb);
+  // the largest shared memory any rpb takes, so a graph captured at one rpb
+  // replays; then the jobs' flags and the ticket
+  int err = (int)cudaFuncSetAttribute(segment_scan<kSwar>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      segment_smem(kSwar, kMaxSegment));
+  if (!err) err = (int)cudaMemsetAsync(scratch, 0, (J.count + 1) * sizeof(int), s);
   if (err) return err;
-  block_fixup<<<(nb + 255) / 256, 256, 0, s>>>(slots, blk_last, nb, block_positions,
-                                                carry_in, b.n, carry_out);
+  segment_scan<kSwar><<<J.count, kSegThreads, segment_smem(kSwar, J.job), s>>>(
+      b, J, carry_in, slots, carry_out, scratch, scratch + J.count);
   return (int)cudaGetLastError();
 }
 
@@ -567,18 +800,37 @@ __global__ void __launch_bounds__(kThreads)
 
 // swar: 0 scan16, 1 swarpack. Arguments as blt_flat_pass (flat_bpe.cu),
 // plus rpb, the Pallas block's rows (a multiple of 8 up to 1024, cap a
-// multiple of rpb * 128, checked by the wrapper); scratch: cap / (rpb * 128)
-// int32. Returns the first nonzero cudaGetLastError() of the launches.
+// multiple of rpb * 128, checked by the wrapper); scratch: jobs + 1 int32
+// (jobs_of; tools_cuda.block_scan_plan), the jobs' flags and the ticket,
+// zeroed on the stream before the launch. Returns the first nonzero CUDA
+// error of the memset and the launch.
 extern "C" int blt_block_scan(int swar, const void* data, int cap, int n,
                               int next_byte, const void* table,
                               const void* carry_in, void* slots,
                               void* carry_out, void* scratch, int rpb,
                               void* stream) {
   Batch b{(const uint8_t*)data, (const uint16_t*)table, cap, n, next_byte};
-  auto launch = swar ? launch_block_scan<true> : launch_block_scan<false>;
+  auto launch = swar ? launch_segment_scan<true> : launch_segment_scan<false>;
   return launch(b, rpb, (const int*)carry_in, (uint16_t*)slots, (int*)carry_out,
                 (int*)scratch, (cudaStream_t)stream);
 }
+
+// CTAs of scan16's and swarpack's kernel that one SM of the current device
+// holds at once at rpb 1024 (swarpack's largest shared memory), as the CUDA
+// runtime computes them. Returns the first nonzero CUDA error.
+template <bool kSwar>
+int segment_ctas_per_sm(int* ctas) {
+  int err = (int)cudaFuncSetAttribute(segment_scan<kSwar>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      segment_smem(kSwar, kMaxSegment));
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, segment_scan<kSwar>, kSegThreads,
+                                                            segment_smem(kSwar, kMaxSegment));
+}
+
+extern "C" int blt_scan16_ctas_per_sm(int* ctas) { return segment_ctas_per_sm<false>(ctas); }
+
+extern "C" int blt_swarpack_ctas_per_sm(int* ctas) { return segment_ctas_per_sm<true>(ctas); }
 
 // noscan2 (T10): arguments as blt_block_scan, scratch 2 * cap / (rpb * 128)
 // int32. Returns the first nonzero cudaGetLastError() of the launches.

@@ -163,19 +163,24 @@ def load() -> ctypes.CDLL:
 
 
 # the occupancy query of each one-launch look-back kernel, by the source
-# that holds it
+# that holds it, and of the Hopper designs of T13's chain and T6's two
+# block-local scans
 CTAS_PER_SM = {
     "token_pass_gap": "blt_token_pass_gap_ctas_per_sm",
     "token_pass": "blt_token_pass_ctas_per_sm",
     "flat_bpe": "blt_flat_packed_ctas_per_sm",
+    "lookup_chain": "blt_lookup_chain_ctas_per_sm",
+    "scan16": "blt_scan16_ctas_per_sm",
+    "swarpack": "blt_swarpack_ctas_per_sm",
 }
 
 
-def ctas_per_sm(stem: str) -> int:
-    """CTAs per SM of the current device of the look-back kernel in
-    ``csrc/<stem>.cu``, as the CUDA runtime's occupancy query gives them."""
+def ctas_per_sm(kernel: str) -> int:
+    """CTAs per SM of the current device of ``kernel`` (a key of
+    ``CTAS_PER_SM``: the look-back kernel of ``csrc/<stem>.cu``, or T13's
+    and T6's kernels), as the CUDA runtime's occupancy query gives them."""
     n = ctypes.c_int(0)
-    check(getattr(load(), CTAS_PER_SM[stem])(ctypes.byref(n)), CTAS_PER_SM[stem])
+    check(getattr(load(), CTAS_PER_SM[kernel])(ctypes.byref(n)), CTAS_PER_SM[kernel])
     return n.value
 
 

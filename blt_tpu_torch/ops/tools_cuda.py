@@ -14,7 +14,9 @@ These wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
   ``tools/exp_mp_ablate.py``); T4's other variants are flag sets of
   ``multipass_cuda.token_pass``;
 - ``block_scan``: T6's scan16 and swarpack, the flat pass with its parity
-  scan run block by block (``scan_parts.cu`` on ``flat_pass.cuh``;
+  scan run block by block, one launch in which each CTA streams the whole
+  segments of a job through a ring of bulk-copied tiles
+  (``block_scan_plan``; ``scan_parts.cu`` on ``flat_pass.cuh``;
   ``tools/exp_scan.py``); T6's other variants are flag sets of
   ``bpe_cuda.flat_encode_slots``;
 - ``row_scan``: T10's noscan2, the flat pass with the scan's row phase alone
@@ -25,7 +27,9 @@ These wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
   in bf16 pairs (``scan_parts.cu``; ``tools/exp_bf16scan.py``);
 - ``lookup``: T13, five designs of a pair -> value lookup over a packed
   table, with the tool's chain link fused in (``lookup.cu``;
-  ``tools/exp_gather.py::make_pallas``);
+  ``tools/exp_gather.py::make_pallas``); ``chain``, the original's
+  production lookup, reads one word of a table staged by bulk copies an
+  element (``lookup_chain_plan``);
 - ``pmxu``: T14, the same lookup as a one-hot matrix product on the tensor
   cores (Hopper ``wgmma``) in int8 or bf16, the link fused in, the planes
   staged from their shared-memory image ``mxu_image`` (``onehot_mma.cu``;
@@ -63,7 +67,7 @@ INT32_MIN = -(2**31)
 MIX_DTYPES = {"int32": torch.int32, "int16": torch.int16, "int8": torch.int8}
 MIX_REPS = 8  # the tool's OPS_REPS
 BLOCK_SCANS = ("scan16", "swarpack")  # in blt_block_scan's order
-MAX_RPB = 1024  # scan_parts.cu keeps up to 36 bytes of shared memory per row
+MAX_RPB = 1024  # swarpack keeps 4 bytes of bits and a parity byte a row of a segment
 MASK_SCANS = ("i32", "bf16")  # in blt_mask_scan's order
 LOOKUPS = ("chain", "g2d", "g2d_flat", "gax0", "g8bit")  # in blt_lookup's order
 # T14's dtype (make_pmxu's name) -> (its row, the planes' type, the offset),
@@ -339,6 +343,25 @@ def block_scan_plain(
     return flat_emit_plain(d, n, val, start.reshape(-1), carry)
 
 
+# segment_scan's tile (scan_parts.cu's kSegTile: kSegThreads x 16
+# positions): a job holds as many whole segments as fit in one, at least one
+BLOCK_SCAN_TILE = 4096
+
+
+def block_scan_plan(cap: int, rpb: int) -> dict:
+    """The launch ``block_scan`` makes for ``cap`` positions in segments of
+    ``rpb`` rows (``scan_parts.cu``'s ``jobs_of``): the segment's positions
+    (``segment``), a job's (``job``: ``max(1, BLOCK_SCAN_TILE // segment)``
+    segments), the tiles of a full job (``tiles``), the jobs (``jobs``, one
+    CTA each, taken from a ticket; the last may hold fewer segments) and the
+    int32 scratch (``scratch``: a flag a job, then the ticket)."""
+    seg = rpb * LANES
+    job = max(1, BLOCK_SCAN_TILE // seg) * seg
+    jobs = -(-cap // job)
+    return {"segment": seg, "job": job, "tiles": -(-job // BLOCK_SCAN_TILE), "jobs": jobs,
+            "scratch": jobs + 1}
+
+
 def block_scan(
     variant: str,
     data: torch.Tensor,
@@ -349,7 +372,8 @@ def block_scan(
     rpb: int = 1024,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """scan16 or swarpack: kernel on CUDA tensors, plain on CPU tensors;
-    counted under ``launches["scan_parts_<variant>"]``. Arguments and
+    counted under ``launches["scan_parts_<variant>"]`` (one launch after one
+    memset of its flags and ticket, ``block_scan_plan``). Arguments and
     results as ``block_scan_plain``; ``carry_in`` is read on the device."""
     on_cuda = check_flat(data, n, next_byte, table, carry_in)
     _check_block_scan(variant, data.numel(), rpb)
@@ -359,14 +383,14 @@ def block_scan(
     dev = data.device
     slots = torch.empty(cap, dtype=torch.uint16, device=dev)
     carry_out = torch.empty((1, 1), dtype=torch.int32, device=dev)
-    blk_last = torch.empty(cap // (rpb * LANES), dtype=torch.int32, device=dev)
+    scratch = torch.empty(block_scan_plan(cap, rpb)["scratch"], dtype=torch.int32, device=dev)
     carry_in = carry_in.contiguous()
     lib = _cuda_build.load()
     with torch.cuda.device(dev):
         err = lib.blt_block_scan(
             BLOCK_SCANS.index(variant), data.data_ptr(), cap, n, next_byte,
             table.data_ptr(), carry_in.data_ptr(), slots.data_ptr(), carry_out.data_ptr(),
-            blk_last.data_ptr(), rpb, _stream(dev),
+            scratch.data_ptr(), rpb, _stream(dev),
         )
     _cuda_build.check(err, f"scan_parts_{variant}")
     launches[f"scan_parts_{variant}"] += 1
@@ -522,6 +546,28 @@ def lookup_plain(variant: str, tbl: torch.Tensor, p: torch.Tensor, c=None) -> to
         return flat[(q & 4095).long()]
     w = flat[(q >> 1).long()]
     return torch.where((q & 1) == 1, (w >> 16) & 0xFFFF, w & 0xFFFF)
+
+
+# chain_kernel's shape (lookup.cu's kLookupThreads, kChainPerCta, kUnroll):
+# CTAs of 1024 threads, each taking at least CHAIN_PER_CTA elements, at most
+# one per SM; a thread takes CHAIN_UNROLL groups of 4 elements a step
+LOOKUP_THREADS = 1024
+CHAIN_PER_CTA = 8 * 1024
+CHAIN_UNROLL = 4
+
+
+def lookup_chain_plan(n: int, sms: int = 132) -> dict:
+    """The launch ``lookup("chain", ...)`` makes for ``n`` elements on a card
+    of ``sms`` SMs: its CTAs (``ctas``), the grid's threads (``stride``:
+    thread g takes the groups of 4 elements g + (s * CHAIN_UNROLL + u) *
+    stride, for each step s and u < CHAIN_UNROLL, below ``groups``), the
+    most steps a thread takes (``steps``) and the table bytes the CTAs
+    stage (``staged_bytes``, 128 KiB each)."""
+    groups = n // 4
+    ctas = min(sms, max(1, -(-n // CHAIN_PER_CTA)))
+    stride = ctas * LOOKUP_THREADS
+    return {"ctas": ctas, "stride": stride, "groups": groups,
+            "steps": -(-groups // (stride * CHAIN_UNROLL)), "staged_bytes": ctas * 4 * 256 * LANES}
 
 
 def lookup(variant: str, tbl: torch.Tensor, p: torch.Tensor, c=None) -> torch.Tensor:

@@ -10,10 +10,15 @@ int32 word, i32[256, 128] (the original's ``build_table``). Ten rows, i32
 (rows, 128) -> i32 (rows, 128), in the original's order; the first seven
 are hand-written CUDA kernels (``route: "cuda"``):
 
-- ``chain``: the original's 256-segment select chain as written, over the
-  table staged in shared memory (the TPU's baseline design);
-- ``g2d``: a gather from the table staged in shared memory, on a persistent
-  grid of one block per SM;
+- ``chain``: the Hopper design of the original's production lookup (its
+  body is a 256-segment select chain, the TPU's way round a missing dynamic
+  gather): one shared-memory read an element from the table staged by
+  ``cp.async.bulk``, the first p and c loads in flight while it arrives,
+  four groups of 4 elements a thread a step, the grid sized to the work
+  (``tools_cuda.lookup_chain_plan``); timed beside ``g2d``, the same read
+  from a table staged without bulk copies;
+- ``g2d``: a gather from the table staged in shared memory by a loop of
+  16-byte copies, on a persistent grid of one block per SM;
 - ``g2d_flat``: a gather from the table in device memory (``__ldg``);
 - ``gax0``: the probe ``packed[p >> 8, lane]``, from shared memory;
 - ``g8bit``: the probe ``tbl8[(q >> 7) & 31, q & 127]`` (q = p & 4095) over

@@ -23,6 +23,12 @@ frequent pairs. The first four are flag sets of K2's own pass
   computes). The original could not lower it on the TPU and left it out of
   its default list; here it is in.
 
+scan16 and swarpack are one launch each (after one memset of its flags and
+ticket): a CTA takes a job of whole segments of ``--rpb`` rows from a ticket
+and streams its tiles in order through two stages of bulk-copied bytes,
+the running maximum reset at every segment start; swarpack keeps the job's
+match bits and scans its row pairs before it emits; each job publishes its
+last start for the next job's first slot (``tools_cuda.block_scan_plan``).
 The original's CHD probe is the dense wire table here, as in K2. Each
 variant is timed as launched and as a CUDA-graph replay beside its plain
 version and the byte bound. One JSON line, as ``exp_chain``, plus the

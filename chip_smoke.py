@@ -137,22 +137,31 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def lookback_resources() -> dict:
-    """ptxas's figures for the three one-launch look-back kernels of the
-    main path (K3, K4 and the fused K2), with the CTAs per SM the CUDA
-    runtime's occupancy query gives for each."""
+# (label, source stem, a piece of the kernel's mangled name, its key in
+# _cuda_build.CTAS_PER_SM): the main path's three one-launch look-back
+# kernels, and the Hopper designs of T13's chain and T6's scan16 and
+# swarpack (T6's CTAs per SM at rpb 1024, swarpack's largest shared memory)
+LOOK_BACK_KERNELS = (("K3", "token_pass_gap", "tile_lookback", "token_pass_gap"),
+                     ("K4", "token_pass", "tile_lookback", "token_pass"),
+                     ("K2_packed", "flat_bpe", "flat_packed_kernel", "flat_bpe"))
+REDESIGNED_TOOL_KERNELS = (("lookup_chain", "lookup", "chain_kernel", "lookup_chain"),
+                           ("scan16", "scan_parts", "segment_scanILb0E", "scan16"),
+                           ("swarpack", "scan_parts", "segment_scanILb1E", "swarpack"))
+
+
+def kernel_figures(kernels) -> dict:
+    """ptxas's figures (registers, spills) for each kernel of ``kernels``,
+    with the CTAs per SM the CUDA runtime's occupancy query gives for it."""
     from blt_tpu_torch.ops import _cuda_build
 
     out = {}
-    for label, stem, match in (("K3", "token_pass_gap", "tile_lookback"),
-                               ("K4", "token_pass", "tile_lookback"),
-                               ("K2_packed", "flat_bpe", "flat_packed_kernel")):
+    for label, stem, match, key in kernels:
         found = {name: r for name, r in _cuda_build.kernel_resources(stem).items()
                  if match in name}
         if _cuda_build.build_seconds is not None and len(found) != 1:
             fail(f"ptxas reported {len(found)} kernels matching {match} in {stem}.cu")
         out[label] = {**next(iter(found.values()), {}),
-                      "ctas_per_sm": _cuda_build.ctas_per_sm(stem)}
+                      "ctas_per_sm": _cuda_build.ctas_per_sm(key)}
     return out
 
 
@@ -953,6 +962,9 @@ def phase_process(inp, m500, merges500):
           "fresh_process": startup})
 
 
+# the card tests' rules for T6's segment cases: (a, b) and (a, a) rules,
+# (x, a) none
+SEGMENT_MERGES = {(97, 98): 256, (98, 99): 257, (99, 97): 258, (97, 97): 259, (255, 255): 0xFFFF}
 # kernel rows of the device-rate path: name -> (CUDA source, the Pallas
 # function it replaces, its file); phase 7 gives their numbers
 MEASURED_ROWS = {
@@ -1059,6 +1071,10 @@ def phase_measure(corpus, flat_cases, token_cases, err):
         exp_sweep,
     )
 
+    from blt_tpu_torch.merges import MergeTable
+    from blt_tpu_torch.ops.tables import wire_table
+    from blt_tpu_torch.tools._common import time_chain
+
     dev = torch.device("cuda", 0)
     for k in MEASURED_ROWS:
         err[k] = 0
@@ -1116,7 +1132,7 @@ def phase_measure(corpus, flat_cases, token_cases, err):
         # T6; the block-local variants at each rows_per_block that tiles the batch
         for v, flags in exp_scan.VARIANTS.items():
             local = flags is None
-            for rpb in (8, 1024) if local else (exp_scan.RPB,):
+            for rpb in (8, 16, 1024) if local else (exp_scan.RPB,):
                 if local and data.numel() % (rpb * 128):
                     continue
                 hold(f"scan_parts_{v}", exp_scan.scan_parts(v, data, n, nb, table, c, rpb),
@@ -1140,6 +1156,41 @@ def phase_measure(corpus, flat_cases, token_cases, err):
                 hold("chd_noscan2", exp_chd.chd_pass("noscan2", data, n, nb, table, c, rpb),
                      exp_chd.chd_pass_plain("noscan2", data, n, nb, table, c, rpb),
                      f"{what} rpb={rpb}")
+    # T6's scan16 and swarpack on the card tests' segment cases: rpb 8, 16
+    # and 1024; n at the capacity, 3001 and 1; carry 0 and 1; next_byte -1
+    # and 98; buffers whose every segment ends in a start (its last row all
+    # (a, a) after (x, a) at an even position, its last pair (a, b) a rule:
+    # in swarpack too) and an all-match run; then chains of 4 replayed from
+    # a CUDA graph
+    seg_table = wire_table(MergeTable.build(SEGMENT_MERGES).dense, dev)
+    seg_rng = np.random.default_rng(30)
+    for rpb in (8, 16, 1024):
+        seg = rpb * 128
+        text = seg_rng.choice(np.frombuffer(b"aabbcc \xffab\x00hpx", np.uint8),
+                              (64 if rpb < 1024 else 3) * seg).astype(np.uint8)
+        for s0 in range(seg, text.size, seg):
+            text[s0 - 130] = ord("x")
+            text[s0 - 129 : s0] = ord("a")
+            text[s0] = ord("b")
+        for name, buf in (("segments end in starts", text),
+                          ("all match", np.full(3 * seg, 97, np.uint8))):
+            d = torch.from_numpy(buf).to(dev)
+            for n, carry, nb in itertools.product((d.numel(), 3001, 1), (0, 1), (-1, 98)):
+                c = torch.tensor([[carry]], dtype=torch.int32, device=dev)
+                for v in tools_cuda.BLOCK_SCANS:
+                    hold(f"scan_parts_{v}", tools_cuda.block_scan(v, d, n, nb, seg_table, c, rpb),
+                         tools_cuda.block_scan_plain(v, d, n, nb, seg_table, c, rpb),
+                         f"{name}, rpb={rpb} n={n} carry={carry} next_byte={nb}")
+        d = torch.from_numpy(text[: 16 * seg]).to(dev)
+        c = torch.ones((1, 1), dtype=torch.int32, device=dev)
+        for v in tools_cuda.BLOCK_SCANS:
+            expect = exp_scan.chain_plain(v, d, d.numel() - 3, 98, seg_table, c, 4, rpb)
+            replay = time_chain(lambda v=v: exp_scan.chain(v, d, d.numel() - 3, 98, seg_table, c,
+                                                           4, rpb), 4, d.numel(), dev, expect)
+            if not replay["exact"] or replay["graph"] is None:
+                fail(f"scan_parts_{v}: a chain of 4 at rpb {rpb} does not replay exactly")
+            hold(f"scan_parts_{v}", exp_scan.chain(v, d, d.numel() - 3, 98, seg_table, c, 4, rpb),
+                 expect, f"rpb={rpb} chained 4")
     # T9: in-block and out-of-block indices, 16 MiB of each; the slab path
     # at 8 columns (rpb 8, 16, 1024, 2048) and 4 (4096), the direct path
     # (16384)
@@ -1194,6 +1245,21 @@ def phase_measure(corpus, flat_cases, token_cases, err):
                  what)
             hold(f"gather_{v}", exp_gather.chained(v, tbl, p, 3),
                  exp_gather.chained_plain(v, tbl, p, 3), f"{what} k=3")
+    # T13's chain at the card tests' 1000 and 4096 rows (4 and 16 CTAs'
+    # worth of elements), and a chain of 4 replayed from a CUDA graph
+    for rows, (lo, hi) in itertools.product((1000, 4096), ((0, 65536), (-(2**31), 2**31 - 1))):
+        p = torch.from_numpy(rng.integers(lo, hi, (rows, 128), dtype=np.int64)
+                             .astype(np.int32)).to(dev)
+        what = f"{rows} rows, p in [{lo}, {hi})"
+        hold("gather_chain", tools_cuda.lookup("chain", tables["packed"], p),
+             tools_cuda.lookup_plain("chain", tables["packed"], p), what)
+        hold("gather_chain", exp_gather.chained("chain", tables["packed"], p, 3),
+             exp_gather.chained_plain("chain", tables["packed"], p, 3), f"{what} k=3")
+    expect = exp_gather.chained_plain("chain", tables["packed"], p, 4)
+    replay = time_chain(lambda: (exp_gather.chained("chain", tables["packed"], p, 4),), 4,
+                        4 * p.numel(), dev, (expect,))
+    if not replay["exact"] or replay["graph"] is None:
+        fail("gather_chain: a chain of 4 does not replay exactly")
     # T14: the same two ranges over 1.5 Mi positions (two pieces of the plain
     # version), once and chained 3 times, at tiles 512, 48, 16 and 80 (all but
     # 512 end inside a 64-row warpgroup tile, whose rows past the tile are
@@ -1343,6 +1409,14 @@ def main() -> int:
     if slab_sass is not None and (len(slab_sass) != 2
                                   or not all(sum(c.values()) for c in slab_sass.values())):
         fail(f"T9's slab kernels hold no TMA load: {slab_sass}")
+    # T13's chain stages its table, T6's scan16 and swarpack their tiles, by
+    # bulk copies ("12chain_kernel": the length-prefixed mangled name, not
+    # chain.cu's widen_chain_kernel)
+    staged_sass = {**(_cuda_build.sass_counts("12chain_kernel", ("UBLKCP",)) or {}),
+                   **(_cuda_build.sass_counts("segment_scan", ("UBLKCP",)) or {})}
+    if ring_sass is not None and (len(staged_sass) != 3
+                                  or not all(c["UBLKCP"] for c in staged_sass.values())):
+        fail(f"T13's chain or T6's segment scans hold no bulk copy: {staged_sass}")
     emit({"phase": "build", "seconds": seconds,
           "compiled": _cuda_build.build_seconds is not None,
           "library": os.path.relpath(lib, ROOT),
@@ -1350,7 +1424,9 @@ def main() -> int:
           "chain": {"ptxas": _cuda_build.kernel_resources("chain"), "sass": ring_sass},
           "subgather": {"ptxas": _cuda_build.kernel_resources("subgather"), "sass": slab_sass},
           "token_pass_gap": {"ptxas": _cuda_build.kernel_resources("token_pass_gap")},
-          "look_back_kernels": lookback_resources()})
+          "look_back_kernels": kernel_figures(LOOK_BACK_KERNELS),
+          "redesigned_tool_kernels": {"resources": kernel_figures(REDESIGNED_TOOL_KERNELS),
+                                      "sass": staged_sass}})
 
     rng = np.random.default_rng(args.seed)
     corpus = make_corpus(rng, max(args.size_mib, 256) * MIB)

@@ -9,6 +9,8 @@ there:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -614,3 +616,70 @@ def test_one_hot_chain_replays_from_a_cuda_graph(cuda):
         timing = _common.time_chain(lambda: (exp_gather.chained_mxu(dtype, planes, p, 4),), 4,
                                     4 * p.numel(), cuda, (expect,))
         assert timing["exact"] and timing["graph"] is not None, dtype
+
+
+def test_chain_lookup_equals_plain_version(cuda):
+    """T13's chain (one read of a table staged by bulk copies an element,
+    the grid sized to the work) on p inside and outside [0, 65536) at 1000
+    and 4096 rows, once and chained, and a captured chain replayed."""
+    rng = np.random.default_rng(26)
+    _, packed = exp_gather.build_table()
+    tbl = torch.from_numpy(packed).to(cuda)
+    tools_cuda.reset_launches()
+    for rows in (1000, 4096):
+        for lo, hi in ((0, 65536), (-(2**31), 2**31 - 1)):
+            p = torch.from_numpy(rng.integers(lo, hi, (rows, 128), dtype=np.int64)
+                                 .astype(np.int32)).to(cuda)
+            assert torch.equal(tools_cuda.lookup("chain", tbl, p),
+                               tools_cuda.lookup_plain("chain", tbl, p)), (rows, lo)
+            assert torch.equal(exp_gather.chained("chain", tbl, p, 3),
+                               exp_gather.chained_plain("chain", tbl, p, 3)), (rows, lo)
+    assert tools_cuda.launches["gather_chain"] == 16
+    p = torch.from_numpy(rng.integers(0, 65536, (4096, 128)).astype(np.int32)).to(cuda)
+    expect = exp_gather.chained_plain("chain", tbl, p, 4)
+    timing = _common.time_chain(lambda: (exp_gather.chained("chain", tbl, p, 4),), 4,
+                                4 * p.numel(), cuda, (expect,))
+    assert timing["exact"] and timing["graph"] is not None
+
+
+def _segment_buffer(rpb, segments, seed):
+    """Random text in which every segment of rpb rows ends in a start (for
+    scan16 and swarpack alike): its last row all (a, a) matches after (x, a)
+    at an even position, and its last pair (a, b) a rule."""
+    seg = rpb * 128
+    data = _text(seed, segments * seg, b"aabbcc \xffab\x00hpx")
+    for s in range(seg, segments * seg, seg):
+        data[s - 130] = ord("x")
+        data[s - 129 : s] = ord("a")
+        data[s] = ord("b")
+    return data
+
+
+def test_block_scans_equal_plain_version_on_segment_cases(cuda):
+    """T6's scan16 and swarpack (one launch, a CTA per job of whole
+    segments) at rows_per_block 8, 16 and 1024: n at the capacity, 3001
+    and 1, carry 0 and 1, next_byte -1 and 98, segments that end in a
+    start, and an all-match run; then chains replayed from a CUDA graph."""
+    table = wire_table(MergeTable.build(MERGES).dense, cuda)
+    tools_cuda.reset_launches()
+    for rpb in (8, 16, 1024):
+        for data in (_segment_buffer(rpb, 64 if rpb < 1024 else 3, rpb),
+                     np.full(3 * rpb * 128, 97, np.uint8)):
+            d = torch.from_numpy(data).to(cuda)
+            cap = d.numel()
+            for n, carry, nb in itertools.product((cap, 3001, 1), (0, 1), (-1, 98)):
+                c = torch.tensor([[carry]], dtype=torch.int32, device=cuda)
+                for variant in tools_cuda.BLOCK_SCANS:
+                    got = tools_cuda.block_scan(variant, d, n, nb, table, c, rpb)
+                    assert _equal(got, tools_cuda.block_scan_plain(variant, d, n, nb, table, c,
+                                                                   rpb)), (variant, rpb, n, carry, nb)
+    assert all(tools_cuda.launches[f"scan_parts_{v}"] == 72 for v in tools_cuda.BLOCK_SCANS)
+    for rpb in (8, 16, 1024):
+        d = torch.from_numpy(_segment_buffer(rpb, 16, 30 + rpb)).to(cuda)
+        c = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+        for variant in tools_cuda.BLOCK_SCANS:
+            expect = exp_scan.chain_plain(variant, d, d.numel() - 3, 98, table, c, 4, rpb)
+            timing = _common.time_chain(
+                lambda variant=variant: exp_scan.chain(variant, d, d.numel() - 3, 98, table, c, 4,
+                                                       rpb), 4, d.numel(), cuda, expect)
+            assert timing["exact"] and timing["graph"] is not None, (variant, rpb)
