@@ -48,10 +48,12 @@
 // writes u8 starts: per block, start = m && ((i - lz) & 1), lz the last
 // zero of the mask at or before i within the block, -1 if none (a
 // block-local scan with carry 0; blocks are even-sized, so i's parity is its
-// lane's). The int32 and bf16 variants compute this one function; bf16 runs
-// the lane scan on lane indices (-1..127, exact in bf16) two lanes to a
-// 32-bit register with __hmax2, the card's analogue of the tool's question
-// whether 16-bit values packed two to a lane scan faster.
+// lane's, and "none" acts as a zero just before the block). The int32 and
+// bf16 variants compute this one function and share every step but the lane
+// scan inside a thread: bf16 runs it on lane indices (-1..127, exact in
+// bf16) two lanes to a 32-bit register with __hmax2, the card's analogue of
+// the tool's question whether 16-bit values packed two to a lane scan
+// faster; int32 runs scan_starts.
 //
 // Bound on the H100: the bytes. The flat variants read 1 byte and write 2
 // bytes of slots per position plus the 128 KB table (192 MiB at 64 MiB,
@@ -96,16 +98,33 @@
 // at 8 CTAs an SM, takes 0.091). swarpack adds its SWAR steps (7 steps of
 // 16 lanes a thread a row pair) and its second pass.
 //
-// Design of the others: block-local, so one CUDA block of 256 threads takes
+// Design of noscan2: block-local, so one CUDA block of 256 threads takes
 // one Pallas block of rpb rows, a warp per row and 4 lanes per thread, in
-// steps with shared memory between them:
-//   noscan2: three launches on one stream. row_carry_map: a warp per block
-//   records the block's carry out for carry in 0 and for 1 (only the row of
-//   its last position can depend on it, through the sentinel);
-//   walk_carries: one thread walks the blocks from carry_in; row_scan_emit:
-//   each block's starts (16 bytes per row) and slots with its carry.
-//   mask_scan (20 bytes per row): the match bits and each row's last zero,
-//   the exclusive max over the rows, then the starts with 4-byte stores.
+// three launches on one stream. row_carry_map: a warp per block records the
+// block's carry out for carry in 0 and for 1 (only the row of its last
+// position can depend on it, through the sentinel); walk_carries: one
+// thread walks the blocks from carry_in; row_scan_emit: each block's starts
+// (16 bytes per row, in shared memory) and slots with its carry.
+//
+// Design of mask_scan (T12's Hopper design): one launch after one
+// cudaMemsetAsync of the tiles' status words and a ticket. The grid is of
+// tiles, not of blocks: a CTA of 256 threads takes a tile of kMaskTile
+// positions from the ticket, and each thread owns one group of 16
+// consecutive positions in each of the tile's kMaskUnroll sub-tiles of 4096,
+// every load and store a coalesced 16-byte vector, all loads issued before
+// any is used. A block's start s is a sentinel, a zero at s - 1, so the
+// scan never needs to know where blocks end: within a thread scan_starts
+// (or the bf16 lane scan), across the tile the exclusive maximum over the
+// sub-tiles in order (a warp scan each, one barrier, the warps' totals),
+// across tiles max_lookback.cuh's decoupled look-back. Only a last zero's
+// parity matters, so a tile publishes one bit, the parity of its last zero
+// or sentinel (or an aggregate when it holds neither), and positions need
+// only tile-local indices: any size the wrapper takes. A tile that opens a
+// block needs no carry: it publishes at once and walks nowhere, so no
+// look-back crosses a block's start. The memset puts the status words back
+// on the stream, so a captured chain replays. tools_cuda.mask_scan_plan
+// mirrors the grid; tests/test_torch_mask_scan.py plays the protocol on the
+// host.
 
 #include <cuda_bf16.h>
 
@@ -676,124 +695,195 @@ int launch_row_scan(const Batch& b, int rpb, const int* carry_in,
   return (int)cudaGetLastError();
 }
 
-// --- T12: the block-local parity scan of a mask ---------------------------
+// --- T12: the block-local parity scan of a mask, tiles over CTAs ----------
 
-// Each of a thread's 4 lanes' last zero lane at or before it within the
-// row, -1 if none (nib: bit q is lane 4 * lane + q's match bit).
-template <bool kBf16>
-__device__ __forceinline__ void lane_scan(uint32_t nib, int lane, int lz[4]);
+constexpr int kMaskUnroll = 4;                    // groups of 16 a thread, one a sub-tile
+constexpr int kMaskSub = kThreads * kPer;         // positions of a sub-tile
+constexpr int kMaskTile = kMaskUnroll * kMaskSub;  // positions of a tile
 
-template <>
-__device__ __forceinline__ void lane_scan<false>(uint32_t nib, int lane, int lz[4]) {
-  int last = -1;
+// Bit k set where byte k of the 16 is nonzero.
+__device__ __forceinline__ uint32_t nonzero16(uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t bits = 0;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    if (!((nib >> q) & 1u)) last = 4 * lane + q;
-    lz[q] = last;
+    // byte b of nz is 1 where nonzero; the product gathers the four to bits 21..24
+    uint32_t nz = __vcmpne4(w[q], 0u) & 0x01010101u;
+    bits |= ((nz * 0x00204081u) >> 21 & 0xFu) << (4 * q);
   }
-  int incl = last;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl = max(incl, y);
-  }
-  int before = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) before = -1;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) lz[q] = max(lz[q], before);
+  return bits;
 }
+
+// Bits 0..3 of nib as bytes 0..3 of 0 or 1 (the inverse of the gather above).
+__device__ __forceinline__ uint32_t spread4(uint32_t nib) {
+  return (nib * 0x00204081u) & 0x01010101u;
+}
+
+// The bf16 bits of 0 <= n < 256 (exact), at compile time; and of -1, -2.
+__host__ __device__ constexpr unsigned short bf16_of(int n) {
+  int e = 0;
+  while (n >> (e + 1)) ++e;
+  return n == 0 ? 0 : (unsigned short)((127 + e) << 7 | ((n << (7 - e)) & 0x7F));
+}
+constexpr unsigned short kBf16MinusOne = 0xBF80;
+constexpr unsigned short kBf16MinusTwo = 0xC000;
+
+__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 p) {
+  return (uint32_t)__bfloat16_as_ushort(__low2bfloat16(p)) |
+         (uint32_t)__bfloat16_as_ushort(__high2bfloat16(p)) << 16;
+}
+
+// The start bits of the 16 positions at tile-local index i0, run being the
+// last zero or segment sentinel before them (a tile-local index, or -1 / -2
+// for a carry of odd / even parity). Groups and rows start at even
+// positions, so a position's parity is its k's, and a tile-local index's
+// parity is its global one's.
+template <bool kBf16>
+__device__ __forceinline__ uint32_t group_starts(int i0, uint32_t match, int run);
 
 template <>
-__device__ __forceinline__ void lane_scan<true>(uint32_t nib, int lane, int lz[4]) {
-  const __nv_bfloat16 none = __int2bfloat16_rn(-1);
-  __nv_bfloat16 v[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    v[q] = ((nib >> q) & 1u) ? none : __int2bfloat16_rn(4 * lane + q);
-  }
-  // lanes (0, 1) and (2, 3) in one register each, scanned inside the pair,
-  // then the pair (2, 3) after the pair (0, 1)
-  __nv_bfloat162 lo = __halves2bfloat162(v[0], v[1]);
-  __nv_bfloat162 hi = __halves2bfloat162(v[2], v[3]);
-  lo = __hmax2(lo, __halves2bfloat162(none, __low2bfloat16(lo)));
-  hi = __hmax2(hi, __halves2bfloat162(none, __low2bfloat16(hi)));
-  hi = __hmax2(hi, __bfloat162bfloat162(__high2bfloat16(lo)));
-  // the warp's inclusive scan of each thread's maximum, both halves alike
-  __nv_bfloat162 incl = __bfloat162bfloat162(__high2bfloat16(hi));
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    __nv_bfloat162 y = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl = __hmax2(incl, y);
-  }
-  __nv_bfloat162 before = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) before = __bfloat162bfloat162(none);
-  lo = __hmax2(lo, before);
-  hi = __hmax2(hi, before);
-  lz[0] = __bfloat162int_rz(__low2bfloat16(lo));
-  lz[1] = __bfloat162int_rz(__high2bfloat16(lo));
-  lz[2] = __bfloat162int_rz(__low2bfloat16(hi));
-  lz[3] = __bfloat162int_rz(__high2bfloat16(hi));
+__device__ __forceinline__ uint32_t group_starts<false>(int i0, uint32_t match, int run) {
+  return scan_starts(i0, match, run);
 }
 
+// The lane scan in bf16 pairs: lane l's value is l at a zero, else the
+// run's parity as -1 or -2 (all exact in bf16), two lanes to a register,
+// scanned inside each pair and then pair after pair with __hmax2; a lane's
+// last zero has the parity of the scanned value, read through f32 (adding
+// 1.5 * 2^23 puts the integer's lowest bit in the mantissa's).
+template <>
+__device__ __forceinline__ uint32_t group_starts<true>(int i0, uint32_t match, int run) {
+  const __nv_bfloat16 none = __ushort_as_bfloat16((run & 1) ? kBf16MinusOne : kBf16MinusTwo);
+  const __nv_bfloat16 lane0 = __int2bfloat16_rn(i0 & 127);
+  uint32_t starts = 0;
+  __nv_bfloat16 prev = none;
+#pragma unroll
+  for (int j = 0; j < kPer / 2; ++j) {
+    // lane0 + 2j + 1 is at most 127: the sums are exact
+    __nv_bfloat16 lo = ((match >> (2 * j)) & 1u)
+                           ? none : __hadd(lane0, __ushort_as_bfloat16(bf16_of(2 * j)));
+    __nv_bfloat16 hi = ((match >> (2 * j + 1)) & 1u)
+                           ? none : __hadd(lane0, __ushort_as_bfloat16(bf16_of(2 * j + 1)));
+    __nv_bfloat162 p = __halves2bfloat162(lo, hi);
+    p = __hmax2(p, __halves2bfloat162(prev, lo));
+    p = __hmax2(p, __halves2bfloat162(prev, prev));
+    prev = __high2bfloat16(p);
+    const uint32_t w = bf162_bits(p);
+    const uint32_t par_lo = __float_as_uint(__uint_as_float(w << 16) + 12582912.0f) & 1u;
+    const uint32_t par_hi = __float_as_uint(__uint_as_float(w & 0xFFFF0000u) + 12582912.0f) & 1u;
+    // an even lane starts after an odd last zero, an odd lane after an even one
+    starts |= (par_lo << (2 * j)) | ((par_hi ^ 1u) << (2 * j + 1));
+  }
+  return starts & match;
+}
+
+// One CTA a tile of kMaskTile positions, taken from a ticket: thread t owns
+// the 16 positions at u * kMaskSub + 16 t of each sub-tile u. Each group
+// contributes its last zero, or s - 1 where it opens a segment at s (the
+// sentinel); the tile's exclusive maximum of those runs over the sub-tiles
+// in order, and across tiles a decoupled look-back carries one bit, the
+// parity of the last zero or sentinel before the tile. A tile that opens a
+// segment needs no carry: it publishes its prefix and walks nowhere, so no
+// look-back crosses a segment start.
 template <bool kBf16>
+__device__ __forceinline__ void mask_scan(const uint8_t* __restrict__ mask,
+                                          uint8_t* __restrict__ out, long long n, int seg,
+                                          int tiles, unsigned long long* status) {
+  __shared__ __align__(16) int warp_tot[kMaskUnroll][kWarps];
+  __shared__ int word;  // the tile, then its carry's parity
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) word = (int)atomicAdd(reinterpret_cast<unsigned int*>(status + tiles), 1u);
+  __syncthreads();
+  const int tile = word;
+  const long long base = (long long)tile * kMaskTile;
+  const int head = (int)(base % seg);  // the tile's first position within its segment
+
+  uint4 v[kMaskUnroll];
+#pragma unroll
+  for (int u = 0; u < kMaskUnroll; ++u) {
+    const long long i = base + u * kMaskSub + threadIdx.x * kPer;
+    v[u] = i < n ? *reinterpret_cast<const uint4*>(mask + i) : make_uint4(0, 0, 0, 0);
+  }
+  uint32_t match[kMaskUnroll];
+  int sentinel[kMaskUnroll], incl[kMaskUnroll];
+#pragma unroll
+  for (int u = 0; u < kMaskUnroll; ++u) {
+    const int i0 = u * kMaskSub + threadIdx.x * kPer;
+    const bool live = base + i0 < n;
+    // a group past the end counts as all ones and is not stored
+    match[u] = live ? nonzero16(v[u]) : 0xFFFFu;
+    sentinel[u] = live && (head + i0) % seg == 0 ? i0 - 1 : kNeg;
+    incl[u] = max(last_nonmatch(i0, match[u]), sentinel[u]);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      int y = __shfl_up_sync(kFull, incl[u], o);
+      if (lane >= o) incl[u] = max(incl[u], y);
+    }
+    if (lane == 31) warp_tot[u][warp] = incl[u];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int agg = kNeg;
+#pragma unroll
+    for (int u = 0; u < kMaskUnroll; ++u)
+      for (int w = 0; w < kWarps; ++w) agg = max(agg, warp_tot[u][w]);
+    const int par = agg == kNeg ? kNeg : (agg & 1);
+    if (head == 0) {
+      publish(status, tile, kPrefix, par);  // its sentinel at -1 is in agg
+      word = 1;
+    } else {
+      word = look_back(status, tile, par, 1);
+    }
+  }
+  // each group's exclusive maximum within the tile: the sub-tiles before
+  // its own, then the warps and lanes before it in its own
+  int before[kMaskUnroll];
+  int done = kNeg;
+#pragma unroll
+  for (int u = 0; u < kMaskUnroll; ++u) {
+    int pre = done;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int t = warp_tot[u][w];
+      if (w < warp) pre = max(pre, t);
+      done = max(done, t);
+    }
+    int ex = __shfl_up_sync(kFull, incl[u], 1);
+    before[u] = lane == 0 ? pre : max(pre, ex);
+  }
+  __syncthreads();
+  const int carry = word ? -1 : -2;  // a zero before the tile, of the carry's parity
+#pragma unroll
+  for (int u = 0; u < kMaskUnroll; ++u) {
+    const int i0 = u * kMaskSub + threadIdx.x * kPer;
+    if (base + i0 >= n) break;
+    const int run = max(max(before[u], carry), sentinel[u]);
+    const uint32_t st = group_starts<kBf16>(i0, match[u], run);
+    *reinterpret_cast<uint4*>(out + base + i0) =
+        make_uint4(spread4(st & 0xFu), spread4(st >> 4 & 0xFu), spread4(st >> 8 & 0xFu),
+                   spread4(st >> 12));
+  }
+}
+
+// The two variants' kernels, each with its own launch bounds: bf16's lane
+// scan takes 44 registers unbounded, 5 CTAs an SM, and held to 6 CTAs (40
+// registers) it runs 0.0652 ms against 0.0676; int32 takes 38 registers and
+// 6 CTAs unbounded (0.0606), and any minimum of CTAs changes its code for
+// the worse (0.0639 at 6, 0.0707 at 1, with 56 registers). exp_bf16scan at
+// 64 MiB, an H100 80GB HBM3 at 700 W (PERF.md).
+constexpr int kMaskBf16Ctas = 6;
+
 __global__ void __launch_bounds__(kThreads)
-    mask_scan(const uint8_t* __restrict__ mask, uint8_t* __restrict__ out,
-              int rpb) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* mbits = smem;            // rpb x 4 words: match bits
-  int* excl = (int*)(smem + 4 * rpb);  // rpb: last zero of the rows before
-  __shared__ int warp_tot[kWarps];
-  int lane = threadIdx.x & 31;
-  int warp = threadIdx.x >> 5;
-  size_t base = (size_t)blockIdx.x * rpb * 128;
+    mask_scan_i32(const uint8_t* __restrict__ mask, uint8_t* __restrict__ out, long long n,
+                  int seg, int tiles, unsigned long long* status) {
+  mask_scan<false>(mask, out, n, seg, tiles, status);
+}
 
-  // 1. match bits and each row's last zero (block-local index, kNeg if none)
-  for (int j = warp; j < rpb; j += kWarps) {
-    uint32_t w = *reinterpret_cast<const uint32_t*>(mask + base + j * 128 + 4 * lane);
-    uint32_t nib = 0;
-    int lnm = kNeg;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      bool m = ((w >> (8 * q)) & 0xFFu) != 0;
-      nib |= (uint32_t)m << q;
-      if (!m) lnm = j * 128 + 4 * lane + q;
-    }
-    put_nibbles(mbits + 4 * j, nib, lane);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) lnm = max(lnm, __shfl_xor_sync(kFull, lnm, o));
-    if (lane == 0) excl[j] = lnm;
-  }
-  __syncthreads();
-
-  // 2. exclusive max over the rows of this block (kNeg for row 0)
-  int per = (rpb + kThreads - 1) / kThreads;
-  int lo = min(rpb, (int)threadIdx.x * per);
-  int hi = min(rpb, lo + per);
-  int local = kNeg;
-  for (int j = lo; j < hi; ++j) local = max(local, excl[j]);
-  int run = block_excl_max<kThreads>(local, warp_tot);
-  for (int j = lo; j < hi; ++j) {
-    int row_last = excl[j];
-    excl[j] = run;
-    run = max(run, row_last);
-  }
-  __syncthreads();
-
-  // 3. starts; rows start at even positions, so a position's parity is its
-  // lane's, and "none" (lz = -1) is odd
-  for (int j = warp; j < rpb; j += kWarps) {
-    uint32_t nib = get_nibble(mbits + 4 * j, lane);
-    int row_par = excl[j] == kNeg ? 1 : (excl[j] & 1);
-    int lz[4];
-    lane_scan<kBf16>(nib, lane, lz);
-    uint32_t w = 0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      int par = lz[q] >= 0 ? (lz[q] & 1) : row_par;
-      if (((nib >> q) & 1u) && ((q & 1) ^ par)) w |= 1u << (8 * q);
-    }
-    *reinterpret_cast<uint32_t*>(out + base + j * 128 + 4 * lane) = w;
-  }
+__global__ void __launch_bounds__(kThreads, kMaskBf16Ctas)
+    mask_scan_bf16(const uint8_t* __restrict__ mask, uint8_t* __restrict__ out, long long n,
+                   int seg, int tiles, unsigned long long* status) {
+  mask_scan<true>(mask, out, n, seg, tiles, status);
 }
 
 }  // namespace
@@ -844,12 +934,32 @@ extern "C" int blt_row_scan(const void* data, int cap, int n, int next_byte,
 }
 
 // T12: bf16 0 for the int32 scan, 1 for the bf16x2 one. mask, out: rows x
-// 128 bytes (4-byte aligned), rows a multiple of rpb (a multiple of 8 up to
-// 1024, checked by the wrapper). Returns cudaGetLastError().
+// 128 bytes (16-byte aligned), rows a positive multiple of rpb (a multiple
+// of 8 up to 1024, checked by the wrapper); scratch: ceil(rows * 128 /
+// kMaskTile) + 1 64-bit words (tools_cuda.mask_scan_plan), the tiles'
+// status words and the ticket, zeroed on the stream before the launch.
+// Returns the first nonzero CUDA error of the memset and the launch.
 extern "C" int blt_mask_scan(int bf16, const void* mask, void* out, int rows,
-                             int rpb, void* stream) {
-  auto kernel = bf16 ? mask_scan<true> : mask_scan<false>;
-  kernel<<<rows / rpb, kThreads, (size_t)rpb * 5 * sizeof(uint32_t),
-           (cudaStream_t)stream>>>((const uint8_t*)mask, (uint8_t*)out, rpb);
+                             int rpb, void* scratch, void* stream) {
+  const long long n = (long long)rows * 128;
+  const int tiles = (int)((n + kMaskTile - 1) / kMaskTile);
+  auto s = (cudaStream_t)stream;
+  auto status = (unsigned long long*)scratch;
+  int err = (int)cudaMemsetAsync(status, 0, (size_t)(tiles + 1) * sizeof(*status), s);
+  if (err) return err;
+  auto kernel = bf16 ? mask_scan_bf16 : mask_scan_i32;
+  kernel<<<tiles, kThreads, 0, s>>>((const uint8_t*)mask, (uint8_t*)out, n, rpb * 128, tiles,
+                                    status);
   return (int)cudaGetLastError();
+}
+
+// CTAs of T12's two kernels that one SM of the current device holds at
+// once, as the CUDA runtime computes them. Returns the first nonzero CUDA
+// error.
+extern "C" int blt_mask_scan_i32_ctas_per_sm(int* ctas) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, mask_scan_i32, kThreads, 0);
+}
+
+extern "C" int blt_mask_scan_bf16_ctas_per_sm(int* ctas) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, mask_scan_bf16, kThreads, 0);
 }

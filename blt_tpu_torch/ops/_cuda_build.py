@@ -147,7 +147,7 @@ def load() -> ctypes.CDLL:
         lib.blt_block_scan.restype = i
         lib.blt_row_scan.argtypes = [p, i, i, i, p, p, p, p, p, i, p]
         lib.blt_row_scan.restype = i
-        lib.blt_mask_scan.argtypes = [i, p, p, i, i, p]
+        lib.blt_mask_scan.argtypes = [i, p, p, i, i, p, p]
         lib.blt_mask_scan.restype = i
         lib.blt_lookup.argtypes = [i, p, p, p, p, i, p]
         lib.blt_lookup.restype = i
@@ -163,8 +163,9 @@ def load() -> ctypes.CDLL:
 
 
 # the occupancy query of each one-launch look-back kernel, by the source
-# that holds it, and of the Hopper designs of T13's chain and T6's two
-# block-local scans
+# that holds it, and of the Hopper designs of T13's chain, T6's two
+# block-local scans, T12's two mask scans and T3's probes (the least of the
+# eight)
 CTAS_PER_SM = {
     "token_pass_gap": "blt_token_pass_gap_ctas_per_sm",
     "token_pass": "blt_token_pass_ctas_per_sm",
@@ -172,6 +173,9 @@ CTAS_PER_SM = {
     "lookup_chain": "blt_lookup_chain_ctas_per_sm",
     "scan16": "blt_scan16_ctas_per_sm",
     "swarpack": "blt_swarpack_ctas_per_sm",
+    "mask_scan_i32": "blt_mask_scan_i32_ctas_per_sm",
+    "mask_scan_bf16": "blt_mask_scan_bf16_ctas_per_sm",
+    "probe16": "blt_probe16_ctas_per_sm",
 }
 
 

@@ -24,7 +24,9 @@ These wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
   ``tools/exp_chd.py``); T10's prod and novalid are flag sets of
   ``bpe_cuda.flat_encode_slots``;
 - ``mask_scan``: T12, the block-local parity scan of a u8 mask in int32 or
-  in bf16 pairs (``scan_parts.cu``; ``tools/exp_bf16scan.py``);
+  in bf16 pairs, one launch in which tiles taken from a ticket carry the
+  parity of their last zero by a decoupled look-back (``mask_scan_plan``;
+  ``scan_parts.cu``; ``tools/exp_bf16scan.py``);
 - ``lookup``: T13, five designs of a pair -> value lookup over a packed
   table, with the tool's chain link fused in (``lookup.cu``;
   ``tools/exp_gather.py::make_pallas``); ``chain``, the original's
@@ -34,8 +36,9 @@ These wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
   cores (Hopper ``wgmma``) in int8 or bf16, the link fused in, the planes
   staged from their shared-memory image ``mxu_image`` (``onehot_mma.cu``;
   ``tools/exp_gather.py::make_pmxu``);
-- ``probe16``: T3 and T11, eight 16-bit elementwise and shuffle probes
-  (``probe16.cu``; ``tools/exp_16bit.py``, ``tools/canary_16bit.py``).
+- ``probe16``: T3 and T11, eight 16-bit elementwise and shuffle probes, a
+  warp a row (``probe16.cu``; ``tools/exp_16bit.py``,
+  ``tools/canary_16bit.py``).
 
 Each has a plain PyTorch version of the same function beside it
 (``*_plain``). Dispatch is by the tensors alone, as in ``bpe_cuda``: CUDA
@@ -498,19 +501,36 @@ def mask_scan_plain(mask: torch.Tensor, rpb: int = 1024) -> torch.Tensor:
     return (m & (((local - lz) & 1) == 1)).to(torch.uint8).reshape(mask.shape)
 
 
+# mask_scan's tile (scan_parts.cu's kMaskTile: kMaskUnroll sub-tiles of 256
+# threads x 16 positions), one CTA each
+MASK_SCAN_TILE = 4 * 256 * 16
+
+
+def mask_scan_plan(positions: int) -> dict:
+    """The launch ``mask_scan`` makes for ``positions`` mask bytes: the tiles
+    (``tiles``, one CTA each, taken from a ticket in order; the last may be
+    partial) and the scratch in 64-bit words (``scratch``: a status word a
+    tile, then the ticket)."""
+    tiles = -(-positions // MASK_SCAN_TILE)
+    return {"tiles": tiles, "scratch": tiles + 1}
+
+
 def mask_scan(variant: str, mask: torch.Tensor, rpb: int = 1024) -> torch.Tensor:
     """T12's ``i32`` or ``bf16`` kernel: kernel on CUDA tensors, plain on
     CPU tensors (both variants compute ``mask_scan_plain``'s function);
-    counted under ``launches["bf16scan_<variant>"]``."""
+    counted under ``launches["bf16scan_<variant>"]`` (one launch after one
+    memset of its status words and ticket, ``mask_scan_plan``)."""
     _check_mask(variant, mask, rpb)
     if not _on_cuda(mask):
         return mask_scan_plain(mask, rpb)
-    _check_aligned(mask, "mask", 4)
+    _check_aligned(mask, "mask", 16)
     out = torch.empty_like(mask)
+    scratch = torch.empty(mask_scan_plan(mask.numel())["scratch"], dtype=torch.int64,
+                          device=mask.device)
     lib = _cuda_build.load()
     with torch.cuda.device(mask.device):
         err = lib.blt_mask_scan(MASK_SCANS.index(variant), mask.data_ptr(), out.data_ptr(),
-                                mask.shape[0], rpb, _stream(mask.device))
+                                mask.shape[0], rpb, scratch.data_ptr(), _stream(mask.device))
     _cuda_build.check(err, f"bf16scan_{variant}")
     launches[f"bf16scan_{variant}"] += 1
     return out
@@ -784,7 +804,7 @@ def probe16(probe: str, x: torch.Tensor) -> torch.Tensor:
     _check_probe16(probe, x)
     if not _on_cuda(x):
         return probe16_plain(probe, x)
-    _check_aligned(x, "probe input", 4)
+    _check_aligned(x, "probe input", 16)
     rows = x.shape[0]
     out_rows = (rows + 1) // 2 if probe == "canary_strided_sublane" else rows
     out = torch.empty((out_rows, LANES), dtype=torch.int32, device=x.device)

@@ -9,10 +9,12 @@ compiles one 16-bit op: a bf16 lane roll, bf16 ``max(b, b * 0.5)``, a bf16
 select (lane >= 5, else -1), a bf16 row roll, an i16 lane roll and a bf16
 7-step lane max-scan, each back to int32. On the card each is a hand-written
 CUDA kernel that computes in ``__nv_bfloat16`` or ``short``
-(``csrc/probe16.cu``, ``tools_cuda.probe16``), so there is no compile
-question; each probe's verdict is ``exact``: the kernel equals its plain
-version (``tools_cuda.probe16_plain``, in ``torch.bfloat16`` /
-``torch.int16``).
+(``csrc/probe16.cu``, ``tools_cuda.probe16``): a warp a row, each lane 4
+int32 as one 16-byte vector, 4 rows a warp with their loads issued first,
+rolls and the scan by warp shuffles, no shared memory and no barrier. So
+there is no compile question; each probe's verdict is ``exact``: the
+kernel equals its plain version (``tools_cuda.probe16_plain``, in
+``torch.bfloat16`` / ``torch.int16``).
 
 The probes run on the original's x at its 512 rows and at ``size_bytes //
 512`` rows (64 MiB of i32 by default), so that one row reports a rate and

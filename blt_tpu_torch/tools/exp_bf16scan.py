@@ -2,7 +2,7 @@
 pairs.
 
     python -m blt_tpu_torch.tools.exp_bf16scan [--size-mib 64] [--k 64]
-        [--seed 7] [--device cuda|cpu]
+        [--density 0.3] [--seed 7] [--device cuda|cpu]
 
 Port of ``tools/exp_bf16scan.py`` (T12). The flat pass's parity scan needs
 only each position's last non-match lane (-1..127, exact in bf16), so the
@@ -10,17 +10,22 @@ original asks whether a scan on 16-bit values packed two to a lane beats the
 int32 one. Both of its kernels compute one function, per block of 1024 rows
 x 128: ``start = m & ((i - lz) & 1)``, lz the last zero of the mask at or
 before i within the block, -1 if none (``tools_cuda.mask_scan_plain``). The
-port's two kernels (``csrc/scan_parts.cu``, ``tools_cuda.mask_scan``) run the
-lane scan in int32 (``i32``) or as ``__nv_bfloat162`` with ``__hmax2``
-(``bf16``), one CUDA block per block of rows.
+port's two kernels (``csrc/scan_parts.cu``, ``tools_cuda.mask_scan``) share
+one launch design: tiles of 16384 positions, one CTA each, taken from a
+ticket, each carrying the parity of its last zero to the next by a
+decoupled look-back, a block's start acting as a zero just before it; they
+differ in the lane scan inside a thread, in int32 (``i32``) or as
+``__nv_bfloat162`` with ``__hmax2`` (``bf16``).
 
-The mask: u8 (rows, 128), each byte 1 with probability 0.3 (the original's).
-Each kernel is chained k times, each result fed back as the next mask (the
-original's ``chain``; the chain reaches a fixed point after its first link,
-since a start mask fed back reproduces itself), timed as launched and as a
-CUDA-graph replay beside the plain chain and the byte bound; ``k1_equal``:
-the two kernels' single links agree. One JSON line, as ``exp_chain``; exits
-1 when a timed result differs from the plain chain's.
+The mask: u8 (rows, 128), each byte 1 with probability ``--density`` (0.3,
+the original's; 1.0 is the look-back's worst case: every tile of a block
+but its first waits on the one before). Each kernel is chained k times,
+each result fed back as the next mask (the original's ``chain``; the chain
+reaches a fixed point after its first link, since a start mask fed back
+reproduces itself), timed as launched and as a CUDA-graph replay beside the
+plain chain and the byte bound; ``k1_equal``: the two kernels' single links
+agree. One JSON line, as ``exp_chain``; exits 1 when a timed result differs
+from the plain chain's.
 """
 
 from __future__ import annotations
@@ -58,10 +63,11 @@ def random_mask(rng: np.random.Generator, rows: int, density: float = DENSITY) -
     return (rng.random((rows, C.LANES)) < density).astype(np.uint8)
 
 
-def measure(device: torch.device, size_bytes: int, k: int = K, seed: int = 7) -> dict:
+def measure(device: torch.device, size_bytes: int, k: int = K, seed: int = 7,
+            density: float = DENSITY) -> dict:
     """Both kernels on ``device``; see the module docstring."""
     rows = size_bytes // C.LANES
-    mask = torch.from_numpy(random_mask(np.random.default_rng(seed), rows)).to(device)
+    mask = torch.from_numpy(random_mask(np.random.default_rng(seed), rows, density)).to(device)
     expect = chain_plain(mask, k)
     out = []
     for variant in VARIANTS:
@@ -77,7 +83,7 @@ def measure(device: torch.device, size_bytes: int, k: int = K, seed: int = 7) ->
     k1_equal = torch.equal(*(tools_cuda.mask_scan(v, mask, RPB) for v in VARIANTS))
     ms = {r["name"]: (r["graph"] or r["eager"])["ms_per_launch"]["median"] for r in out}
     return {"tool": "exp_bf16scan", "device": C.describe(device), "size_bytes": size_bytes,
-            "density": DENSITY, "seed": seed, "k1_equal": k1_equal,
+            "density": density, "seed": seed, "k1_equal": k1_equal,
             "exact": k1_equal and all(r["exact"] for r in out), "rows": out,
             "split": {"i32_ms": ms["i32"], "bf16_saves_ms": ms["i32"] - ms["bf16"]}}
 
@@ -85,8 +91,11 @@ def measure(device: torch.device, size_bytes: int, k: int = K, seed: int = 7) ->
 def main(argv=None) -> int:
     ap = C.parser(__doc__.splitlines()[0], K)
     ap.set_defaults(seed=7)
+    ap.add_argument("--density", type=float, default=DENSITY,
+                    help=f"share of nonzero mask bytes (default {DENSITY}, the original's)")
     args = ap.parse_args(argv)
-    result = measure(C.device_of(args.device), args.size_mib * C.MIB, args.k, args.seed)
+    result = measure(C.device_of(args.device), args.size_mib * C.MIB, args.k, args.seed,
+                     args.density)
     C.emit(result)
     return 0 if result["exact"] else 1
 

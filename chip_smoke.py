@@ -14,7 +14,9 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    runtime's occupancy query gives, counts T14's ``wgmma`` instructions
    (``IGMMA``, ``HGMMA``), the copy ring's bulk copies (``UBLKCP``) and T9's slab
    kernels' TMA loads (``UTMALDG``) in the library's SASS (``cuobjdump``),
-   failing on none; builds
+   failing on none; ptxas's registers and spills and the CTAs per SM of
+   the redesigned tool kernels (T13's chain, T6's two segment scans, T12's
+   two mask scans, T3's and T11's eight probes); builds
    the 8000-rule hierarchical table of leg 4 and checks on the host that
    cuckoo32 places it at 8192 slots;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
@@ -67,13 +69,14 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    against K2; the four T2 variants over every flat case, each against its
    plain version and against K2 with its starts byteswapped; T10's ``prod``
    against K2, ``novalid`` and ``noscan2`` (rows_per_block 8 and 1024)
-   against their plain versions; T12's two scans at rows_per_block 8 and
-   1024 on random masks of density 0.3 and 0.7, single links and chained 1
-   and 3 times; T13's five lookups on p inside and outside [0, 65536), once
+   against their plain versions; T12's two scans at rows_per_block 8, 24,
+   1016 and 1024 on random masks of density 0, 0.3, 0.7 and 1, single
+   links and chained 1 and 3 times, and a chain of 4 replayed from a CUDA
+   graph; T13's five lookups on p inside and outside [0, 65536), once
    and chained 3 times; T14 in int8 and bf16 on the same two ranges at tiles
    512, 48, 16 and 80 and at 133 tiles of 512, once and chained 3 times;
    the eight 16-bit probes of T3 and T11 on the originals' x and on random
-   |x| < 2**30 at 512, 8 and 13 rows);
+   |x| < 2**30 at 512, 8, 13, 513 and 131072 rows);
    (b) the launch counters set to 0, then the twelve ported tools' and
    ``exp_lookback``'s measurements in this process at the originals' sizes (K5, T1 and
    K2 chained 96 / 96 / 24 times, T7 at rows_per_block 512 / 2048 / 8192,
@@ -131,6 +134,7 @@ from blt_tpu_torch.tools._common import (  # noqa: E402
 )
 from blt_tpu_torch.tools._common import bound_ms as bytes_bound_ms  # noqa: E402
 from blt_tpu_torch.tools import exp_gap, exp_lookback  # noqa: E402
+from blt_tpu_torch.ops.tools_cuda import PROBES16  # noqa: E402
 
 
 def fail(msg: str) -> None:
@@ -139,14 +143,20 @@ def fail(msg: str) -> None:
 
 # (label, source stem, a piece of the kernel's mangled name, its key in
 # _cuda_build.CTAS_PER_SM): the main path's three one-launch look-back
-# kernels, and the Hopper designs of T13's chain and T6's scan16 and
-# swarpack (T6's CTAs per SM at rpb 1024, swarpack's largest shared memory)
+# kernels, and the Hopper designs of T13's chain, T6's scan16 and swarpack
+# (T6's CTAs per SM at rpb 1024, swarpack's largest shared memory), T12's
+# two mask scans and T3's and T11's eight probes (their CTAs per SM: the
+# least of the eight)
 LOOK_BACK_KERNELS = (("K3", "token_pass_gap", "tile_lookback", "token_pass_gap"),
                      ("K4", "token_pass", "tile_lookback", "token_pass"),
                      ("K2_packed", "flat_bpe", "flat_packed_kernel", "flat_bpe"))
 REDESIGNED_TOOL_KERNELS = (("lookup_chain", "lookup", "chain_kernel", "lookup_chain"),
                            ("scan16", "scan_parts", "segment_scanILb0E", "scan16"),
-                           ("swarpack", "scan_parts", "segment_scanILb1E", "swarpack"))
+                           ("swarpack", "scan_parts", "segment_scanILb1E", "swarpack"),
+                           ("mask_scan_i32", "scan_parts", "mask_scan_i32", "mask_scan_i32"),
+                           ("mask_scan_bf16", "scan_parts", "mask_scan_bf16", "mask_scan_bf16"),
+                           *((p, "probe16", f"probe16_kernelILi{i}E", "probe16")
+                             for i, p in enumerate(PROBES16)))
 
 
 def kernel_figures(kernels) -> dict:
@@ -1220,10 +1230,13 @@ def phase_measure(corpus, flat_cases, token_cases, err):
                  exp_mp_ablate.chain_plain(v, t, n, planes, 3), what)
         hold("token_parts_full", exp_mp_ablate.token_parts("full", t, n, planes),
              multipass_cuda.token_pass(t, n, planes), f"{what}, vs K4")
-    # T12: single links on random masks, and chains fed back as the tool's
-    for density in (0.3, 0.7):
-        mask = torch.from_numpy(exp_bf16scan.random_mask(rng, 16 * MIB // 128, density)).to(dev)
-        for rpb in (8, 1024):
+    # T12: single links on random masks of 16 MiB (whole segments: rpb 24's
+    # and 1016's leave the last tile partial), and chains fed back as the
+    # tool's; then a chain of 4 replayed from a CUDA graph
+    for density in (0.0, 0.3, 0.7, 1.0):
+        full = exp_bf16scan.random_mask(rng, 16 * MIB // 128, density)
+        for rpb in (8, 24, 1016, 1024):
+            mask = torch.from_numpy(full[: full.shape[0] // rpb * rpb]).to(dev)
             for v in tools_cuda.MASK_SCANS:
                 what = f"density {density} rpb={rpb}"
                 hold(f"bf16scan_{v}", tools_cuda.mask_scan(v, mask, rpb),
@@ -1231,6 +1244,13 @@ def phase_measure(corpus, flat_cases, token_cases, err):
                 for k in (1, 3):
                     hold(f"bf16scan_{v}", exp_bf16scan.chain(v, mask, k, rpb),
                          exp_bf16scan.chain_plain(mask, k, rpb), f"{what} k={k}")
+    mask = torch.from_numpy(exp_bf16scan.random_mask(rng, 24 * 5000, 0.3)).to(dev)
+    for v in tools_cuda.MASK_SCANS:
+        expect = exp_bf16scan.chain_plain(mask, 4, 24)
+        replay = time_chain(lambda v=v: (exp_bf16scan.chain(v, mask, 4, 24),), 4, mask.numel(),
+                            dev, (expect,))
+        if not replay["exact"] or replay["graph"] is None:
+            fail(f"bf16scan_{v}: a chain of 4 at rpb 24 does not replay exactly")
     # T13: p inside and outside the tool's domain [0, 65536), 16 MiB of each
     val16, packed = exp_gather.build_table()
     tables = {"packed": torch.from_numpy(packed).to(dev),
@@ -1278,8 +1298,9 @@ def phase_measure(corpus, flat_cases, token_cases, err):
                 hold(f"gather_{name}", exp_gather.chained_mxu(dtype, planes[dtype], p, 3, tile),
                      exp_gather.chained_mxu(dtype, planes[dtype], p, 3, tile, plain=True),
                      f"{what} k=3")
-    # T3 and T11: the originals' x and random |x| < 2**30, at 512, 8 and 13 rows
-    for rows in (512, 8, 13):
+    # T3 and T11: the originals' x and random |x| < 2**30, at 512, 8, 13 and
+    # 513 rows (rows that leave a warp's or a CTA's rows partial) and 131072
+    for rows in (512, 8, 13, 513, 131072):
         rand = rng.integers(-(2**30) + 1, 2**30, (rows, 128), dtype=np.int64).astype(np.int32)
         for name, x in (("arange % 97", exp_16bit.original_x(rows)),
                         ("random", torch.from_numpy(rand))):

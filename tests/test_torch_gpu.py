@@ -570,6 +570,60 @@ def test_mask_scans_and_lookups_equal_plain_versions(cuda):
     assert all(tools_cuda.launches[f"gather_{v}"] == 8 for v in tools_cuda.LOOKUPS)
 
 
+def test_mask_scan_tiles_equal_plain_version(cuda):
+    """T12's two scans at rows per segment 8, 24, 1016 and 1024 on masks of
+    density 0, 0.3, 0.7 and 1 (whole segments; 24's and 1016's leave the
+    last tile partial), once and chained 3 times: one launch each."""
+    rng = np.random.default_rng(26)
+    tools_cuda.reset_launches()
+    cases = 0
+    for density in (0.0, 0.3, 0.7, 1.0):
+        full = exp_bf16scan.random_mask(rng, 4096, density)
+        for rpb in (8, 24, 1016, 1024):
+            mask = torch.from_numpy(full[: full.shape[0] // rpb * rpb]).to(cuda)
+            for variant in tools_cuda.MASK_SCANS:
+                assert torch.equal(tools_cuda.mask_scan(variant, mask, rpb),
+                                   tools_cuda.mask_scan_plain(mask, rpb)), (variant, density, rpb)
+                assert torch.equal(exp_bf16scan.chain(variant, mask, 3, rpb),
+                                   exp_bf16scan.chain_plain(mask, 3, rpb)), (variant, density, rpb)
+            cases += 1
+    assert all(tools_cuda.launches[f"bf16scan_{v}"] == 4 * cases for v in tools_cuda.MASK_SCANS)
+    # rows are read as 16-byte vectors: a mask 4 bytes off is refused
+    off = torch.zeros(8 * 128 + 4, dtype=torch.uint8, device=cuda)[4:].reshape(8, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tools_cuda.mask_scan("i32", off, 8)
+
+
+def test_mask_scan_chain_replays_from_a_cuda_graph(cuda):
+    """A captured T12 chain of 4 (four memsets and four launches) replays
+    with the plain chain's result, in both variants."""
+    mask = torch.from_numpy(exp_bf16scan.random_mask(np.random.default_rng(27), 24 * 300,
+                                                     0.3)).to(cuda)
+    for variant in tools_cuda.MASK_SCANS:
+        expect = exp_bf16scan.chain_plain(mask, 4, 24)
+        timing = _common.time_chain(lambda: (exp_bf16scan.chain(variant, mask, 4, 24),), 4,
+                                    mask.numel(), cuda, (expect,))
+        assert timing["exact"] and timing["graph"] is not None, variant
+
+
+def test_probes_take_every_row_count(cuda):
+    """T3's six probes and T11's two at 1, 8, 13, 512, 513 and 131072 rows
+    (partial warps and CTAs of rows), on the originals' x and on random
+    |x| < 2**30."""
+    rng = np.random.default_rng(28)
+    for rows in (1, 8, 13, 512, 513, 131072):
+        rand = torch.from_numpy(rng.integers(-(2**30) + 1, 2**30, (rows, 128), dtype=np.int64)
+                                .astype(np.int32))
+        for x in (exp_16bit.original_x(rows), rand):
+            x = x.to(cuda)
+            for probe in tools_cuda.PROBES16:
+                assert torch.equal(tools_cuda.probe16(probe, x),
+                                   tools_cuda.probe16_plain(probe, x)), (probe, rows)
+    off = torch.zeros(8 * 128 + 1, dtype=torch.int32, device=cuda)[1:].reshape(8, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tools_cuda.probe16("probe16_bf16_max", off)
+
+
 def test_one_hot_lookups_and_probes_equal_plain_versions(cuda):
     """T14 in int8 and bf16 on p inside and outside [0, 65536), once and
     chained, at tiles 512, 48, 16 and 80 (all but 512 end inside a 64-row

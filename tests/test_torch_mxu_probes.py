@@ -27,6 +27,7 @@ import functools
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -314,7 +315,7 @@ def test_bf16_cast_agrees_with_xla_below_2_30_only():
     assert jax_back[2] == INT32.max and torch_back[2] == INT32.min
 
 
-@pytest.mark.parametrize("rows", [1, 8, 13])
+@pytest.mark.parametrize("rows", [1, 8, 13, 513])
 def test_probes_take_any_row_count(rows):
     """The plain versions at the card's other row counts equal their
     definitions written in numpy."""
@@ -331,6 +332,56 @@ def test_probes_take_any_row_count(rows):
     assert np.array_equal(got["bf16_scan7"], scan)
     assert np.array_equal(got["strided_sublane"], x[0::2])
     assert got["strided_sublane"].shape == ((rows + 1) // 2, LANES)
+
+
+def _probe_constant(name: str) -> int:
+    text = (REPO / "blt_tpu_torch" / "csrc" / "probe16.cu").read_text()
+    expr = re.search(rf"constexpr int {name} = ([^;]+);", text)[1]
+    return int(eval(expr, {}, {"kThreads": 256, "kRowsPerWarp": 4}))  # noqa: S307 - our sources
+
+
+def _probe_grid(out_rows: int, sms: int = 132):
+    """probe16.cu's grid_of: (CTAs, threads a CTA, rows a warp)."""
+    threads, per_warp = _probe_constant("kThreads"), _probe_constant("kRowsPerWarp")
+    per_cta, fill = _probe_constant("kRowsPerCta"), _probe_constant("kFillCtas")
+    if out_rows >= fill * sms * per_cta:
+        return -(-out_rows // per_cta), threads, per_warp
+    warps = min(-(-out_rows // sms), threads // 32)
+    return -(-out_rows // warps), 32 * warps, 1
+
+
+def test_probe_grid_constants_are_the_kernels():
+    assert [_probe_constant(k) for k in ("kThreads", "kRowsPerWarp", "kRowsPerCta",
+                                         "kFillCtas")] == [256, 4, 32, 4]
+    assert _probe_grid(131072) == (4096, 256, 4)
+    assert _probe_grid(512) == (128, 128, 1) and _probe_grid(8) == (8, 32, 1)
+    text = (REPO / "blt_tpu_torch" / "csrc" / "probe16.cu").read_text()
+    assert "__shared__" not in text and "__syncthreads" not in text
+
+
+@pytest.mark.parametrize("rows", [1, 13, 513, 16896])
+def test_probe_grid_takes_each_row_once(rows):
+    """probe16.cu's grid mirrored: a warp a row, rows_per_warp rows a warp;
+    every output row is written by one warp, every read lies inside x (row
+    r - 1 for bf16_rowroll, 2r for strided_sublane), and the wrapper takes
+    the row count. 16896 rows is the first that fills 132 SMs with 4 CTAs of
+    32 rows."""
+    x = _x("random", rows)
+    for probe in tools_cuda.PROBES16:
+        out_rows = (rows + 1) // 2 if probe == "canary_strided_sublane" else rows
+        ctas, threads, per_warp = _probe_grid(out_rows)
+        warps = np.arange(ctas * threads // 32)
+        r = (warps[:, None] * per_warp + np.arange(per_warp)).reshape(-1)
+        r = r[r < out_rows]
+        assert np.array_equal(np.sort(r), np.arange(out_rows)), probe
+        src = {"canary_strided_sublane": 2 * r,
+               "probe16_bf16_rowroll": np.where(r == 0, rows - 1, r - 1)}.get(probe, r)
+        assert src.min() >= 0 and src.max() < rows, probe
+        # the rows the warps read, through the elementwise body, are the probe's result
+        if probe in ("canary_strided_sublane", "probe16_bf16_rowroll"):
+            body = _t(x[src]).to(torch.bfloat16).to(torch.int32) if "rowroll" in probe \
+                else _t(x[src])
+            assert torch.equal(tools_cuda.probe16(probe, _t(x))[r], body), probe
 
 
 def test_exp_16bit_runs_the_originals_probes():
