@@ -1,7 +1,7 @@
 // The flat-BPE pass's ablations with the parity scan run block by block,
 // and a block-local parity scan of a bare match mask:
 //   T6's scan16 and swarpack (segment_scan),
-//   T10's noscan2 (row_carry_map, walk_carries, row_scan_emit),
+//   T10's noscan2 (row_scan_kernel),
 //   T12's scan in int32 and in bf16x2 (mask_scan).
 //
 // Replaces: tools/exp_scan.py::_pallas (kernel body _variant_body) for
@@ -98,13 +98,44 @@
 // at 8 CTAs an SM, takes 0.091). swarpack adds its SWAR steps (7 steps of
 // 16 lanes a thread a row pair) and its second pass.
 //
-// Design of noscan2: block-local, so one CUDA block of 256 threads takes
-// one Pallas block of rpb rows, a warp per row and 4 lanes per thread, in
-// three launches on one stream. row_carry_map: a warp per block records the
-// block's carry out for carry in 0 and for 1 (only the row of its last
-// position can depend on it, through the sentinel); walk_carries: one
-// thread walks the blocks from carry_in; row_scan_emit: each block's starts
-// (16 bytes per row, in shared memory) and slots with its carry.
+// Design of noscan2 (T10's Hopper design): one launch after one
+// cudaMemsetAsync of the blocks' flags and a ticket. A CTA of 8 data warps
+// and a control warp takes a tile of kRowScanUnroll sub-tiles of kTile
+// positions from the ticket; each data thread owns 16 consecutive positions
+// of each sub-tile: one 16-byte load (the byte after them from the next
+// lane), each pair looked up once into registers (staged_pairs). A row is
+// 8 threads, so the row's last non-match before a thread is an 8-lane
+// shuffle maximum. The starts depend on the block's carry c only through
+// the sentinel s - 1 - c, so each thread computes them for c = 0 and for
+// c = 1 at once, bit-parallel (parity_starts), and waits for the carry only
+// after every load and lookup. A block's carry out is its start at
+// last_pos = min(block end, n - 1), a function of its carry in given by two
+// bits, its map (bit c: the start there for carry c); a block wholly past n
+// passes its carry (every CTA knows n, so no flag stands for it). The
+// thread that holds a block's last_pos publishes the map in the block's
+// flag (4 | map) at once; the control warp publishes the carry out (8 |
+// carry) once it knows the carry in. Meanwhile the control warp finds the
+// carry into the tile's first block: the maps of the kLocalMaps nearest
+// blocks before it it computes itself from their last rows (8 lanes a
+// row), so it waits on no flag of a tile just started, and the carry into
+// the oldest of them is a look-back over the flags before it, 32 at a
+// read, nearest first, composing maps (K3's non-commuting composition, on
+// functions of one bit) until a flag holds a carry or the walk passes block
+// 0 (carry_in); the tile's later blocks (rpb 8 and 16 put 8 and 4 in a
+// tile) take the maps composed inside the tile. consumed at a thread's
+// first position is the start before it: from the lane before, the warp or
+// sub-tile before (shared memory), or, for the tile's first position inside
+// a block, the previous row's last, which the control warp's other 8 lanes
+// compute from that row's bytes. Slots leave by 16-byte stores. A CTA waits
+// only on lower tickets, whose CTAs have started and publish before they
+// wait; the memset puts the flags back on the stream, so a captured chain
+// replays. tools_cuda.row_scan_plan mirrors the grid and the scratch;
+// tests/test_torch_row_scan.py plays the protocol on the host. On an H100
+// 80GB HBM3 at 700 W (PERF.md, exp_chd at 64 MiB, rpb 1024) it takes 0.135
+// ms against the three-launch design's 0.315 and the bytes' 0.060;
+// kRowScanUnroll 2 beat 1 and 4, more CTAs an SM (launch bounds) ran
+// slower, and a persistent grid that fetched its next tile by bulk copy
+// ran 0.162.
 //
 // Design of mask_scan (T12's Hopper design): one launch after one
 // cudaMemsetAsync of the tiles' status words and a ticket. The grid is of
@@ -135,31 +166,6 @@ namespace {
 
 constexpr int kWarps = kThreads / 32;
 constexpr uint32_t kFull = 0xffffffffu;
-
-// 4 bits per thread -> the row's four 32-bit words; thread 8w writes word w.
-__device__ __forceinline__ void put_nibbles(uint32_t* row_words, uint32_t nib,
-                                            int lane) {
-  uint32_t word = nib << (4 * (lane & 7));
-  word |= __shfl_xor_sync(kFull, word, 1);
-  word |= __shfl_xor_sync(kFull, word, 2);
-  word |= __shfl_xor_sync(kFull, word, 4);
-  if ((lane & 7) == 0) row_words[lane >> 3] = word;
-}
-
-__device__ __forceinline__ uint32_t get_nibble(const uint32_t* row_words,
-                                               int lane) {
-  return (row_words[lane >> 3] >> (4 * (lane & 7))) & 0xFu;
-}
-
-// The 4 bytes a thread owns and the byte after them in stream order.
-__device__ __forceinline__ void load4(const Batch& b, int i0, int lane,
-                                      int d[4], int& after) {
-  uint32_t w = *reinterpret_cast<const uint32_t*>(b.data + i0);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) d[q] = (w >> (8 * q)) & 0xFF;
-  after = __shfl_down_sync(kFull, d[0], 1);
-  if (lane == 31) after = i0 + 4 < b.cap ? b.data[i0 + 4] : 0;
-}
 
 // The tool's 9-bit code of lane l (bit 0 of nib: its match bit): 0 at a
 // match, else (l + 1) * 2 + (l & 1).
@@ -557,141 +563,249 @@ int launch_segment_scan(const Batch& b, int rpb, const int* carry_in, uint16_t* 
   return (int)cudaGetLastError();
 }
 
-// --- T10 noscan2 ---------------------------------------------------------
+// --- T10 noscan2: one launch, a look-back over the blocks' carry maps -------
 
-// The block's carry out for carry in 0 (bit 0) and for 1 (bit 1): its start
-// at last_pos = min(block end, n - 1), which depends on the carry only
-// through the sentinel, when last_pos's row matches up to it. A block with
-// no position below n passes its carry through. One warp per block.
-__global__ void __launch_bounds__(32)
-    row_carry_map(Batch b, int rpb, int* __restrict__ map) {
-  int lane = threadIdx.x;
-  int start = blockIdx.x * rpb * 128;
-  int last_pos = min(start + rpb * 128 - 1, b.n - 1);
-  if (last_pos < start) {
-    if (lane == 0) map[blockIdx.x] = 2;  // 0 -> 0, 1 -> 1
-    return;
-  }
-  int i0 = (last_pos & ~127) + 4 * lane;
-  int d[4], after;
-  load4(b, i0, lane, d, after);
-  int lnm = kNeg;
-  bool m_last = false;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    int v;
-    bool m = pair_at<true>(b, i0 + q, d[q], q < 3 ? d[q + 1] : after, v);
-    if (i0 + q <= last_pos && !m) lnm = i0 + q;
-    if (i0 + q == last_pos) m_last = m;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) lnm = max(lnm, __shfl_xor_sync(kFull, lnm, o));
-  m_last = __any_sync(kFull, m_last);
-  if (lane == 0) {
-    int out = 0;
-    for (int c = 0; c < 2; ++c) {
-      int lz = max(lnm, start - 1 - c);
-      out |= (int)(m_last && ((last_pos - lz) & 1)) << c;
+constexpr int kBlockMap = 4;       // a block's flag: 4 | map (bit c: its carry out for carry c)
+constexpr int kBlockCarry = 8;     // 8 | its carry out
+constexpr int kRowScanUnroll = 2;  // sub-tiles of kTile positions a CTA (of 1-4, PERF.md)
+constexpr int kRowScanTile = kRowScanUnroll * kTile;  // positions of a tile
+constexpr int kRowScanThreads = kThreads + 32;        // 8 data warps and the control warp
+constexpr int kLocalMaps = 3;  // maps of the blocks before a tile computed from their last rows
+// blocks a tile can meet (rpb >= 8: 1024 positions at least)
+constexpr int kRowScanBlocks = kRowScanTile / 1024 + 1;
+
+// f after g, for maps of one bit (bit c: its value at c).
+__device__ __forceinline__ uint32_t compose(uint32_t f, uint32_t g) {
+  return ((f >> (g & 1u)) & 1u) | (((f >> ((g >> 1) & 1u)) & 1u) << 1);
+}
+
+// The carry into block blk, for every lane of one warp: a window of 32
+// flags read at once, nearest first (lane k: block top - k), waited on
+// until every flag up to the nearest that holds a carry is published, then
+// composed from the nearest; the next window where none holds one. Blocks
+// wholly past n (j * seg >= n) pass their carry and hold no flag, and past
+// block 0 the call's carry_in stands as a carry. A flag never published
+// ends the kernel with a fault after 2**26 rounds, never a hang.
+__device__ int carry_into(const int* flags, int blk, int seg, int n,
+                          const int* __restrict__ carry_in) {
+  const int lane = threadIdx.x & 31;
+  const int cin = kBlockCarry | (carry_in[0] != 0);
+  uint32_t g = 2u;  // the identity
+  for (int top = min(blk, n > 0 ? (n - 1) / seg + 1 : 0) - 1;; top -= 32) {
+    const int j = top - lane;
+    int w;
+    uint32_t carries;
+    for (uint32_t tries = 0;; ++tries) {
+      if (tries == (1u << 26)) __trap();
+      w = j >= 0 ? *reinterpret_cast<const volatile int*>(flags + j) : cin;
+      carries = __ballot_sync(kFull, w & kBlockCarry);
+      const uint32_t upto = carries ? (carries & (0u - carries)) * 2u - 1u : kFull;
+      if (!(__ballot_sync(kFull, w == 0) & upto)) break;
     }
-    map[blockIdx.x] = out;
+    // a carry as the constant map
+    const uint32_t f = (w & kBlockCarry) ? ((w & 1) ? 3u : 0u) : (uint32_t)w & 3u;
+    const int last = carries ? __ffs(carries) - 1 : 31;
+    for (int k = 0; k <= last; ++k) g = compose(g, __shfl_sync(kFull, f, k));
+    if (carries) return (int)(g & 1u);
   }
 }
 
-// carries[j] = block j's carry in, from carry_in through each block's map;
-// carry_out = the last block's carry out.
-__global__ void walk_carries(const int* __restrict__ map, int nb,
-                             const int* __restrict__ carry_in,
-                             int* __restrict__ carries,
-                             int* __restrict__ carry_out) {
-  int c = carry_in[0] != 0;
-#pragma unroll 8
-  for (int j = 0; j < nb; ++j) {
-    carries[j] = c;
-    c = (__ldg(map + j) >> c) & 1;
-  }
-  carry_out[0] = c;
+// The start bits of 16 positions from an even one, for block carry 0 and
+// 1, bit-parallel (scan_starts's function, without its 16 steps): a
+// position's last non-match is odd where an odd non-match is followed by
+// matches only up to it (a segmented Kogge-Stone fill of the odd
+// non-matches across the matches), and before the first non-match it is
+// the run coming in: `before` (the row's last non-match before these 16),
+// or where there is none (kNeg) the sentinel s - 1 - c, odd for c = 0 and
+// even for c = 1 (s is even). start = match && (position odd) != (its last
+// non-match odd).
+__device__ __forceinline__ void parity_starts(uint32_t match, int before, uint32_t& st0,
+                                              uint32_t& st1) {
+  constexpr uint32_t kOdd = 0xAAAAu;
+  uint32_t g = ~match & kOdd;  // odd non-matches
+  uint32_t p = match;          // matches carry the fill on
+  g |= p & (g << 1);
+  p &= p << 1;
+  g |= p & (g << 2);
+  p &= p << 2;
+  g |= p & (g << 4);
+  p &= p << 4;
+  g |= p & (g << 8);
+  const uint32_t lead = (~match & (match + 1u)) - 1u;  // the positions before the first non-match
+  const uint32_t odd0 = before != kNeg ? (uint32_t)before & 1u : 1u;
+  const uint32_t odd1 = before != kNeg ? (uint32_t)before & 1u : 0u;
+  st0 = match & (kOdd ^ (g | (odd0 ? lead : 0u))) & 0xFFFFu;
+  st1 = match & (kOdd ^ (g | (odd1 ? lead : 0u))) & 0xFFFFu;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    row_scan_emit(Batch b, int rpb, const int* __restrict__ carries,
-                  uint16_t* __restrict__ slots) {
-  extern __shared__ uint32_t sbits[];  // rpb x 4 words: start bits
-  int lane = threadIdx.x & 31;
-  int warp = threadIdx.x >> 5;
-  int base = blockIdx.x * rpb * 128;
-  int carry = carries[blockIdx.x];
-  int sentinel = base - 1 - carry;
+// The starts of the 16 positions at i0 (one thread of 8 lanes a row; every
+// lane of the warp calls it) for block carry 0 and 1, from its bytes x and
+// the byte after them; vals as staged_pairs's. Lanes that are not live
+// (past cap) hold no match. i0 and the block's start are even and a row
+// never crosses a block, so the sentinel enters only through
+// parity_starts's run.
+__device__ __forceinline__ void row_starts(const Batch& b, int i0, bool live, uint4 x, int after,
+                                           uint32_t vals[kPer / 2], uint32_t& st0,
+                                           uint32_t& st1) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t match = live ? staged_pairs(b, i0, x, after, vals) : 0u;
+  // the row's last non-match before this thread: 8 lanes a row
+  int before = live ? last_nonmatch(i0, match) : kNeg;
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, before, o, 8);
+    if ((lane & 7) >= o) before = max(before, y);
+  }
+  before = __shfl_up_sync(kFull, before, 1, 8);
+  if ((lane & 7) == 0) before = kNeg;
+  parity_starts(match, before, st0, st1);
+}
 
-  // 1. start bits, from the scan within each row
-  for (int j = warp; j < rpb; j += kWarps) {
-    int i0 = base + j * 128 + 4 * lane;
-    int d[4], after;
-    load4(b, i0, lane, d, after);
-    uint32_t nib = 0;
-    int last = kNeg, lastq[4];
+__global__ void __launch_bounds__(kRowScanThreads)
+    row_scan_kernel(Batch b, int seg, int nb, const int* __restrict__ carry_in,
+                    uint16_t* __restrict__ slots, int* __restrict__ carry_out,
+                    int* __restrict__ block_flags, int* __restrict__ ticket) {
+  __shared__ int s_tile;
+  __shared__ uint32_t s_warp_last[kRowScanUnroll][kWarps];  // 2 bits: a warp's last start
+  __shared__ uint32_t s_map[kRowScanBlocks];  // maps of the blocks ending in the tile
+  __shared__ int s_carry[kRowScanBlocks];     // carries into the tile's blocks
+  __shared__ uint32_t s_prev;                 // the start before the tile, 2 bits
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (t == 0) s_tile = atomicAdd(ticket, 1);
+  __syncthreads();
+  const int tile = s_tile;
+  const int base = tile * kRowScanTile;
+  const int blk0 = base / seg;
+
+  uint4 x[kRowScanUnroll];
+  uint32_t vals[kRowScanUnroll][kPer / 2];
+  uint32_t st0[kRowScanUnroll], st1[kRowScanUnroll], up2[kRowScanUnroll];
+  if (warp < kWarps) {
+    // 1. data warps: the pairs, once, and the starts for carry 0 and 1;
+    // thread t owns the 16 positions at u * kTile + 16 t of each sub-tile
+    // u, all loads issued before any is used. A block's map is published
+    // as soon as its last position's thread has it.
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      int v;
-      bool m = pair_at<true>(b, i0 + q, d[q], q < 3 ? d[q + 1] : after, v);
-      nib |= (uint32_t)m << q;
-      if (!m) last = i0 + q;
-      lastq[q] = last;
+    for (int u = 0; u < kRowScanUnroll; ++u) {
+      const int i0 = base + u * kTile + t * kPer;
+      x[u] = i0 < b.cap ? *reinterpret_cast<const uint4*>(b.data + i0) : make_uint4(0, 0, 0, 0);
     }
-    int incl = last;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      int y = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl = max(incl, y);
+    for (int u = 0; u < kRowScanUnroll; ++u) {
+      const int i0 = base + u * kTile + t * kPer;
+      const bool live = i0 < b.cap;
+      int after = __shfl_down_sync(kFull, (int)(x[u].x & 0xFFu), 1);
+      if (lane == 31) after = live && i0 + kPer < b.cap ? b.data[i0 + kPer] : 0;
+      row_starts(b, i0, live, x[u], after, vals[u], st0[u], st1[u]);
+      const uint32_t last2 = ((st0[u] >> (kPer - 1)) & 1u) | (((st1[u] >> (kPer - 1)) & 1u) << 1);
+      up2[u] = __shfl_up_sync(kFull, last2, 1);
+      const int s = i0 / seg * seg;
+      const int last_pos = min(s + seg - 1, b.n - 1);
+      if (live && last_pos >= i0 && last_pos < i0 + kPer) {
+        const int k = last_pos - i0;
+        const uint32_t map = ((st0[u] >> k) & 1u) | (((st1[u] >> k) & 1u) << 1);
+        s_map[i0 / seg - blk0] = map;
+        atomicExch(block_flags + i0 / seg, kBlockMap | (int)map);
+      }
+      if (lane == 31) s_warp_last[u][warp] = last2;
     }
-    int before = __shfl_up_sync(kFull, incl, 1);
-    if (lane == 0) before = kNeg;
-    uint32_t st = 0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      int lz = max(max(before, lastq[q]), sentinel);
-      if (((nib >> q) & 1u) && ((i0 + q - lz) & 1)) st |= 1u << q;
+  } else {
+    // 1. the control warp, while the data warps load: four rows of 8 lanes.
+    // Lanes 0-7: the start before the tile (inside a block: the previous
+    // row's last). Lanes 8-31: the maps of the kLocalMaps nearest blocks
+    // before the tile that hold a position below n, each from the row of
+    // its last position, so the carry into the tile's first block waits on
+    // no flag but those of older blocks (published long before).
+    const int below_n = b.n > 0 ? (b.n - 1) / seg + 1 : 0;
+    const int near = min(blk0, below_n) - 1;  // the nearest such block
+    const int r = lane >> 3;
+    const int j = near - (r - 1);             // row r's block (r >= 1)
+    const int lp = r > 0 && j >= 0 ? min((j + 1) * seg - 1, b.n - 1) : 0;
+    const int row = r == 0 ? base - 128 : (lp & ~127);
+    const bool live = r == 0 ? base % seg != 0 : j >= 0;
+    const int i0 = row + (lane & 7) * kPer;
+    const uint4 h = live ? *reinterpret_cast<const uint4*>(b.data + i0) : make_uint4(0, 0, 0, 0);
+    int after = __shfl_down_sync(kFull, (int)(h.x & 0xFFu), 1);
+    if ((lane & 7) == 7) after = live && i0 + kPer < b.cap ? b.data[i0 + kPer] : 0;
+    const int older = near - kLocalMaps;  // the nearest block whose flag is read
+    int c = older >= 0 ? carry_into(block_flags, older + 1, seg, b.n, carry_in)
+                       : carry_in[0] != 0;
+    uint32_t hv[kPer / 2], h0, h1;
+    row_starts(b, i0, live, h, after, hv, h0, h1);
+    if (lane == 7) s_prev = ((h0 >> (kPer - 1)) & 1u) | (((h1 >> (kPer - 1)) & 1u) << 1);
+    // the local maps, oldest first
+    for (int q = kLocalMaps; q >= 1; --q) {
+      const int jq = near - (q - 1);
+      if (jq < 0) continue;
+      const int lq = min((jq + 1) * seg - 1, b.n - 1);
+      const int holder = 8 * q + (lq & 127) / kPer;  // the lane of jq's last position
+      const uint32_t a0 = __shfl_sync(kFull, h0, holder);
+      const uint32_t a1 = __shfl_sync(kFull, h1, holder);
+      c = (int)(((c ? a1 : a0) >> (lq % kPer)) & 1u);
     }
-    put_nibbles(sbits + 4 * j, st, lane);
+    if (lane == 0) s_carry[0] = c;
   }
   __syncthreads();
 
-  // 2. slots; consumed at the block's first position is its carry
-  for (int j = warp; j < rpb; j += kWarps) {
-    int i0 = base + j * 128 + 4 * lane;
-    uint32_t st = get_nibble(sbits + 4 * j, lane);
-    uint32_t prev = (__shfl_up_sync(kFull, st, 1) >> 3) & 1u;
-    if (lane == 0) prev = j > 0 ? sbits[4 * (j - 1) + 3] >> 31 : (uint32_t)carry;
-    uint32_t consumed = (st << 1) | prev;
-    int d[4], after;
-    load4(b, i0, lane, d, after);
-    uint32_t s[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      int v;
-      pair_at<true>(b, i0 + q, d[q], q < 3 ? d[q + 1] : after, v);
-      s[q] = ((consumed >> q) & 1u) ? 0u
-             : ((st >> q) & 1u)     ? (uint32_t)v & 0xFFFFu
-                                    : (uint32_t)d[q] << 8;
+  // 2. the control warp: the carries into the tile's later blocks, and the
+  // carry out of each block ending here
+  if (warp == kWarps) {
+    const int blk_end = min((base + kRowScanTile - 1) / seg, nb - 1);
+    int c = s_carry[0];
+    for (int j = blk0; j <= blk_end; ++j) {
+      const int lp = min((j + 1) * seg - 1, b.n - 1);
+      if (lane == 0) s_carry[j - blk0] = c;
+      if (lp >= max(j * seg, base) && lp < base + kRowScanTile) {
+        c = (int)((s_map[j - blk0] >> c) & 1u);
+        if (lane == 0) {
+          atomicExch(block_flags + j, kBlockCarry | c);
+          if (lp == b.n - 1) carry_out[0] = c;
+        }
+      } else if (lp >= j * seg && lp < base) {
+        // the first block ended (at n - 1) in an earlier tile: its flag
+        // holds its carry out, and every block after it passes that on
+        c = carry_into(block_flags, j + 1, seg, b.n, carry_in);
+      }
     }
-    *reinterpret_cast<uint2*>(slots + i0) =
-        make_uint2(s[0] | (s[1] << 16), s[2] | (s[3] << 16));
+    if (b.n == 0 && tile == 0 && lane == 0) carry_out[0] = carry_in[0] != 0;
+  }
+  __syncthreads();
+
+  // 3. the slots, with the block's carry
+  if (warp == kWarps) return;
+#pragma unroll
+  for (int u = 0; u < kRowScanUnroll; ++u) {
+    const int i0 = base + u * kTile + t * kPer;
+    if (i0 >= b.cap) break;
+    const int s = i0 / seg * seg;
+    const int c = s_carry[i0 / seg - blk0];
+    const uint32_t starts = c ? st1[u] : st0[u];
+    uint32_t prev;
+    if (i0 == s) {
+      prev = (uint32_t)c;  // consumed at the block's first position: its carry
+    } else {
+      // the lane before, the warp before, the sub-tile before or the row before the tile
+      const uint32_t p2 = lane > 0 ? up2[u]
+                          : warp > 0 ? s_warp_last[u][warp - 1]
+                          : u > 0    ? s_warp_last[u > 0 ? u - 1 : 0][kWarps - 1]
+                                     : s_prev;
+      prev = (p2 >> c) & 1u;
+    }
+    store_slots(slots, i0, x[u], vals[u], starts, (starts << 1) | prev);
   }
 }
 
-int launch_row_scan(const Batch& b, int rpb, const int* carry_in,
-                    uint16_t* slots, int* carry_out, int* scratch,
-                    cudaStream_t s) {
-  int nb = b.cap / (rpb * 128);
-  int* map = scratch;
-  int* carries = scratch + nb;
-  row_carry_map<<<nb, 32, 0, s>>>(b, rpb, map);
-  int err = (int)cudaGetLastError();
+int launch_row_scan(const Batch& b, int rpb, const int* carry_in, uint16_t* slots,
+                    int* carry_out, int* scratch, cudaStream_t s) {
+  const int seg = rpb * 128;
+  const int nb = b.cap / seg;
+  const int tiles = (b.cap + kRowScanTile - 1) / kRowScanTile;
+  int err = (int)cudaMemsetAsync(scratch, 0, (size_t)(nb + 1) * sizeof(int), s);
   if (err) return err;
-  walk_carries<<<1, 1, 0, s>>>(map, nb, carry_in, carries, carry_out);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  row_scan_emit<<<nb, kThreads, (size_t)rpb * 4 * sizeof(uint32_t), s>>>(
-      b, rpb, carries, slots);
+  row_scan_kernel<<<tiles, kRowScanThreads, 0, s>>>(b, seg, nb, carry_in, slots, carry_out,
+                                                    scratch, scratch + nb);
   return (int)cudaGetLastError();
 }
 
@@ -922,8 +1036,10 @@ extern "C" int blt_scan16_ctas_per_sm(int* ctas) { return segment_ctas_per_sm<fa
 
 extern "C" int blt_swarpack_ctas_per_sm(int* ctas) { return segment_ctas_per_sm<true>(ctas); }
 
-// noscan2 (T10): arguments as blt_block_scan, scratch 2 * cap / (rpb * 128)
-// int32. Returns the first nonzero cudaGetLastError() of the launches.
+// noscan2 (T10): arguments as blt_block_scan; scratch: blocks + 1 int32
+// (cap / (rpb * 128); tools_cuda.row_scan_plan), the blocks' flags and the
+// ticket, zeroed on the stream before the launch. Returns the first nonzero CUDA error of the memset and the
+// launch.
 extern "C" int blt_row_scan(const void* data, int cap, int n, int next_byte,
                             const void* table, const void* carry_in,
                             void* slots, void* carry_out, void* scratch,
@@ -931,6 +1047,13 @@ extern "C" int blt_row_scan(const void* data, int cap, int n, int next_byte,
   Batch b{(const uint8_t*)data, (const uint16_t*)table, cap, n, next_byte};
   return launch_row_scan(b, rpb, (const int*)carry_in, (uint16_t*)slots,
                          (int*)carry_out, (int*)scratch, (cudaStream_t)stream);
+}
+
+// CTAs of noscan2's kernel that one SM of the current device holds at once,
+// as the CUDA runtime computes them. Returns the first nonzero CUDA error.
+extern "C" int blt_row_scan_ctas_per_sm(int* ctas) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, row_scan_kernel,
+                                                            kRowScanThreads, 0);
 }
 
 // T12: bf16 0 for the int32 scan, 1 for the bf16x2 one. mask, out: rows x

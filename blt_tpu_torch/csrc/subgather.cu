@@ -49,9 +49,21 @@
 // ops/tools_cuda.py::subgather_plan mirrors the width, the jobs and the
 // shared memory for the CPU tests, which replay each job's staging.
 //
-// Direct path: each thread takes 4 consecutive elements of a row per step
-// (one int4 of indices, four 4-byte gathers through the read-only cache,
-// one int4 store) in a grid-stride loop sized to the card.
+// Blocks too tall for one SM's slab (a 16384-row slab of 8 columns is 512
+// KiB against an SM's 227) take the direct path. A thread-block cluster
+// holding the slab across its CTAs' shared memory, each element read from
+// its owner by ld.shared::cluster, was exact but ran 0.30-0.45 ms in every
+// shape at rpb 16384 on an H100 80GB HBM3 at 700 W (PERF.md, PR 14): a
+// random 4-byte read of a peer's row costs more than the L2 read it saves.
+//
+// Direct path: a CTA takes kDirectUnroll x kDirectThreads consecutive
+// 16-byte vectors (4 elements of a row each: one int4 of indices, four
+// 4-byte gathers through the read-only cache, one int4 store), CTAs in
+// launch order, so the rows in flight are a narrow band and the table of
+// one or two blocks stays in L2 (the grid-stride loop it replaced spread
+// every block's table over L2 at once: 0.288 ms at rpb 16384, 0.157-0.159
+// now, level with torch.gather's 0.157-0.159, on the same card). The block of a CTA's
+// first row is divided out once.
 
 #include <atomic>
 #include <climits>
@@ -68,6 +80,7 @@ constexpr int kThreads = 256;            // slab path
 constexpr int kBoxRows = 32;            // rows per tensor load
 constexpr int kSmemBytes = 226 * 1024;  // a job's tile and slab (1 KiB of 227 left)
 constexpr int kDirectThreads = 256;
+constexpr int kDirectUnroll = 2;        // int4 vectors a thread of the direct path (of 1-8, PERF.md)
 
 // The row of the block that index x reaches, or -1 (the fill).
 __device__ __forceinline__ int reach(int x, int rpb) {
@@ -164,22 +177,38 @@ __device__ __forceinline__ int gather_one(const int* __restrict__ tbl,
   return r < 0 ? INT_MIN : __ldg(tbl + (block_row + r) * kLanes + col);
 }
 
+// A CTA a span of kDirectUnroll * kDirectThreads consecutive vectors,
+// launched in order: the rows in flight at once are a band of a few
+// thousand, so the table of one or two blocks stays in L2. The block of the
+// span's first row is divided out once; the span's 16 rows cross a block's
+// end at most once where rpb >= 16.
 __global__ void __launch_bounds__(kDirectThreads)
     subgather_direct_kernel(const int* __restrict__ tbl, const int4* __restrict__ idx,
                             int4* __restrict__ out, int64_t nvec, int rpb,
                             int* __restrict__ done, int last_step) {
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < nvec;
-       v += stride) {
-    int64_t e = 4 * v;
-    int64_t row = e / kLanes;
-    int col = (int)(e % kLanes);
-    int64_t block_row = row - row % rpb;
-    int4 x = idx[v];
-    out[v] = make_int4(gather_one(tbl, block_row, rpb, x.x, col),
-                       gather_one(tbl, block_row, rpb, x.y, col + 1),
-                       gather_one(tbl, block_row, rpb, x.z, col + 2),
-                       gather_one(tbl, block_row, rpb, x.w, col + 3));
+  constexpr int kSpan = kDirectUnroll * kDirectThreads;  // vectors a CTA
+  const int64_t v0 = (int64_t)blockIdx.x * kSpan + threadIdx.x;
+  const int64_t first_row = (int64_t)blockIdx.x * kSpan * 4 / kLanes;
+  const int64_t block_row = first_row / rpb * rpb;
+  int4 x[kDirectUnroll];
+#pragma unroll
+  for (int u = 0; u < kDirectUnroll; ++u) {
+    const int64_t v = v0 + u * kDirectThreads;
+    x[u] = v < nvec ? __ldg(idx + v) : make_int4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int u = 0; u < kDirectUnroll; ++u) {
+    const int64_t v = v0 + u * kDirectThreads;
+    if (v >= nvec) break;
+    const int64_t row = v * 4 / kLanes;
+    int64_t b = block_row;
+    while (row >= b + rpb) b += rpb;
+    const int col = (int)(v * 4 % kLanes);
+    const int4 y = make_int4(gather_one(tbl, b, rpb, x[u].x, col),
+                             gather_one(tbl, b, rpb, x[u].y, col + 1),
+                             gather_one(tbl, b, rpb, x[u].z, col + 2),
+                             gather_one(tbl, b, rpb, x[u].w, col + 3));
+    out[v] = y;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) done[0] = last_step;
 }
@@ -273,10 +302,11 @@ extern "C" int blt_subgather(const void* tbl, const void* idx, void* out, int64_
     case 0: break;
     default: return (int)cudaErrorInvalidValue;
   }
-  int64_t nvec = rows * kLanes / 4;
-  int64_t want = (nvec + kDirectThreads - 1) / kDirectThreads;
-  int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  subgather_direct_kernel<<<blocks, kDirectThreads, 0, s>>>(
+  const int64_t nvec = rows * kLanes / 4;
+  const int64_t blocks = (nvec + kDirectUnroll * kDirectThreads - 1) /
+                         (kDirectUnroll * kDirectThreads);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  subgather_direct_kernel<<<(int)blocks, kDirectThreads, 0, s>>>(
       t, (const int4*)x, (int4*)o, nvec, rpb, d, (int)(rows / rpb - 1));
   return (int)cudaGetLastError();
 }

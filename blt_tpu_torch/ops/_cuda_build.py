@@ -164,8 +164,8 @@ def load() -> ctypes.CDLL:
 
 # the occupancy query of each one-launch look-back kernel, by the source
 # that holds it, and of the Hopper designs of T13's chain, T6's two
-# block-local scans, T12's two mask scans and T3's probes (the least of the
-# eight)
+# block-local scans, T12's two mask scans, T3's probes (the least of the
+# eight) and T10's noscan2
 CTAS_PER_SM = {
     "token_pass_gap": "blt_token_pass_gap_ctas_per_sm",
     "token_pass": "blt_token_pass_ctas_per_sm",
@@ -176,6 +176,7 @@ CTAS_PER_SM = {
     "mask_scan_i32": "blt_mask_scan_i32_ctas_per_sm",
     "mask_scan_bf16": "blt_mask_scan_bf16_ctas_per_sm",
     "probe16": "blt_probe16_ctas_per_sm",
+    "row_scan": "blt_row_scan_ctas_per_sm",
 }
 
 

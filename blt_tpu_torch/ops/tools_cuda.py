@@ -20,9 +20,10 @@ These wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
   ``tools/exp_scan.py``); T6's other variants are flag sets of
   ``bpe_cuda.flat_encode_slots``;
 - ``row_scan``: T10's noscan2, the flat pass with the scan's row phase alone
-  and a carry chained from block to block (``scan_parts.cu``;
-  ``tools/exp_chd.py``); T10's prod and novalid are flag sets of
-  ``bpe_cuda.flat_encode_slots``;
+  and a carry chained from block to block, one launch in which tiles taken
+  from a ticket find their block's carry by a look-back over the blocks'
+  carry maps (``row_scan_plan``; ``scan_parts.cu``; ``tools/exp_chd.py``);
+  T10's prod and novalid are flag sets of ``bpe_cuda.flat_encode_slots``;
 - ``mask_scan``: T12, the block-local parity scan of a u8 mask in int32 or
   in bf16 pairs, one launch in which tiles taken from a ticket carry the
   parity of their last zero by a decoupled look-back (``mask_scan_plan``;
@@ -447,6 +448,23 @@ def row_scan_plain(
     return slot.to(torch.uint16), carry[nb:].to(torch.int32).reshape(1, 1)
 
 
+# row_scan's tile (scan_parts.cu's kRowScanTile: kRowScanUnroll sub-tiles
+# of 256 threads x 16 positions), one CTA each
+ROW_SCAN_UNROLL = 2
+ROW_SCAN_TILE = ROW_SCAN_UNROLL * 256 * 16
+
+
+def row_scan_plan(positions: int, rpb: int) -> dict:
+    """The launch ``row_scan`` makes for a buffer of ``positions`` bytes in
+    blocks of ``rpb`` rows: the tiles (``tiles``, one CTA each, taken from a
+    ticket in order; the last may be partial), the blocks (``blocks``) and
+    the scratch in int32 words (``scratch``: a flag a block, then the
+    ticket)."""
+    tiles = -(-positions // ROW_SCAN_TILE)
+    blocks = positions // (rpb * LANES)
+    return {"tiles": tiles, "blocks": blocks, "scratch": blocks + 1}
+
+
 def row_scan(
     data: torch.Tensor,
     n: int,
@@ -456,9 +474,9 @@ def row_scan(
     rpb: int = 1024,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """noscan2: kernel on CUDA tensors, plain on CPU tensors; counted under
-    ``launches["chd_noscan2"]`` (three launches on one stream: each block's
-    carry map, the walk over the blocks, the slots). Arguments and results
-    as ``row_scan_plain``; ``carry_in`` is read on the device."""
+    ``launches["chd_noscan2"]`` (one launch after one memset of its flags
+    and ticket, ``row_scan_plan``). Arguments and results as
+    ``row_scan_plain``; ``carry_in`` is read on the device."""
     on_cuda = check_flat(data, n, next_byte, table, carry_in)
     _check_block_scan("noscan2", data.numel(), rpb, ("noscan2",))
     if not on_cuda:
@@ -467,7 +485,7 @@ def row_scan(
     dev = data.device
     slots = torch.empty(cap, dtype=torch.uint16, device=dev)
     carry_out = torch.empty((1, 1), dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * (cap // (rpb * LANES)), dtype=torch.int32, device=dev)
+    scratch = torch.empty(row_scan_plan(cap, rpb)["scratch"], dtype=torch.int32, device=dev)
     carry_in = carry_in.contiguous()
     lib = _cuda_build.load()
     with torch.cuda.device(dev):

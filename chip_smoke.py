@@ -16,7 +16,7 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    kernels' TMA loads (``UTMALDG``) in the library's SASS (``cuobjdump``),
    failing on none; ptxas's registers and spills and the CTAs per SM of
    the redesigned tool kernels (T13's chain, T6's two segment scans, T12's
-   two mask scans, T3's and T11's eight probes); builds
+   two mask scans, T3's and T11's eight probes, T10's ``noscan2``); builds
    the 8000-rule hierarchical table of leg 4 and checks on the host that
    cuckoo32 places it at 8192 slots;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
@@ -59,17 +59,20 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    T1's copy chained 1 and 3 times over one row, one stage + 128 B and 64
    MiB + 128 B, T7 over one grid step at each of those rpb and over three
    steps of one stage + 128 B; the T8 variants over every flat case of phase 3,
-   ``full`` against K2; T9 on in-block and out-of-block indices at
-   rows_per_block 8, 16, 1024, 2048 and 4096 (its slab path) and 16384
-   (its direct path); T5 in
+   ``full`` against K2; T9 on in-block, +-2 rpb and full-int32 indices at
+   rows_per_block 8, 16, 1024, 2048 and 4096 (its slab path), 7240, 10000
+   and 16384 (its direct path); T5 in
    int32, int16 and int8 over each type's whole range, chained 1 and 3
    times; the five T4 variants over every token-pass case of phase 3,
    ``full`` against K4; the six T6 variants over every flat case of phase
    3, the two block-local ones at rows_per_block 8 and 1024, ``full``
    against K2; the four T2 variants over every flat case, each against its
    plain version and against K2 with its starts byteswapped; T10's ``prod``
-   against K2, ``novalid`` and ``noscan2`` (rows_per_block 8 and 1024)
-   against their plain versions; T12's two scans at rows_per_block 8, 24,
+   against K2, ``novalid`` and ``noscan2`` (rows_per_block 8, 16 and 1024)
+   against their plain versions, and ``noscan2`` on the card tests' segment
+   cases as T6's (n at the capacity, 3001 and 1, both carries, next_byte -1
+   and 98, an all-match buffer, chains of 4 replayed from a CUDA graph);
+   T12's two scans at rows_per_block 8, 24,
    1016 and 1024 on random masks of density 0, 0.3, 0.7 and 1, single
    links and chained 1 and 3 times, and a chain of 4 replayed from a CUDA
    graph; T13's five lookups on p inside and outside [0, 65536), once
@@ -80,8 +83,8 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    (b) the launch counters set to 0, then the twelve ported tools' and
    ``exp_lookback``'s measurements in this process at the originals' sizes (K5, T1 and
    K2 chained 96 / 96 / 24 times, T7 at rows_per_block 512 / 2048 / 8192,
-   the T8 variants chained 8 times and T9 8 times at 64 MiB (and once at
-   16384 rows per block, its direct path); T5 on 16384 x
+   the T8 variants chained 8 times and T9 8 times at 64 MiB (and at 16384
+   rows per block, its direct path); T5 on 16384 x
    128 chained 64 times; T4 on 8 Mi tokens chained 8 times; T6 at 64 MiB
    chained 64 times; T2 and T10 at 64 MiB chained 8 times; T12 at 64 MiB
    chained 64 times; T13 and T14, with the original's three library rows,
@@ -145,12 +148,13 @@ def fail(msg: str) -> None:
 # _cuda_build.CTAS_PER_SM): the main path's three one-launch look-back
 # kernels, and the Hopper designs of T13's chain, T6's scan16 and swarpack
 # (T6's CTAs per SM at rpb 1024, swarpack's largest shared memory), T12's
-# two mask scans and T3's and T11's eight probes (their CTAs per SM: the
-# least of the eight)
+# two mask scans, T3's and T11's eight probes (their CTAs per SM: the
+# least of the eight) and T10's noscan2
 LOOK_BACK_KERNELS = (("K3", "token_pass_gap", "tile_lookback", "token_pass_gap"),
                      ("K4", "token_pass", "tile_lookback", "token_pass"),
                      ("K2_packed", "flat_bpe", "flat_packed_kernel", "flat_bpe"))
 REDESIGNED_TOOL_KERNELS = (("lookup_chain", "lookup", "chain_kernel", "lookup_chain"),
+                           ("noscan2", "scan_parts", "row_scan_kernel", "row_scan"),
                            ("scan16", "scan_parts", "segment_scanILb0E", "scan16"),
                            ("swarpack", "scan_parts", "segment_scanILb1E", "swarpack"),
                            ("mask_scan_i32", "scan_parts", "mask_scan_i32", "mask_scan_i32"),
@@ -1161,17 +1165,18 @@ def phase_measure(corpus, flat_cases, token_cases, err):
              f"{what}, vs K2")
         hold("chd_novalid", exp_chd.chd_pass("novalid", data, n, nb, table, c),
              exp_chd.chd_pass_plain("novalid", data, n, nb, table, c), what)
-        for rpb in (8, 1024):
+        for rpb in (8, 16, 1024):
             if data.numel() % (rpb * 128) == 0:
                 hold("chd_noscan2", exp_chd.chd_pass("noscan2", data, n, nb, table, c, rpb),
                      exp_chd.chd_pass_plain("noscan2", data, n, nb, table, c, rpb),
                      f"{what} rpb={rpb}")
-    # T6's scan16 and swarpack on the card tests' segment cases: rpb 8, 16
-    # and 1024; n at the capacity, 3001 and 1; carry 0 and 1; next_byte -1
-    # and 98; buffers whose every segment ends in a start (its last row all
-    # (a, a) after (x, a) at an even position, its last pair (a, b) a rule:
-    # in swarpack too) and an all-match run; then chains of 4 replayed from
-    # a CUDA graph
+    # T6's scan16 and swarpack, and T10's noscan2, on the card tests'
+    # segment cases: rpb 8, 16 and 1024; n at the capacity, 3001 and 1;
+    # carry 0 and 1; next_byte -1 and 98; buffers whose every segment ends
+    # in a start (its last row all (a, a) after (x, a) at an even position,
+    # its last pair (a, b) a rule: in swarpack too) and an all-match run
+    # (noscan2's worst case: every block's carry depends on the one
+    # before); then chains of 4 replayed from a CUDA graph
     seg_table = wire_table(MergeTable.build(SEGMENT_MERGES).dense, dev)
     seg_rng = np.random.default_rng(30)
     for rpb in (8, 16, 1024):
@@ -1187,10 +1192,23 @@ def phase_measure(corpus, flat_cases, token_cases, err):
             d = torch.from_numpy(buf).to(dev)
             for n, carry, nb in itertools.product((d.numel(), 3001, 1), (0, 1), (-1, 98)):
                 c = torch.tensor([[carry]], dtype=torch.int32, device=dev)
+                what = f"{name}, rpb={rpb} n={n} carry={carry} next_byte={nb}"
                 for v in tools_cuda.BLOCK_SCANS:
                     hold(f"scan_parts_{v}", tools_cuda.block_scan(v, d, n, nb, seg_table, c, rpb),
-                         tools_cuda.block_scan_plain(v, d, n, nb, seg_table, c, rpb),
-                         f"{name}, rpb={rpb} n={n} carry={carry} next_byte={nb}")
+                         tools_cuda.block_scan_plain(v, d, n, nb, seg_table, c, rpb), what)
+                hold("chd_noscan2", tools_cuda.row_scan(d, n, nb, seg_table, c, rpb),
+                     tools_cuda.row_scan_plain(d, n, nb, seg_table, c, rpb), what)
+        # noscan2's look-back over identity maps with constants among them:
+        # 512 blocks all match but for a space in the last row of every
+        # fifth, so a carry found far back is overridden by a nearer map
+        mixed = np.full(512 * seg, 97, np.uint8)
+        mixed[np.arange(2, 512, 5) * seg + seg - 88] = 32
+        d = torch.from_numpy(mixed).to(dev)
+        for carry in (0, 1):
+            c = torch.tensor([[carry]], dtype=torch.int32, device=dev)
+            hold("chd_noscan2", tools_cuda.row_scan(d, d.numel(), -1, seg_table, c, rpb),
+                 tools_cuda.row_scan_plain(d, d.numel(), -1, seg_table, c, rpb),
+                 f"identity and constant maps, rpb={rpb} carry={carry}")
         d = torch.from_numpy(text[: 16 * seg]).to(dev)
         c = torch.ones((1, 1), dtype=torch.int32, device=dev)
         for v in tools_cuda.BLOCK_SCANS:
@@ -1201,19 +1219,29 @@ def phase_measure(corpus, flat_cases, token_cases, err):
                 fail(f"scan_parts_{v}: a chain of 4 at rpb {rpb} does not replay exactly")
             hold(f"scan_parts_{v}", exp_scan.chain(v, d, d.numel() - 3, 98, seg_table, c, 4, rpb),
                  expect, f"rpb={rpb} chained 4")
-    # T9: in-block and out-of-block indices, 16 MiB of each; the slab path
-    # at 8 columns (rpb 8, 16, 1024, 2048) and 4 (4096), the direct path
-    # (16384)
+        expect = bpe_cuda.chain_passes(lambda c: exp_chd.chd_pass_plain(
+            "noscan2", d, d.numel() - 3, 98, seg_table, c, rpb), c, 4)
+        replay = time_chain(lambda: exp_chd.chain("noscan2", d, d.numel() - 3, 98, seg_table, c,
+                                                  4, rpb), 4, d.numel(), dev, expect)
+        if not replay["exact"] or replay["graph"] is None:
+            fail(f"chd_noscan2: a chain of 4 at rpb {rpb} does not replay exactly")
+        hold("chd_noscan2", exp_chd.chain("noscan2", d, d.numel() - 3, 98, seg_table, c, 4, rpb),
+             expect, f"rpb={rpb} chained 4")
+    # T9: in-block, +-2 rpb and full-int32 indices on two blocks or 16 MiB;
+    # the slab path at 8 columns (rpb 8, 16, 1024, 2048) and 4 (4096); past
+    # one CTA's slab the direct path (7240: some CTAs' spans of 16 rows
+    # cross a block's end; 10000 and 16384)
     rng = np.random.default_rng(9)
-    rows = 16 * MIB // 512
-    tbl = torch.from_numpy(rng.integers(0, 1 << 30, (rows, 128), dtype=np.int32)).to(dev)
-    for rpb in (8, 16, 1024, 2048, 4096, exp_parts.SUBGATHER_DIRECT_RPB):
+    for rpb in (8, 16, 1024, 2048, 4096, 7240, 10000, exp_parts.SUBGATHER_DIRECT_RPB):
+        rows = max(2 * rpb, 16 * MIB // 512 // rpb * rpb)
+        tbl = torch.from_numpy(rng.integers(0, 1 << 30, (rows, 128), dtype=np.int32)).to(dev)
         name = tools_cuda.subgather_plan(rows, rpb)["kernel"]
         for lo, hi in ((0, rpb), (-2 * rpb, 2 * rpb), (-(2**31), 2**31 - 1)):
             idx = torch.from_numpy(
                 rng.integers(lo, hi, (rows, 128), dtype=np.int64).astype(np.int32)).to(dev)
             hold(name, tools_cuda.subgather(tbl, idx, rpb),
                  tools_cuda.subgather_plain(tbl, idx, rpb), f"rpb={rpb} idx in [{lo}, {hi})")
+        del tbl, idx
     # T5: each type over its whole range, so the multiply and the add wrap
     for name in tools_cuda.MIX_DTYPES:
         info = np.iinfo(name)

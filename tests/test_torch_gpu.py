@@ -286,9 +286,10 @@ def test_probe_kernels_equal_plain_versions(cuda):
 
 
 # T9's slab path at rpb 8, 16, 1000 (not a multiple of a box's rows), 1024
-# and 2048 (8 columns), 4096 (4 columns), and 16384 (no job fits: the
-# direct path)
-SUBGATHER_RPBS = (8, 16, 1000, 1024, 2048, 4096, 16384)
+# and 2048 (8 columns), 4096 (4 columns); 7240, 10000 and 16384 (no job
+# fits: the direct path; at 7240 some CTAs' spans of 16 rows cross a
+# block's end)
+SUBGATHER_RPBS = (8, 16, 1000, 1024, 2048, 4096, 7240, 10000, 16384)
 
 
 @pytest.mark.parametrize("rpb", SUBGATHER_RPBS)
@@ -302,7 +303,7 @@ def test_subgather_paths_equal_plain_version(cuda, rpb):
     ranges = ((0, 8), (0, rpb), (-rpb, 0), (rpb, 2**31 - 1), (-(2**31), 2**31 - 1),
               (-2 * rpb, 2 * rpb))
     kernel = tools_cuda.subgather_plan(rows, rpb)["kernel"]
-    assert (kernel == "subgather_direct") == (rpb == 16384)
+    assert (kernel == "subgather_direct") == (rpb > 7232)
     tools_cuda.reset_launches()
     for lo, hi in ranges:
         idx = torch.from_numpy(
@@ -707,6 +708,39 @@ def _segment_buffer(rpb, segments, seed):
         data[s - 129 : s] = ord("a")
         data[s] = ord("b")
     return data
+
+
+def test_row_scan_equals_plain_version_on_segment_cases(cuda):
+    """T10's noscan2 (one launch, a look-back over the blocks' carry maps)
+    at rows_per_block 8, 16, 24 and 1024 on T6's segment cases, an
+    all-match buffer and one whose every fifth block has a space in its
+    last row (constant maps among identities): n at the capacity, 3001 and
+    1, carry 0 and 1, next_byte -1 and 98; then chains of 4 replayed from a
+    CUDA graph."""
+    table = wire_table(MergeTable.build(MERGES).dense, cuda)
+    tools_cuda.reset_launches()
+    for rpb in (8, 16, 24, 1024):
+        seg = rpb * 128
+        mixed = np.full(64 * seg, 97, np.uint8)
+        mixed[np.arange(2, 64, 5) * seg + seg - 88] = 32
+        for data in (_segment_buffer(rpb, 64 if rpb < 1024 else 3, rpb),
+                     np.full(3 * seg, 97, np.uint8), mixed):
+            d = torch.from_numpy(data).to(cuda)
+            for n, carry, nb in itertools.product((d.numel(), 3001, 1), (0, 1), (-1, 98)):
+                c = torch.tensor([[carry]], dtype=torch.int32, device=cuda)
+                assert _equal(tools_cuda.row_scan(d, n, nb, table, c, rpb),
+                              tools_cuda.row_scan_plain(d, n, nb, table, c, rpb)), (rpb, n, carry,
+                                                                                    nb)
+    assert tools_cuda.launches["chd_noscan2"] == 144
+    for rpb in (8, 16, 1024):
+        d = torch.from_numpy(_segment_buffer(rpb, 16, 30 + rpb)).to(cuda)
+        c = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+        expect = bpe_cuda.chain_passes(lambda c, d=d, rpb=rpb: tools_cuda.row_scan_plain(
+            d, d.numel() - 3, 98, table, c, rpb), c, 4)
+        timing = _common.time_chain(
+            lambda d=d, rpb=rpb: exp_chd.chain("noscan2", d, d.numel() - 3, 98, table, c, 4, rpb),
+            4, d.numel(), cuda, expect)
+        assert timing["exact"] and timing["graph"] is not None, rpb
 
 
 def test_block_scans_equal_plain_version_on_segment_cases(cuda):

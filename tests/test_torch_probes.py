@@ -8,8 +8,11 @@ plain PyTorch versions, held here against the JAX tools' own kernel bodies
 wrapped in ``pl.pallas_call(..., interpret=True)`` with the tools'
 BlockSpecs, at a few blocks of 8 rows. Every comparison is exact (tolerance
 0): every value is an integer. Inputs come from numpy ``default_rng(seed)``.
-The CUDA kernels themselves are held against the plain versions by
-tests/test_torch_gpu.py and ``chip_smoke.py``.
+T9's two paths are mirrored on the host: each (block, slab) job's staged
+rows, and the direct path's spans of vectors with the block divided out
+once a span, gathered by that arithmetic alone against ``subgather_plain``
+and the Pallas body. The CUDA kernels themselves are held against the plain
+versions by tests/test_torch_gpu.py and ``chip_smoke.py``.
 
 Then ``exp_pack`` runs as a process on the CPU (``exp_parts`` as a process
 is in tests/test_torch_tools.py).
@@ -155,6 +158,15 @@ def test_subgather_mirror_constants_are_the_kernels():
                       "kSmemBytes": tools_cuda.SUBGATHER_SMEM_BYTES}
     # the widths the C entry instantiates
     assert set(re.findall(r"case (\d+): return launch_slab", src)) == {"8", "4"}
+    # the direct path's span, and its one division by rpb a CTA
+    consts = {name: int(v) for name, v in
+              re.findall(r"constexpr int (kDirectThreads|kDirectUnroll) = (\d+);", src)}
+    assert consts == {"kDirectThreads": DIRECT_THREADS, "kDirectUnroll": DIRECT_UNROLL}
+    direct = src[src.index("subgather_direct_kernel("):src.index("// cuTensorMapEncodeTiled")]
+    assert direct.count("/ rpb") == 1 and "% rpb" not in direct
+    assert "const int64_t block_row = first_row / rpb * rpb;" in direct
+    # nothing but the slab and the direct path
+    assert "cluster" not in src[src.index("#include"):]
 
 
 @pytest.mark.parametrize("rpb, width", [(8, 8), (16, 8), (1000, 8), (1024, 8), (2048, 8),
@@ -248,6 +260,55 @@ def test_slab_jobs_stage_the_rows_they_reach(rpb, name):
     got = _gather_by_plan(tbl, idx, rpb)
     assert np.array_equal(got, tools_cuda.subgather_plain(_t(tbl), _t(idx), rpb)[0].numpy())
     assert np.array_equal(got, _subgather_pallas(tbl, idx, rpb)[0])
+
+
+# subgather.cu's direct path: threads a CTA, int4 vectors a thread
+DIRECT_THREADS, DIRECT_UNROLL = 256, 2
+
+
+def _gather_by_spans(tbl, idx, rpb):
+    """The direct path's arithmetic on the host: CTA k takes the
+    DIRECT_UNROLL * DIRECT_THREADS vectors from k times that (4 elements of
+    a row each), divides out the block of its first row once, and steps a
+    vector's block on from there by whole blocks; each element reads its
+    block's row, or is the fill. Returns the output and the most blocks a
+    span's vectors stepped over."""
+    span = DIRECT_UNROLL * DIRECT_THREADS
+    nvec = idx.size // 4
+    v = np.arange(nvec, dtype=np.int64)
+    first_row = v // span * span * 4 // LANES
+    block_row = first_row // rpb * rpb
+    row = v * 4 // LANES
+    steps = (row - block_row) // rpb  # the kernel's `while (row >= b + rpb) b += rpb`
+    b = block_row + steps * rpb
+    assert ((b <= row) & (row < b + rpb)).all()
+    x = idx.reshape(nvec, 4).astype(np.int64)
+    r = np.where(x < 0, x + rpb, x)
+    inside = (x >= -rpb) & (x < rpb)
+    col = (v * 4 % LANES)[:, None] + np.arange(4)
+    src = np.where(inside, b[:, None] + r, 0) * LANES + col
+    out = np.where(inside, tbl.reshape(-1)[src], INT32_MIN)
+    return out.reshape(idx.shape).astype(np.int32), int(steps.max())
+
+
+@pytest.mark.parametrize("name", list(SLAB_RANGES))
+@pytest.mark.parametrize("rpb", [8, 24, 7233, 7240, 16384])
+def test_direct_spans_gather_what_plain_and_the_tool_body_give(rpb, name):
+    """The direct path's spans on two blocks (three at rpb 8 and 24): 16
+    rows a span, so at rpb 8 a span steps over a block's end and at 24,
+    7233 and 7240 some spans start off a block's start; gathering by that
+    arithmetic gives subgather_plain and, at the small blocks, the Pallas
+    body in interpret mode."""
+    lo, hi = SLAB_RANGES[name](rpb)
+    rng = np.random.default_rng(rpb + len(name))
+    rows = (3 if rpb < 1024 else 2) * rpb
+    tbl = _table(7, rows)
+    idx = rng.integers(lo, hi, (rows, LANES), dtype=np.int64).astype(np.int32)
+    got, steps = _gather_by_spans(tbl, idx, rpb)
+    assert steps == (0 if rpb == 16384 else 1)
+    assert np.array_equal(got, tools_cuda.subgather_plain(_t(tbl), _t(idx), rpb)[0].numpy())
+    if rpb < 1024:
+        assert np.array_equal(got, _subgather_pallas(tbl, idx, rpb)[0])
 
 
 # --- T5: the op mix --------------------------------------------------------------
