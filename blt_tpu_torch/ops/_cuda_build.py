@@ -165,7 +165,7 @@ def load() -> ctypes.CDLL:
 # the occupancy query of each one-launch look-back kernel, by the source
 # that holds it, and of the Hopper designs of T13's chain, T6's two
 # block-local scans, T12's two mask scans, T3's probes (the least of the
-# eight) and T10's noscan2
+# eight), T10's noscan2 and T5's int16 and int8 mixes
 CTAS_PER_SM = {
     "token_pass_gap": "blt_token_pass_gap_ctas_per_sm",
     "token_pass": "blt_token_pass_ctas_per_sm",
@@ -177,6 +177,8 @@ CTAS_PER_SM = {
     "mask_scan_bf16": "blt_mask_scan_bf16_ctas_per_sm",
     "probe16": "blt_probe16_ctas_per_sm",
     "row_scan": "blt_row_scan_ctas_per_sm",
+    "op_mix16": "blt_op_mix16_ctas_per_sm",
+    "op_mix8": "blt_op_mix8_ctas_per_sm",
 }
 
 
@@ -211,12 +213,13 @@ def kernel_resources(stem: str) -> dict:
     return out
 
 
-def sass_counts(match: str, opcodes: tuple) -> dict | None:
+def sass_counts(match: str, opcodes: tuple | None) -> dict | None:
     """How many instructions of each of ``opcodes`` (SASS mnemonics, such as
     ``HGMMA`` and ``IGMMA`` for ``wgmma``, ``UBLKCP`` for ``cp.async.bulk``)
     the built library's SASS holds, by kernel (mangled names containing
-    ``match``), from ``cuobjdump -sass``; None where the toolkit has no
-    cuobjdump."""
+    ``match``), from ``cuobjdump -sass``; with ``opcodes`` None, every
+    opcode's count (the mnemonic before its first dot); None where the
+    toolkit has no cuobjdump."""
     tool = Path(_nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return None
@@ -228,7 +231,11 @@ def sass_counts(match: str, opcodes: tuple) -> dict | None:
         if m:
             name = m.group(1) if match in m.group(1) else None
             if name:
-                out[name] = dict.fromkeys(opcodes, 0)
+                out[name] = dict.fromkeys(opcodes or (), 0)
+        elif name and opcodes is None:
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if m:
+                out[name][m.group(1)] = out[name].get(m.group(1), 0) + 1
         elif name:
             for op in opcodes:
                 if re.search(rf"\b{op}\.", line):

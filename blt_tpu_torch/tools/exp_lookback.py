@@ -1,11 +1,12 @@
-"""The main path's one-launch K2 and K4 beside their three-launch designs, chained.
+"""The main path's one-launch K2 and K4 beside their three-launch designs, chained;
+K2's standalone pack.
 
     python -m blt_tpu_torch.tools.exp_lookback [--size-mib 64] [--k 8] [--seed 0]
         [--device cuda|cpu]
 
 Two pairs of rows, each pair computing one function two ways in the same
-run, timed as launched and as a CUDA-graph replay beside the plain version
-and the bound:
+run, and one row of K2's pack alone, timed as launched and as a CUDA-graph
+replay beside the plain version and the bound:
 
 - K2 and its packed wire over ``--size-mib`` MiB of the corpus with its 500
   most frequent pairs, chained k times through the carry and the last slot
@@ -20,9 +21,14 @@ and the bound:
   ``lookback``, one launch (``multipass_cuda.K4_FLAGS``, the main path's),
   and ``three_launch`` (the default ``TokenFlags``, T4's ``full``). Bound:
   4 bytes in and 4 out per token and the planes.
+- K2's standalone pack (``bpe_cuda.pack_slots``, which the main path no
+  longer launches) over the slots K2 gives for the corpus's first
+  ``--size-mib`` / 4 MiB (16 Mi slots at the default), every slot valid,
+  chained k times through the last slot: ``pack``. Bound: 2 bytes in and
+  1.125 bytes of wire out per slot, and the two slot words.
 
-``k2_rows`` and ``k4_rows`` take any inputs (``chip_smoke.py`` also runs K4
-at 16 Mi tokens with leg 4's 8192-slot table). One JSON line, as
+``k2_rows``, ``k4_rows`` and ``pack_row`` take any inputs (``chip_smoke.py``
+also runs K4 at 16 Mi tokens with leg 4's 8192-slot table). One JSON line, as
 ``exp_chain``, with each pair's ratio one launch / three; exits 1 when a
 timed result differs from its plain chain's.
 """
@@ -119,6 +125,35 @@ def k4_rows(tokens: torch.Tensor, n: int, planes, k: int = K) -> list:
     return rows
 
 
+def pack_chain(slots: torch.Tensor, k: int, pack=bpe_cuda.pack_slots):
+    """k passes of ``pack`` over uint16 slots, all valid, each taking the
+    last slot the pass before returned (the first 0). The last (wire,
+    last_slot)."""
+    cap = slots.numel()
+
+    def one(prev):
+        out = pack(slots, cap, prev)
+        return out, out[1]
+
+    return bpe_cuda.chain_passes(one, torch.zeros((), dtype=torch.int32, device=slots.device),
+                                 k)[0]
+
+
+def pack_row(slots: torch.Tensor, k: int = K) -> dict:
+    """``pack`` over uint16 slots, all valid, chained k times (``pack_chain``)."""
+    device = slots.device
+    cap = slots.numel()
+    prev = torch.zeros((), dtype=torch.int32, device=device)
+    return {
+        "name": "pack", "kernel": "K2 pack", "launches_per_pass": 1, "slots": cap,
+        **C.time_chain(lambda: pack_chain(slots, k), k, 2 * cap, device,
+                       pack_chain(slots, k, bpe_cuda.pack_slots_plain)),
+        "bound_ms": C.bound_ms(2 * cap + cap + cap // 8 + 8), "bound_by": "bytes",
+        "plain_ms": C.median_ms(lambda: bpe_cuda.pack_slots_plain(slots, cap, prev), device),
+        "library_ms": None,
+    }
+
+
 def measure(device: torch.device, size_bytes: int, k: int = K, seed: int = 0) -> dict:
     """Both pairs on ``device``; see the module docstring."""
     corpus = C.make_corpus(np.random.default_rng(seed), size_bytes)
@@ -127,7 +162,10 @@ def measure(device: torch.device, size_bytes: int, k: int = K, seed: int = 0) ->
     k2 = k2_rows(data, size_bytes, table, k)
     tokens = data[: size_bytes // 8].to(torch.int32)
     k4 = k4_rows(tokens, tokens.numel(), cuckoo_planes(MergeTable.build(HIER), device), k)
-    rows = k2 + k4
+    cap = size_bytes // 4
+    slots, _ = bpe_cuda.flat_encode_slots(data[:cap], cap, -1, table,
+                                          torch.zeros((1, 1), dtype=torch.int32, device=device))
+    rows = k2 + k4 + [pack_row(slots, k)]
     return {"tool": "exp_lookback", "device": C.describe(device), "size_bytes": size_bytes,
             "rules": C.RULES, "seed": seed, "exact": all(r["exact"] for r in rows),
             "rows": rows, "ratio": {"k2": _ratio(k2), "k4": _ratio(k4)}}

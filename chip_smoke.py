@@ -16,7 +16,9 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    kernels' TMA loads (``UTMALDG``) in the library's SASS (``cuobjdump``),
    failing on none; ptxas's registers and spills and the CTAs per SM of
    the redesigned tool kernels (T13's chain, T6's two segment scans, T12's
-   two mask scans, T3's and T11's eight probes, T10's ``noscan2``); builds
+   two mask scans, T3's and T11's eight probes, T10's ``noscan2``, T5's
+   int16 and int8 mixes) and every opcode's count in T5's two packed
+   kernels; builds
    the 8000-rule hierarchical table of leg 4 and checks on the host that
    cuckoo32 places it at 8192 slots;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
@@ -63,7 +65,8 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    rows_per_block 8, 16, 1024, 2048 and 4096 (its slab path), 7240, 10000
    and 16384 (its direct path); T5 in
    int32, int16 and int8 over each type's whole range, chained 1 and 3
-   times; the five T4 variants over every token-pass case of phase 3,
+   times, and on ``exp_pack.edge_rows`` at 16384 x 128 chained 1, 3 and
+   64 times; the five T4 variants over every token-pass case of phase 3,
    ``full`` against K4; the six T6 variants over every flat case of phase
    3, the two block-local ones at rows_per_block 8 and 1024, ``full``
    against K2; the four T2 variants over every flat case, each against its
@@ -91,7 +94,9 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    on 4096 and 131072 rows chained 16 times; T3 at 512 and 131072 rows and
    T11 at 8 rows, 16 launches each; ``exp_lookback``: K2 fused with its
    pack beside K2 then the pack at 64 MiB, and K4's look-back launch
-   beside its three launches at 8 Mi tokens, chained 8 times), each chain
+   beside its three launches at 8 Mi tokens, chained 8 times, and K2's
+   standalone pack over 16 Mi slots chained 8 times, the time the
+   ``kernels`` line gives ``pack_slots``), each chain
    timed as launched and as a
    CUDA-graph replay (median and IQR of 5), beside its plain version, its
    bound (for T5 and T14 the larger of its bytes and its operations) and the
@@ -149,7 +154,7 @@ def fail(msg: str) -> None:
 # kernels, and the Hopper designs of T13's chain, T6's scan16 and swarpack
 # (T6's CTAs per SM at rpb 1024, swarpack's largest shared memory), T12's
 # two mask scans, T3's and T11's eight probes (their CTAs per SM: the
-# least of the eight) and T10's noscan2
+# least of the eight), T10's noscan2 and T5's int16 and int8 mixes
 LOOK_BACK_KERNELS = (("K3", "token_pass_gap", "tile_lookback", "token_pass_gap"),
                      ("K4", "token_pass", "tile_lookback", "token_pass"),
                      ("K2_packed", "flat_bpe", "flat_packed_kernel", "flat_bpe"))
@@ -160,7 +165,9 @@ REDESIGNED_TOOL_KERNELS = (("lookup_chain", "lookup", "chain_kernel", "lookup_ch
                            ("mask_scan_i32", "scan_parts", "mask_scan_i32", "mask_scan_i32"),
                            ("mask_scan_bf16", "scan_parts", "mask_scan_bf16", "mask_scan_bf16"),
                            *((p, "probe16", f"probe16_kernelILi{i}E", "probe16")
-                             for i, p in enumerate(PROBES16)))
+                             for i, p in enumerate(PROBES16)),
+                           ("op_mix_int16", "op_mix", "5Mix16", "op_mix16"),
+                           ("op_mix_int8", "op_mix", "4Mix8", "op_mix8"))
 
 
 def kernel_figures(kernels) -> dict:
@@ -1250,6 +1257,13 @@ def phase_measure(corpus, flat_cases, token_cases, err):
         for k in (1, 3):
             hold(f"op_mix_{name}", tools_cuda.op_mix(x, tok, k), tools_cuda.op_mix_plain(x, tok, k),
                  f"k={k}")
+        # the edge rows of the packed words: min, max, -1, 0 at lanes 0, 1,
+        # 2, 127 and beside every word and vector boundary; rows whose
+        # select fires
+        x = torch.from_numpy(exp_pack.edge_rows(name, 16384, seed=len(name))).to(dev)
+        for k in (1, 3, 64):
+            hold(f"op_mix_{name}", tools_cuda.op_mix(x, tok, k), tools_cuda.op_mix_plain(x, tok, k),
+                 f"edge rows, k={k}")
     # T4: phase 3's token-pass cases, chained three times through tombstones
     for t, n, planes in token_cases:
         what = f"{t.numel()} tokens, n={n}"
@@ -1466,6 +1480,10 @@ def main() -> int:
     if ring_sass is not None and (len(staged_sass) != 3
                                   or not all(c["UBLKCP"] for c in staged_sass.values())):
         fail(f"T13's chain or T6's segment scans hold no bulk copy: {staged_sass}")
+    # T5's int16 and int8 kernels: every opcode, for the instructions a word takes
+    mix_sass = _cuda_build.sass_counts("op_mix_packed_kernel", None)
+    if mix_sass is not None and len(mix_sass) != 2:
+        fail(f"op_mix.cu holds {len(mix_sass)} packed kernels")
     emit({"phase": "build", "seconds": seconds,
           "compiled": _cuda_build.build_seconds is not None,
           "library": os.path.relpath(lib, ROOT),
@@ -1475,7 +1493,7 @@ def main() -> int:
           "token_pass_gap": {"ptxas": _cuda_build.kernel_resources("token_pass_gap")},
           "look_back_kernels": kernel_figures(LOOK_BACK_KERNELS),
           "redesigned_tool_kernels": {"resources": kernel_figures(REDESIGNED_TOOL_KERNELS),
-                                      "sass": staged_sass}})
+                                      "sass": staged_sass, "op_mix_sass": mix_sass}})
 
     rng = np.random.default_rng(args.seed)
     corpus = make_corpus(rng, max(args.size_mib, 256) * MIB)
@@ -1518,6 +1536,11 @@ def main() -> int:
     # 7. the device-rate path
     measured = phase_measure(corpus, flat_cases, token_cases, err)
     launches.update(measured["launches"])
+    # the standalone pack's time: chained through its last slot (a single
+    # call's events time the host's launch)
+    pack = next(r for r in measured["exp_lookback"]["rows"] if r["name"] == "pack")
+    ms["pack_slots"] = (pack["graph"]["ms_per_launch"]["median"], pack["plain_ms"])
+    bounds["pack_slots"] = pack["bound_ms"]
 
     # 8. nothing of JAX or the JAX package anywhere in this process
     bad = sorted(k for k in sys.modules if k == "blt_tpu" or k.startswith(("blt_tpu.", "jax")))

@@ -417,3 +417,28 @@ def test_fused_pass_counts_no_launch_on_the_cpu_and_checks_its_state():
     with pytest.raises(ValueError, match="CUDA or all-CPU"):
         bpe_cuda.flat_encode_packed(data, 100, -1, table, c,
                                     torch.zeros((), dtype=torch.int32, device="meta"))
+
+
+def test_exp_lookback_pack_row_chains_through_the_last_slot():
+    """``exp_lookback.pack_row``: K2's standalone pack over every slot,
+    chained k times, each pass taking the last slot the one before
+    returned; its bound is 2 bytes in and 1.125 out a slot and two words."""
+    from blt_tpu_torch.tools import exp_lookback
+
+    data = torch.from_numpy(np.frombuffer(b"ab c abca" * 1000, np.uint8)[:8192].copy())
+    data[-1] = ord("z")  # a last slot that is a plain byte, not 0
+    table = wire_table(MergeTable.build(FLAT).dense, CPU)
+    slots, _ = bpe_cuda.flat_encode_slots(data, 8192, -1, table,
+                                          torch.zeros((1, 1), dtype=torch.int32))
+    row = exp_lookback.pack_row(slots, k=3)
+    assert row["name"] == "pack" and row["slots"] == 8192 and row["exact"]
+    assert row["graph"] is None and row["eager"]["ms_per_launch"]["n"] == 5
+    assert row["bound_ms"] == pytest.approx((2 + 1 + 1 / 8) * 8192 / 3.35e9 + 8 / 3.35e9)
+    # a chain's passes after the first start from the last slot
+    zero = torch.zeros((), dtype=torch.int32)
+    last = slots[-1].to(torch.int32)
+    assert int(last) != 0
+    for k, prev in ((1, zero), (3, last)):
+        wire, got = exp_lookback.pack_chain(slots, k, bpe_cuda.pack_slots_plain)
+        ref = bpe_cuda.pack_slots_plain(slots, 8192, prev)
+        assert torch.equal(wire, ref[0]) and int(got) == int(last) == int(ref[1])

@@ -401,15 +401,198 @@ def test_wrappers_count_no_launch_on_the_cpu():
 
 def test_op_mix_bound_counts_operations():
     """64 operations per element at 2 Mi elements on 132 x 128 lanes issued
-    per clock at 1980 MHz: about 4.0 us, under the int32 bytes' 5 us and
-    above the int16 bytes' 2.5 us."""
+    per clock at 1980 MHz: about 4.0 us at one element a 32-bit lane, under
+    the int32 bytes' 5 us. int16 and int8 carry two and four elements a lane:
+    2.0 and 1.0 us, under their bytes' 2.5 and 1.3 us, so every type is
+    bound by its bytes."""
     ops = 16384 * LANES * exp_pack.OPS_PER_REP * tools_cuda.MIX_REPS
     from blt_tpu_torch.tools import _common
 
     assert ops == 134_217_728
+    assert exp_pack.LANE_ELEMENTS == {"int32": 1, "int16": 2, "int8": 4}
     assert _common.ops_bound_ms(ops, 1980) == pytest.approx(0.004012, rel=1e-3)
-    assert _common.bound_ms(2 * 16384 * LANES * 4) > _common.ops_bound_ms(ops, 1980)
-    assert _common.bound_ms(2 * 16384 * LANES * 2) < _common.ops_bound_ms(ops, 1980)
+    for name, bytes_ms, ops_ms in (("int32", 0.005008, 0.004012), ("int16", 0.002504, 0.002006),
+                                   ("int8", 0.001252, 0.001003)):
+        size = np.dtype(name).itemsize
+        assert _common.bound_ms(2 * 16384 * LANES * size + 8) == pytest.approx(bytes_ms, rel=1e-3)
+        assert _common.ops_bound_ms(ops // exp_pack.LANE_ELEMENTS[name], 1980) == pytest.approx(
+            ops_ms, rel=1e-3)
+        assert bytes_ms > ops_ms
+
+
+# --- T5's packed words: a mirror of op_mix.cu's int16 and int8 steps -------------
+
+OP_MIX_CU = REPO / "blt_tpu_torch" / "csrc" / "op_mix.cu"
+PACKED = {"int16": "Mix16", "int8": "Mix8"}
+U32 = np.uint32
+
+
+def _mix_constants(text=None):
+    """Each packed struct's constants as op_mix.cu defines them, by struct."""
+    text = OP_MIX_CU.read_text() if text is None else text
+    out = {}
+    for struct, body in re.findall(r"struct (Mix\d+) \{(.*?)\n\};", text, re.S):
+        out[struct] = {
+            name: int(eval(re.sub(r"(?<=[0-9A-Fa-f])u\b", "", expr), {"__builtins__": {}}))
+            for name, expr in re.findall(r"static constexpr (?:int|uint32_t) (k\w+) = ([^;]+);",
+                                         body)}
+    return out
+
+
+MIX_K = _mix_constants()
+
+
+def _prmt(a, b, sel):
+    """PTX ``prmt.b32`` in its default mode: byte i of the result is byte
+    ``n & 7`` of (b:a), n the selector's nibble i, or that byte's sign over
+    8 bits where n & 8."""
+    src = (np.asarray(b, np.uint64) << np.uint64(32)) | np.asarray(a, np.uint64)
+    out = np.zeros(np.shape(src), np.uint64)
+    for i in range(4):
+        n = (sel >> 4 * i) & 0xF
+        byte = (src >> np.uint64(8 * (n & 7))) & np.uint64(0xFF)
+        if n & 8:
+            byte = np.where(byte & np.uint64(0x80), np.uint64(0xFF), np.uint64(0))
+        out |= byte << np.uint64(8 * i)
+    return out.astype(U32)
+
+
+def _max_s16x2(a, b):
+    """PTX ``max.s16x2``: the signed max of each halfword."""
+    a, b = np.ascontiguousarray(a, U32), np.ascontiguousarray(b, U32)
+    return np.maximum(a.view(np.int16), b.view(np.int16)).view(U32)
+
+
+def _add_16x2(a, b):
+    """PTX ``add.s16x2``: each halfword's sum, wrapping."""
+    a = np.ascontiguousarray(a, U32)
+    b = np.ascontiguousarray(np.broadcast_to(np.asarray(b, U32), a.shape))
+    return (a.view(np.int16) + b.view(np.int16)).view(U32)
+
+
+def _step16(w, prev, m, K):
+    """Mix16::step on uint32 words."""
+    y = (((w & U32(K["kMod512"])) * U32(31)) >> U32(3)) & U32(K["kLow6"])
+    differ = _prmt((y ^ (w & U32(K["kLow6"]))) + U32(K["kDiffBias"]), 0, K["kSpreadSel"])
+    s = (y & differ) | (_prmt(prev, w, K["kRollSel"]) & ~differ)
+    return _add_16x2(_max_s16x2(s, m), K["kOne"])
+
+
+def _step8(w, prev, m, K):
+    """Mix8::step on uint32 words."""
+    mul = U32(K["kMul"])
+    f = _prmt((w & U32(K["kEven"])) * mul, _prmt(w, 0, K["kOddSel"]) * mul, K["kFieldSel"])
+    y = (f & U32(K["kLow5"])) + U32(2) * (f & U32(K["kBit4"]))
+    differ = _prmt(((y ^ w) & U32(K["kLow6"])) + U32(K["kDiffBias"]), 0, K["kSpreadSel"])
+    s = (y & differ) | (_prmt(prev, w, K["kRollSel"]) & ~differ)
+    one = K["kOne"]
+    return _prmt(_add_16x2(_max_s16x2(s << U32(8), m << U32(8)), one),
+                 _add_16x2(_max_s16x2(s, m), one), K["kJoinSel"])
+
+
+def _mix_packed_mirror(x, K=None):
+    """op_mix_packed_kernel on the host: each row split over kRowThreads
+    threads of one 16-byte vector (4 words), MIX_REPS repetitions, the
+    first word's roll from the thread before (the shuffle, cyclic in the
+    row), the row's first word entering the max through kFirstKeep and
+    kFirstMin. x: int16 or int8 (rows, 128); returns the output."""
+    K = MIX_K[PACKED[x.dtype.name]] if K is None else K
+    tpr = K["kRowThreads"]
+    acc = np.ascontiguousarray(x).view(U32).reshape(x.shape[0], tpr, 4).copy()
+    first = np.arange(tpr) == 0
+    keep = np.where(first, U32(K["kFirstKeep"]), U32(0xFFFFFFFF))
+    low = np.where(first, U32(K["kFirstMin"]), U32(0))
+    step = _step16 if x.dtype == np.int16 else _step8
+    for _ in range(tools_cuda.MIX_REPS):
+        prev = np.roll(acc[:, :, 3], 1, axis=1)
+        nxt = np.empty_like(acc)
+        for j in range(4):
+            m = acc[:, :, j] if j else (acc[:, :, 0] & keep) | low
+            nxt[:, :, j] = step(acc[:, :, j], prev, m, K)
+            prev = acc[:, :, j]
+        acc = nxt
+    return acc.reshape(x.shape[0], -1).view(x.dtype).reshape(x.shape)
+
+
+def _every_value(name, rows_per_copy):
+    """Every value of the type once, in random order, as rows of 128."""
+    info = np.iinfo(name)
+    v = np.random.default_rng(info.bits).permutation(np.arange(info.min, info.max + 1))
+    reps = -(-rows_per_copy * LANES // v.size)
+    return np.tile(v, reps).astype(name).reshape(-1, LANES)
+
+
+def test_mix_constants_fit_a_row():
+    """Each packed struct's threads a row hold its 128 lanes in 16-byte
+    vectors."""
+    assert set(MIX_K) == {"Mix16", "Mix8"}
+    for name, struct in PACKED.items():
+        assert MIX_K[struct]["kRowThreads"] * 16 == LANES * np.dtype(name).itemsize
+
+
+@pytest.mark.parametrize("name", list(PACKED))
+@pytest.mark.parametrize("k", [1, 3])
+def test_packed_mirror_over_every_value(name, k):
+    """Every value of the type at every lane position class, against the
+    Pallas body (one grid step) and op_mix_plain."""
+    x = _every_value(name, 8)
+    rpb = x.shape[0]
+    tok = np.full((1, 1), 2, np.int32)
+    got = _mix_packed_mirror(x)
+    assert np.array_equal(got, _mix_pallas(x, tok, k, rpb)[0])
+    assert np.array_equal(got, tools_cuda.op_mix_plain(_t(x), _t(tok), k, rpb)[0].numpy())
+
+
+@pytest.mark.parametrize("name", list(PACKED))
+@pytest.mark.parametrize("k", [1, 3])
+def test_packed_mirror_edge_rows(name, k):
+    """exp_pack.edge_rows: the type's min, max, -1 and 0 at lanes 0, 1, 2, 127
+    and beside every word and vector boundary, rows whose select fires;
+    against the Pallas body and op_mix_plain."""
+    x = exp_pack.edge_rows(name, 48, seed=k)
+    tok = np.zeros((1, 1), np.int32)
+    got = _mix_packed_mirror(x)
+    ref_out, ref_tok = _mix_pallas(x, tok, k)
+    assert np.array_equal(got, ref_out) and ref_tok.item() == k * (48 // RPB - 1)
+    assert np.array_equal(got, tools_cuda.op_mix_plain(_t(x), _t(tok), k, RPB)[0].numpy())
+
+
+def test_edge_rows_reach_each_case():
+    """The edge rows hold each edge value at lanes 0, 1, 2 and 127, and
+    rows whose every lane fires the first repetition's select."""
+    for name in tools_cuda.MIX_DTYPES:
+        info = np.iinfo(name)
+        x = exp_pack.edge_rows(name, 40).astype(np.int64)
+        for e in (info.min, info.max, -1, 0):
+            assert all((x[:, lane] == e).any() for lane in (0, 1, 2, 127))
+            assert (x == e).all(axis=1).any()
+        fires = exp_pack._mix_y(x, info.bits) == (x & 0x3F)
+        assert fires.all(axis=1).sum() >= 4
+    with pytest.raises(ValueError, match="edge rows"):
+        exp_pack.edge_rows("int8", 39)
+
+
+# (constant, a wrong value): each breaks one step of the mirror
+MUTANTS = {
+    "Mix16": {"kMod512": 0xFFFFFFFF, "kLow6": 0x3F3F3F3F, "kDiffBias": 0x7FFF8000,
+              "kSpreadSel": 0x9999, "kRollSel": 0x7654, "kOne": 0x00020001,
+              "kFirstMin": 0x7FFF7FFF},
+    "Mix8": {"kEven": 0xFFFFFFFF, "kOddSel": 0x4240, "kMul": 31 * 16, "kFieldSel": 0x3715,
+             "kLow5": 0x1F1F1F3F, "kBit4": 0x10101000, "kLow6": 0x3F3F3F7F,
+             "kDiffBias": 0x7F7F7F80, "kSpreadSel": 0x8888, "kRollSel": 0x7654,
+             "kJoinSel": 0x3715, "kOne": 0x01000101, "kFirstKeep": 0, "kFirstMin": 0x00007F7F},
+}
+
+
+@pytest.mark.parametrize("struct,const", [(s, c) for s, m in MUTANTS.items() for c in m])
+def test_packed_mirror_fails_on_a_wrong_constant(struct, const):
+    """The edge rows tell a wrong mask or selector from the right one."""
+    name = next(n for n, s in PACKED.items() if s == struct)
+    x = exp_pack.edge_rows(name, 48)
+    plain = tools_cuda.op_mix_plain(_t(x), torch.zeros((1, 1), dtype=torch.int32), 1, RPB)[0]
+    assert np.array_equal(_mix_packed_mirror(x), plain.numpy())
+    bad = dict(MIX_K[struct], **{const: MUTANTS[struct][const]})
+    assert not np.array_equal(_mix_packed_mirror(x, bad), plain.numpy())
 
 
 # --- the entry points, as processes ------------------------------------------------
@@ -438,7 +621,12 @@ def _run_tool(tool):
 def test_exp_pack_runs_on_the_cpu():
     out = _run_tool("exp_pack")
     assert [(r["dtype"], r["bound_by"]) for r in out["rows"]] == [
-        ("int32", "bytes"), ("int16", "operations"), ("int8", "operations")]
+        ("int32", "bytes"), ("int16", "bytes"), ("int8", "bytes")]
+    for r in out["rows"]:
+        lanes = exp_pack.LANE_ELEMENTS[r["dtype"]]
+        assert r["ops"] * lanes == 2048 * LANES * exp_pack.OPS_PER_REP * tools_cuda.MIX_REPS
+        assert r["ops_bound_32_ms"] == pytest.approx(lanes * r["ops_bound_ms"])
+        assert r["bound_ms"] == r["bytes_bound_ms"] > r["ops_bound_ms"]
 
 
 def test_exp_parts_subgather_rows():
