@@ -163,14 +163,19 @@ def load() -> ctypes.CDLL:
 
 
 # the occupancy query of each one-launch look-back kernel, by the source
-# that holds it, and of the Hopper designs of T13's chain, T6's two
-# block-local scans, T12's two mask scans, T3's probes (the least of the
-# eight), T10's noscan2 and T5's int16 and int8 mixes
+# that holds it, and of the Hopper designs of T13's five lookups (g2d runs
+# chain's instantiation), T6's two block-local scans, T12's two mask scans,
+# T3's probes (the least of the eight), T10's noscan2 and T5's int16 and
+# int8 mixes
 CTAS_PER_SM = {
     "token_pass_gap": "blt_token_pass_gap_ctas_per_sm",
     "token_pass": "blt_token_pass_ctas_per_sm",
     "flat_bpe": "blt_flat_packed_ctas_per_sm",
     "lookup_chain": "blt_lookup_chain_ctas_per_sm",
+    "lookup_g2d": "blt_lookup_chain_ctas_per_sm",
+    "lookup_g2d_flat": "blt_lookup_g2d_flat_ctas_per_sm",
+    "lookup_gax0": "blt_lookup_gax0_ctas_per_sm",
+    "lookup_g8bit": "blt_lookup_g8bit_ctas_per_sm",
     "scan16": "blt_scan16_ctas_per_sm",
     "swarpack": "blt_swarpack_ctas_per_sm",
     "mask_scan_i32": "blt_mask_scan_i32_ctas_per_sm",

@@ -30,9 +30,9 @@ These wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
   ``scan_parts.cu``; ``tools/exp_bf16scan.py``);
 - ``lookup``: T13, five designs of a pair -> value lookup over a packed
   table, with the tool's chain link fused in (``lookup.cu``;
-  ``tools/exp_gather.py::make_pallas``); ``chain``, the original's
-  production lookup, reads one word of a table staged by bulk copies an
-  element (``lookup_chain_plan``);
+  ``tools/exp_gather.py::make_pallas``) on one kernel template: each reads
+  one word (or byte) an element, from a table staged by bulk copies, or for
+  g2d_flat from device memory (``lookup_plan``);
 - ``pmxu``: T14, the same lookup as a one-hot matrix product on the tensor
   cores (Hopper ``wgmma``) in int8 or bf16, the link fused in, the planes
   staged from their shared-memory image ``mxu_image`` (``onehot_mma.cu``;
@@ -586,26 +586,36 @@ def lookup_plain(variant: str, tbl: torch.Tensor, p: torch.Tensor, c=None) -> to
     return torch.where((q & 1) == 1, (w >> 16) & 0xFFFF, w & 0xFFFF)
 
 
-# chain_kernel's shape (lookup.cu's kLookupThreads, kChainPerCta, kUnroll):
-# CTAs of 1024 threads, each taking at least CHAIN_PER_CTA elements, at most
-# one per SM; a thread takes CHAIN_UNROLL groups of 4 elements a step
+# lookup_kernel's shape (lookup.cu's kLookupThreads, kUnroll, kStaged and
+# kPerCta): CTAs of 1024 threads, each taking at least LOOKUP_PER_CTA
+# elements and staging LOOKUP_STAGED bytes of its table, at most as many as
+# the SMs hold at once; a thread takes LOOKUP_UNROLL groups of 4 elements a
+# step
 LOOKUP_THREADS = 1024
-CHAIN_PER_CTA = 8 * 1024
-CHAIN_UNROLL = 4
+LOOKUP_UNROLL = 4
+LOOKUP_PER_CTA = {"chain": 4 * 1024, "g2d": 4 * 1024, "g2d_flat": 8 * 1024,
+                  "gax0": 4 * 1024, "g8bit": 4 * 1024}
+LOOKUP_STAGED = {"chain": 4 * 256 * LANES, "g2d": 4 * 256 * LANES, "g2d_flat": 0,
+                 "gax0": 4 * 256 * LANES, "g8bit": 32 * LANES}
 
 
-def lookup_chain_plan(n: int, sms: int = 132) -> dict:
-    """The launch ``lookup("chain", ...)`` makes for ``n`` elements on a card
-    of ``sms`` SMs: its CTAs (``ctas``), the grid's threads (``stride``:
-    thread g takes the groups of 4 elements g + (s * CHAIN_UNROLL + u) *
-    stride, for each step s and u < CHAIN_UNROLL, below ``groups``), the
-    most steps a thread takes (``steps``) and the table bytes the CTAs
-    stage (``staged_bytes``, 128 KiB each)."""
+def lookup_plan(variant: str, n: int, sms: int = 132, ctas_per_sm: int = 1) -> dict:
+    """The launch ``lookup(variant, ...)`` makes for ``n`` elements on a card
+    of ``sms`` SMs that holds ``ctas_per_sm`` of its CTAs an SM (the
+    occupancy query, ``_cuda_build.ctas_per_sm("lookup_<variant>")``; one
+    for the 128 KiB tables): its CTAs (``ctas``), the grid's threads
+    (``stride``: thread g takes the groups of 4 elements g + (s *
+    LOOKUP_UNROLL + u) * stride, for each step s and u < LOOKUP_UNROLL, below
+    ``groups``), the most steps a thread takes (``steps``) and the table
+    bytes the CTAs stage (``staged_bytes``)."""
+    if variant not in LOOKUPS:
+        raise ValueError(f"unknown variant {variant!r}; one of {LOOKUPS}")
     groups = n // 4
-    ctas = min(sms, max(1, -(-n // CHAIN_PER_CTA)))
+    ctas = min(ctas_per_sm * sms, max(1, -(-n // LOOKUP_PER_CTA[variant])))
     stride = ctas * LOOKUP_THREADS
     return {"ctas": ctas, "stride": stride, "groups": groups,
-            "steps": -(-groups // (stride * CHAIN_UNROLL)), "staged_bytes": ctas * 4 * 256 * LANES}
+            "steps": -(-groups // (stride * LOOKUP_UNROLL)),
+            "staged_bytes": ctas * LOOKUP_STAGED[variant]}
 
 
 def lookup(variant: str, tbl: torch.Tensor, p: torch.Tensor, c=None) -> torch.Tensor:

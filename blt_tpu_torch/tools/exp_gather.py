@@ -12,18 +12,17 @@ are hand-written CUDA kernels (``route: "cuda"``):
 
 - ``chain``: the Hopper design of the original's production lookup (its
   body is a 256-segment select chain, the TPU's way round a missing dynamic
-  gather): one shared-memory read an element from the table staged by
-  ``cp.async.bulk``, the first p and c loads in flight while it arrives,
-  four groups of 4 elements a thread a step, the grid sized to the work
-  (``tools_cuda.lookup_chain_plan``); timed beside ``g2d``, the same read
-  from a table staged without bulk copies;
-- ``g2d``: a gather from the table staged in shared memory by a loop of
-  16-byte copies, on a persistent grid of one block per SM;
+  gather): one shared-memory read an element;
+- ``g2d``: the same read as a dynamic gather, which on Hopper is chain's
+  kernel, counted and timed as its own row;
 - ``g2d_flat``: a gather from the table in device memory (``__ldg``);
 - ``gax0``: the probe ``packed[p >> 8, lane]``, from shared memory;
 - ``g8bit``: the probe ``tbl8[(q >> 7) & 31, q & 127]`` (q = p & 4095) over
   a u8[32, 128] table, from shared memory;
-  (these five: ``csrc/lookup.cu``, ``tools_cuda.lookup``)
+  (these five: ``csrc/lookup.cu``'s one kernel template,
+  ``tools_cuda.lookup``: the table staged by ``cp.async.bulk`` while the
+  first p and c loads are in flight, four groups of 4 elements a thread a
+  step, the grid sized to the work, ``tools_cuda.lookup_plan``)
 - ``pmxu_i8``, ``pmxu_bf16``: T14, ``onehot(p >> 8) @ planes`` on the
   tensor cores (hand-written Hopper ``wgmma``, m64n256k32 s8 -> s32 or
   m64n256k16 bf16 -> f32, the one-hot rows in registers, the planes in
@@ -49,16 +48,20 @@ link; each kernel link one launch), is timed as launched and as a CUDA-graph
 replay beside the plain chain (library rows: beside the T13 ``g2d`` plain
 chain) and its bound: the bytes (p, c and out, plus the table), for T14 and
 the ``mxu`` rows the larger of those and the tensor-core operations, 2 · 256
-· 512 per position over the data sheet's dense peak. The rows computing
-``val16[p]`` also carry ``library_ms``: ``torch.take`` of the table with
-int64 indices, called k times. Per row, the original's keys ``exact`` and
-``rate`` (lookups per second, graph replay on a card). One JSON line; exits
-1 when a result differs from its reference.
+· 512 per position over the data sheet's dense peak. The kernel rows also
+carry ``library_ms``, one PyTorch call of the same function called k times,
+its int64 indices made before the timing: ``torch.take`` of val16 for the
+rows computing ``val16[p]``, ``torch.gather(packed, 0, p >> 8)`` for
+``gax0``, ``torch.take`` of tbl8 as int32 at ``p & 4095`` for ``g8bit``.
+Per row, the original's keys ``exact`` and ``rate`` (lookups per second,
+graph replay on a card). One JSON line; exits 1 when a result differs from
+its reference.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import sys
 
 import numpy as np
@@ -72,7 +75,6 @@ K = 16
 TILE = 512
 LIBRARY = ("xla_take", "mxu_bf16", "mxu_int8")  # PyTorch's own calls, not ports
 VARIANTS = tools_cuda.LOOKUPS + tools_cuda.MXU_LOOKUPS + LIBRARY  # the original's order
-VAL16 = ("chain", "g2d", "g2d_flat")  # T13's designs of the real lookup
 # the one-hot rows' dtype (make_pmxu's name)
 MXU_DTYPE = {"pmxu_i8": "int8", "pmxu_bf16": "bf16", "mxu_bf16": "bf16", "mxu_int8": "int8"}
 OPS_PER_POSITION = 2 * 256 * 512  # the one-hot product's multiply-adds, twice
@@ -180,18 +182,26 @@ def measure(device: torch.device, size_bytes: int, k: int = K, seed: int = 1, on
               "xla_take": torch.from_numpy(val16.astype(np.int32)).to(device),
               **{d: tools_cuda.mxu_planes(val16, d).to(device) for d in tools_cuda.MXU_DTYPES}}
     n = rows * C.LANES
-    want_t = torch.from_numpy(reference("g2d", val16, packed, tbl8, p_np)).to(device)
-    take_ms = None
+    single = {}  # library call -> its ms, each timed once
 
-    def single_call() -> float:
-        """``torch.take`` of val16 with int64 indices, k calls: the single
-        call of the rows that compute val16[p]; timed once."""
-        nonlocal take_ms
-        if take_ms is None:
-            p64 = p.long()
-            take_ms = C.chained_ms(lambda: (torch.take(tables["xla_take"], p64),), k, 4 * n,
-                                   device, (want_t,))
-        return take_ms
+    def single_call(variant: str) -> float:
+        """One PyTorch call of ``variant``'s function, k calls: ``torch.take``
+        of val16 (every row but the probes), ``torch.gather`` along the
+        packed table's rows (gax0), ``torch.take`` of tbl8 as int32
+        (g8bit); its int64 index made here, outside the timing."""
+        key = variant if variant in ("gax0", "g8bit") else "take"
+        if key not in single:
+            if key == "gax0":
+                call = functools.partial(torch.gather, tables["packed"], 0, (p >> 8).long())
+            elif key == "g8bit":
+                call = functools.partial(torch.take, tables["tbl8"].to(torch.int32),
+                                         (p & 4095).long())
+            else:
+                call = functools.partial(torch.take, tables["xla_take"], p.long())
+            want = reference("g2d" if key == "take" else key, val16, packed, tbl8, p_np)
+            single[key] = C.chained_ms(lambda: (call(),), k, 4 * n, device,
+                                       (torch.from_numpy(want).to(device),))
+        return single[key]
 
     out, results = [], {}
     for variant in VARIANTS:
@@ -209,7 +219,7 @@ def measure(device: torch.device, size_bytes: int, k: int = K, seed: int = 1, on
                 "plain_ms": C.median_ms(
                     lambda variant=variant, tbl=tbl: tools_cuda.lookup_plain(variant, tbl, p, p),
                     device),
-                "library_ms": single_call() if variant in VAL16 else None,
+                "library_ms": single_call(variant),
             }
         elif variant in tools_cuda.MXU_LOOKUPS:
             dtype = MXU_DTYPE[variant]
@@ -226,7 +236,7 @@ def measure(device: torch.device, size_bytes: int, k: int = K, seed: int = 1, on
                     lambda dtype=dtype, planes=planes: tools_cuda.pmxu_plain(dtype, planes, p, p,
                                                                              tile),
                     device),
-                "library_ms": single_call(),
+                "library_ms": single_call("g2d"),
             }
         else:
             table = tables[variant if variant == "xla_take" else MXU_DTYPE[variant]]

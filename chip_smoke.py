@@ -15,9 +15,11 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    (``IGMMA``, ``HGMMA``), the copy ring's bulk copies (``UBLKCP``) and T9's slab
    kernels' TMA loads (``UTMALDG``) in the library's SASS (``cuobjdump``),
    failing on none; ptxas's registers and spills and the CTAs per SM of
-   the redesigned tool kernels (T13's chain, T6's two segment scans, T12's
-   two mask scans, T3's and T11's eight probes, T10's ``noscan2``, T5's
-   int16 and int8 mixes) and every opcode's count in T5's two packed
+   the redesigned tool kernels (T13's four lookup instantiations, g2d
+   running chain's, T6's two segment scans, T12's two mask scans, T3's and
+   T11's eight probes, T10's ``noscan2``, T5's int16 and int8 mixes), the
+   bulk copies of T13's three lookups that stage a table and of T6's two
+   scans, failing on none, and every opcode's count in T5's two packed
    kernels; builds
    the 8000-rule hierarchical table of leg 4 and checks on the host that
    cuckoo32 places it at 8192 slots;
@@ -78,9 +80,11 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    T12's two scans at rows_per_block 8, 24,
    1016 and 1024 on random masks of density 0, 0.3, 0.7 and 1, single
    links and chained 1 and 3 times, and a chain of 4 replayed from a CUDA
-   graph; T13's five lookups on p inside and outside [0, 65536), once
-   and chained 3 times; T14 in int8 and bf16 on the same two ranges at tiles
-   512, 48, 16 and 80 and at 133 tiles of 512, once and chained 3 times;
+   graph; T13's five lookups on p inside and outside [0, 65536) over 16
+   MiB and at 1000 and 4096 rows, once and chained 3 times, and each
+   one's chain of 4 at 4096 rows replayed from a CUDA graph; T14 in int8
+   and bf16 on the same two ranges at tiles 512, 48, 16 and 80 and at 133
+   tiles of 512, once and chained 3 times;
    the eight 16-bit probes of T3 and T11 on the originals' x and on random
    |x| < 2**30 at 512, 8, 13, 513 and 131072 rows);
    (b) the launch counters set to 0, then the twelve ported tools' and
@@ -151,14 +155,17 @@ def fail(msg: str) -> None:
 
 # (label, source stem, a piece of the kernel's mangled name, its key in
 # _cuda_build.CTAS_PER_SM): the main path's three one-launch look-back
-# kernels, and the Hopper designs of T13's chain, T6's scan16 and swarpack
+# kernels, and the Hopper designs of T13's lookups (one template: g2d runs
+# chain's instantiation), T6's scan16 and swarpack
 # (T6's CTAs per SM at rpb 1024, swarpack's largest shared memory), T12's
 # two mask scans, T3's and T11's eight probes (their CTAs per SM: the
 # least of the eight), T10's noscan2 and T5's int16 and int8 mixes
 LOOK_BACK_KERNELS = (("K3", "token_pass_gap", "tile_lookback", "token_pass_gap"),
                      ("K4", "token_pass", "tile_lookback", "token_pass"),
                      ("K2_packed", "flat_bpe", "flat_packed_kernel", "flat_bpe"))
-REDESIGNED_TOOL_KERNELS = (("lookup_chain", "lookup", "chain_kernel", "lookup_chain"),
+REDESIGNED_TOOL_KERNELS = (*((f"lookup_{v}", "lookup", f"13lookup_kernelILi{i}E", f"lookup_{v}")
+                             for i, v in ((0, "chain"), (2, "g2d_flat"), (3, "gax0"),
+                                          (4, "g8bit"))),
                            ("noscan2", "scan_parts", "row_scan_kernel", "row_scan"),
                            ("scan16", "scan_parts", "segment_scanILb0E", "scan16"),
                            ("swarpack", "scan_parts", "segment_scanILb1E", "swarpack"),
@@ -1307,21 +1314,27 @@ def phase_measure(corpus, flat_cases, token_cases, err):
                  what)
             hold(f"gather_{v}", exp_gather.chained(v, tbl, p, 3),
                  exp_gather.chained_plain(v, tbl, p, 3), f"{what} k=3")
-    # T13's chain at the card tests' 1000 and 4096 rows (4 and 16 CTAs'
-    # worth of elements), and a chain of 4 replayed from a CUDA graph
+    # T13's five lookups at the card tests' 1000 and 4096 rows (32 and 128
+    # CTAs of 4 Ki elements, 16 and 64 of g2d_flat's 8 Ki), and each one's
+    # chain of 4 replayed from a CUDA graph
     for rows, (lo, hi) in itertools.product((1000, 4096), ((0, 65536), (-(2**31), 2**31 - 1))):
         p = torch.from_numpy(rng.integers(lo, hi, (rows, 128), dtype=np.int64)
                              .astype(np.int32)).to(dev)
-        what = f"{rows} rows, p in [{lo}, {hi})"
-        hold("gather_chain", tools_cuda.lookup("chain", tables["packed"], p),
-             tools_cuda.lookup_plain("chain", tables["packed"], p), what)
-        hold("gather_chain", exp_gather.chained("chain", tables["packed"], p, 3),
-             exp_gather.chained_plain("chain", tables["packed"], p, 3), f"{what} k=3")
-    expect = exp_gather.chained_plain("chain", tables["packed"], p, 4)
-    replay = time_chain(lambda: (exp_gather.chained("chain", tables["packed"], p, 4),), 4,
-                        4 * p.numel(), dev, (expect,))
-    if not replay["exact"] or replay["graph"] is None:
-        fail("gather_chain: a chain of 4 does not replay exactly")
+        for v in tools_cuda.LOOKUPS:
+            tbl = tables["tbl8" if v == "g8bit" else "packed"]
+            what = f"{rows} rows, p in [{lo}, {hi})"
+            hold(f"gather_{v}", tools_cuda.lookup(v, tbl, p), tools_cuda.lookup_plain(v, tbl, p),
+                 what)
+            hold(f"gather_{v}", exp_gather.chained(v, tbl, p, 3),
+                 exp_gather.chained_plain(v, tbl, p, 3), f"{what} k=3")
+    p = torch.from_numpy(rng.integers(0, 65536, (4096, 128)).astype(np.int32)).to(dev)
+    for v in tools_cuda.LOOKUPS:
+        tbl = tables["tbl8" if v == "g8bit" else "packed"]
+        expect = exp_gather.chained_plain(v, tbl, p, 4)
+        replay = time_chain(lambda v=v, tbl=tbl: (exp_gather.chained(v, tbl, p, 4),), 4,
+                            4 * p.numel(), dev, (expect,))
+        if not replay["exact"] or replay["graph"] is None:
+            fail(f"gather_{v}: a chain of 4 does not replay exactly")
     # T14: the same two ranges over 1.5 Mi positions (two pieces of the plain
     # version), once and chained 3 times, at tiles 512, 48, 16 and 80 (all but
     # 512 end inside a 64-row warpgroup tile, whose rows past the tile are
@@ -1472,14 +1485,15 @@ def main() -> int:
     if slab_sass is not None and (len(slab_sass) != 2
                                   or not all(sum(c.values()) for c in slab_sass.values())):
         fail(f"T9's slab kernels hold no TMA load: {slab_sass}")
-    # T13's chain stages its table, T6's scan16 and swarpack their tiles, by
-    # bulk copies ("12chain_kernel": the length-prefixed mangled name, not
-    # chain.cu's widen_chain_kernel)
-    staged_sass = {**(_cuda_build.sass_counts("12chain_kernel", ("UBLKCP",)) or {}),
+    # T13's lookups that stage a table (chain, whose instantiation g2d runs,
+    # gax0 and g8bit: lookup_kernel<0, 3, 4>), T6's scan16 and swarpack their
+    # tiles, by bulk copies
+    lookup_sass = _cuda_build.sass_counts("13lookup_kernel", ("UBLKCP",)) or {}
+    staged_sass = {**{k: c for k, c in lookup_sass.items() if "ILi2E" not in k},
                    **(_cuda_build.sass_counts("segment_scan", ("UBLKCP",)) or {})}
-    if ring_sass is not None and (len(staged_sass) != 3
+    if ring_sass is not None and (len(staged_sass) != 5
                                   or not all(c["UBLKCP"] for c in staged_sass.values())):
-        fail(f"T13's chain or T6's segment scans hold no bulk copy: {staged_sass}")
+        fail(f"T13's staged lookups or T6's segment scans hold no bulk copy: {staged_sass}")
     # T5's int16 and int8 kernels: every opcode, for the instructions a word takes
     mix_sass = _cuda_build.sass_counts("op_mix_packed_kernel", None)
     if mix_sass is not None and len(mix_sass) != 2:

@@ -17,7 +17,7 @@ import torch
 
 from blt_tpu_torch import cli
 from blt_tpu_torch.merges import MergeTable
-from blt_tpu_torch.ops import bpe_cuda, multipass_cuda, tools_cuda
+from blt_tpu_torch.ops import _cuda_build, bpe_cuda, multipass_cuda, tools_cuda
 from blt_tpu_torch.ops.bpe_numpy import bpe_encode_flat, bpe_encode_multipass
 from blt_tpu_torch.ops.tables import cuckoo_planes, wire_table
 from blt_tpu_torch.pipeline.engines import TorchEngine
@@ -544,7 +544,9 @@ def test_packed_pass_replays_from_a_cuda_graph(cuda):
 
 def test_mask_scans_and_lookups_equal_plain_versions(cuda):
     """T12's two scans on random masks, single and chained; T13's five
-    lookups on p inside and outside [0, 65536), once and chained."""
+    lookups on p inside and outside [0, 65536) at 1000 and 4096 rows (32
+    and 128 CTAs of 4 Ki elements, 16 and 64 of g2d_flat's 8 Ki), once and
+    chained."""
     rng = np.random.default_rng(23)
     tools_cuda.reset_launches()
     for density in (0.3, 0.7):
@@ -559,16 +561,36 @@ def test_mask_scans_and_lookups_equal_plain_versions(cuda):
     _, packed = exp_gather.build_table()
     tables = {"packed": torch.from_numpy(packed).to(cuda),
               "tbl8": torch.from_numpy(exp_gather.build_tbl8()).to(cuda)}
-    for lo, hi in ((0, 65536), (-(2**31), 2**31 - 1)):
-        p = torch.from_numpy(rng.integers(lo, hi, (1000, 128), dtype=np.int64)
+    for rows, (lo, hi) in itertools.product((1000, 4096), ((0, 65536), (-(2**31), 2**31 - 1))):
+        p = torch.from_numpy(rng.integers(lo, hi, (rows, 128), dtype=np.int64)
                              .astype(np.int32)).to(cuda)
         for variant in tools_cuda.LOOKUPS:
             tbl = tables["tbl8" if variant == "g8bit" else "packed"]
             assert torch.equal(tools_cuda.lookup(variant, tbl, p),
-                               tools_cuda.lookup_plain(variant, tbl, p)), (variant, lo)
+                               tools_cuda.lookup_plain(variant, tbl, p)), (variant, rows, lo)
             assert torch.equal(exp_gather.chained(variant, tbl, p, 3),
-                               exp_gather.chained_plain(variant, tbl, p, 3)), (variant, lo)
-    assert all(tools_cuda.launches[f"gather_{v}"] == 8 for v in tools_cuda.LOOKUPS)
+                               exp_gather.chained_plain(variant, tbl, p, 3)), (variant, rows, lo)
+    assert all(tools_cuda.launches[f"gather_{v}"] == 16 for v in tools_cuda.LOOKUPS)
+
+
+def test_lookup_chains_replay_from_a_cuda_graph(cuda):
+    """A captured chain of 4 of each T13 lookup at 4096 rows replays with the
+    plain chain's result; the SMs hold one CTA each of the variants staging
+    the 128 KiB table, and at least one of g2d_flat's and g8bit's."""
+    _, packed = exp_gather.build_table()
+    tables = {"packed": torch.from_numpy(packed).to(cuda),
+              "tbl8": torch.from_numpy(exp_gather.build_tbl8()).to(cuda)}
+    p = torch.from_numpy(np.random.default_rng(29).integers(0, 65536, (4096, 128))
+                         .astype(np.int32)).to(cuda)
+    for variant in tools_cuda.LOOKUPS:
+        tbl = tables["tbl8" if variant == "g8bit" else "packed"]
+        expect = exp_gather.chained_plain(variant, tbl, p, 4)
+        timing = _common.time_chain(lambda: (exp_gather.chained(variant, tbl, p, 4),), 4,
+                                    4 * p.numel(), cuda, (expect,))
+        assert timing["exact"] and timing["graph"] is not None, variant
+        per_sm = _cuda_build.ctas_per_sm(f"lookup_{variant}")
+        big = tools_cuda.LOOKUP_STAGED[variant] == 4 * 256 * 128
+        assert (per_sm == 1) if big else (per_sm >= 1), (variant, per_sm)
 
 
 def test_mask_scan_tiles_equal_plain_version(cuda):

@@ -271,8 +271,8 @@ def test_entry_point_runs_on_the_cpu(tool, args):
         assert names[5:] == ["pmxu_i8", "pmxu_bf16", "xla_take", "mxu_bf16", "mxu_int8"]
         assert set(out["results"]) == set(names)
         assert all(r["rate"] > 0 for r in out["results"].values())
-        assert [r["library_ms"] is not None for r in out["rows"]] == (
-            [True] * 3 + [False] * 2 + [True] * 2 + [False] * 3)
+        # a single PyTorch call beside every kernel row, T13's probes too
+        assert [r["library_ms"] is not None for r in out["rows"]] == [True] * 7 + [False] * 3
         assert [r["route"] for r in out["rows"]] == ["cuda"] * 7 + ["torch"] * 3
 
 

@@ -14,11 +14,11 @@ needed to check the protocol: here the jobs run as the kernel's threads do
 interleaved in random orders with tickets handed out in order, at the
 kernel's 4096-position tile and at a forced 64-position tile, and must equal
 ``block_scan_plain`` exactly; ``block_scan_plain`` must equal the tool's
-``_variant_body`` in interpret mode on the same cases. ``lookup("chain")``'s
-grid (``tools_cuda.lookup_chain_plan``) must cover every element once. The
-mirrors' constants are read from the sources. The kernels themselves are
-held against the plain versions on the card by tests/test_torch_gpu.py and
-``chip_smoke.py``.
+``_variant_body`` in interpret mode on the same cases. Each T13 lookup's
+grid (``tools_cuda.lookup_plan``) must cover every element once and stage
+its table once a CTA. The mirrors' constants are read from the sources. The
+kernels themselves are held against the plain versions on the card by
+tests/test_torch_gpu.py and ``chip_smoke.py``.
 """
 
 import importlib.util
@@ -57,7 +57,7 @@ ALPHABET = b"aabbcc hhpx\x00ab@\xff"
 
 def _constant(text: str, name: str) -> int:
     expr = re.search(rf"constexpr (?:int|uint32_t) {name} = ([^;/]+);", text)[1]
-    names = {"kSegTile": TILE, "kPer": PER, "kPackedWords": 256 * LANES}
+    names = {"kSegTile": TILE, "kPer": PER}
     return eval(expr, {}, names)  # noqa: S307 - integer expressions of our sources
 
 
@@ -72,11 +72,23 @@ def test_mirror_constants_are_the_kernels():
     assert "j.job = (kSegTile / j.seg > 1 ? kSegTile / j.seg : 1) * j.seg;" in scan
     lookup = (CSRC / "lookup.cu").read_text()
     assert _constant(lookup, "kLookupThreads") == tools_cuda.LOOKUP_THREADS
-    assert _constant(lookup, "kChainPerCta") == tools_cuda.CHAIN_PER_CTA
-    assert _constant(lookup, "kUnroll") == tools_cuda.CHAIN_UNROLL
-    # the select chain is gone: one read of the staged table an element
+    assert _constant(lookup, "kUnroll") == tools_cuda.LOOKUP_UNROLL
+    per_cta = {v: _constant(lookup, "kFlatPerCta" if v == "g2d_flat" else
+                            "kTbl8PerCta" if v == "g8bit" else "kPackedPerCta")
+               for v in tools_cuda.LOOKUPS}
+    assert per_cta == tools_cuda.LOOKUP_PER_CTA
+    staged = {"g2d_flat": 0, "g8bit": _constant(lookup, "kTbl8Bytes")}
+    assert {v: staged.get(v, _constant(lookup, "kPackedBytes")) for v in tools_cuda.LOOKUPS} == (
+        tools_cuda.LOOKUP_STAGED)
+    assert ("constexpr int kStaged = V == kG2dFlat ? 0 : V == kG8bit ? kTbl8Bytes : "
+            "kPackedBytes;") in lookup
+    assert ("constexpr int kPerCta = V == kG2dFlat ? kFlatPerCta : V == kG8bit ? kTbl8PerCta : "
+            "kPackedPerCta;") in lookup
+    # the select chain and the thread-loop staging are gone: one read of the
+    # table an element, staged by bulk copies
     assert "for (int s = 0; s < 256; ++s)" not in lookup
-    assert "unpack(table[q.x >> 1], q.x)" in lookup
+    assert "for (int k = threadIdx.x;" not in lookup
+    assert "return unpack(t[q >> 1], q);" in lookup and "stage(" in lookup
 
 
 # --- the plans -------------------------------------------------------------------
@@ -96,20 +108,41 @@ def test_block_scan_plan_tiles_the_buffer_in_whole_segments(rpb):
         assert plan["scratch"] == plan["jobs"] + 1
 
 
-@pytest.mark.parametrize("rows", [1, 1000, 4096, 131072])
-def test_lookup_chain_plan_covers_every_element_once(rows):
-    n = rows * LANES
-    plan = tools_cuda.lookup_chain_plan(n)
-    assert 1 <= plan["ctas"] <= 132 and plan["stride"] == plan["ctas"] * tools_cuda.LOOKUP_THREADS
-    assert plan["ctas"] == min(132, -(-n // tools_cuda.CHAIN_PER_CTA))
+def _check_lookup_plan(variant, n, ctas_per_sm):
+    plan = tools_cuda.lookup_plan(variant, n, ctas_per_sm=ctas_per_sm)
+    cap = 132 * ctas_per_sm
+    assert 1 <= plan["ctas"] <= cap and plan["stride"] == plan["ctas"] * tools_cuda.LOOKUP_THREADS
+    assert plan["ctas"] == min(cap, -(-n // tools_cuda.LOOKUP_PER_CTA[variant]))
+    assert plan["staged_bytes"] == plan["ctas"] * {"g2d_flat": 0, "g8bit": 32 * LANES}.get(
+        variant, 4 * 256 * LANES)
     # thread g takes groups g + (s * unroll + u) * stride while below groups
     hits = np.zeros(plan["groups"], np.int64)
     for s in range(plan["steps"] + 1):
-        for u in range(tools_cuda.CHAIN_UNROLL):
-            g = np.arange(plan["stride"]) + (s * tools_cuda.CHAIN_UNROLL + u) * plan["stride"]
+        for u in range(tools_cuda.LOOKUP_UNROLL):
+            g = np.arange(plan["stride"]) + (s * tools_cuda.LOOKUP_UNROLL + u) * plan["stride"]
             np.add.at(hits, g[g < plan["groups"]], 1)
     assert (hits == 1).all() and plan["groups"] * 4 == n
-    assert plan["steps"] * tools_cuda.CHAIN_UNROLL * plan["stride"] >= plan["groups"]
+    assert plan["steps"] * tools_cuda.LOOKUP_UNROLL * plan["stride"] >= plan["groups"]
+
+
+@pytest.mark.parametrize("rows", [1, 1000, 4096, 131072])
+def test_lookup_chain_plan_covers_every_element_once(rows):
+    _check_lookup_plan("chain", rows * LANES, 1)
+
+
+@pytest.mark.parametrize("rows", [1, 1000, 4096, 131072])
+@pytest.mark.parametrize("variant,ctas_per_sm", [("g2d", 1), ("gax0", 1), ("g2d_flat", 1),
+                                                 ("g2d_flat", 2), ("g8bit", 1), ("g8bit", 2)])
+def test_lookup_plan_covers_every_element_once(variant, ctas_per_sm, rows):
+    """Every variant's grid (one CTA an SM for the 128 KiB tables; g2d_flat
+    and g8bit as many as the occupancy query gives) covers each group of 4
+    once, and its CTAs stage the table's bytes once each."""
+    _check_lookup_plan(variant, rows * LANES, ctas_per_sm)
+
+
+def test_lookup_plan_refuses_an_unknown_variant():
+    with pytest.raises(ValueError, match="unknown variant"):
+        tools_cuda.lookup_plan("pmxu_i8", 4096)
 
 
 # --- segment_scan, played on the host ----------------------------------------------
