@@ -3,7 +3,8 @@
 
 Same constructor validation and methods as the JAX package's tokenizer;
 ``engine`` is ``"torch"`` (the default: the CUDA kernels, which need a CUDA
-device), ``"numpy"`` (the host engine) or ``"auto"``. ``tokenize_file``
+device), ``"shard"`` (the kernels on every CUDA device), ``"numpy"`` (the
+host engine) or ``"auto"``. ``tokenize_file``
 runs the port's runner; ``tokenize_bytes``, ``detokenize_bytes`` and
 ``detokenize_file`` are host code (decode is host-only by design).
 """

@@ -1,16 +1,20 @@
 """Command-line interface of the torch port (port of ``blt_tpu/cli.py``).
 
 Same flags as ``blt``; ``--engine`` chooses torch (the default: the CUDA
-kernels), numpy (the host engine) or auto:
+kernels), shard (the kernels on every CUDA device), numpy (the host engine)
+or auto:
 
     python -m blt_tpu_torch.cli [-i FILE] [-o FILE] [--merges FILE]
         [--passthrough] [--decode] [--type text|audio|bin|video]
         [--threads N] [--memcap PCT] [--chunksize SIZE]
-        [--engine torch|numpy|auto]
+        [--engine torch|numpy|auto|shard]
 
 Errors print ``Error running tokenizer: ...`` on stderr and exit 1; that
-includes the default ``--engine torch`` on a machine without a CUDA device
-(decode is host-only by design and needs none).
+includes the default ``--engine torch``, and ``--engine shard``, on a
+machine without a CUDA device (decode is host-only by design and needs
+none). With ``BLT_COORDINATOR_ADDRESS``, ``BLT_NUM_PROCESSES`` and
+``BLT_PROCESS_ID`` set, each process tokenizes its byte range into the
+shared output (``blt_tpu_torch/parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -73,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Min/Max chunk size (e.g. 4MB, 256KB).")
     p.add_argument("--engine", default="torch", choices=list(ENGINES),
                    help="Compute backend (default: torch, the CUDA kernels, "
-                        "which need a CUDA device; numpy = the host engine)")
+                        "which need a CUDA device; shard = the kernels on every "
+                        "CUDA device; numpy = the host engine)")
     p.add_argument("--version", action="version", version=f"blt {__version__}")
     return p
 

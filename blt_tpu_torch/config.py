@@ -67,14 +67,17 @@ class Engine(enum.Enum):
     """Compute backend for the tokenization kernels.
 
     TORCH (the default) runs the CUDA kernels on the first CUDA device and
-    fails without one; NUMPY is the host engine, the way to ask for the
-    CPU; AUTO picks the torch engine for large inputs when a CUDA device
-    exists, else the host engine (the JAX package's size rule).
+    fails without one; SHARD runs them on every CUDA device, a batch's rows
+    over the devices (``ShardedTorchEngine``), and fails without one; NUMPY
+    is the host engine, the way to ask for the CPU; AUTO picks the device
+    engine for large inputs when a CUDA device exists (SHARD's on a host of
+    several), else the host engine (the JAX package's size rule).
     """
 
     AUTO = "auto"
     TORCH = "torch"
     NUMPY = "numpy"
+    SHARD = "shard"
 
 
 @dataclass

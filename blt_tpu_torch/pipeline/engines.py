@@ -6,8 +6,11 @@ and the engine choice.
 ``blt_tpu_torch/ops/multipass_cuda.py`` (general tables) on an explicit
 ``torch.device``. The encoders dispatch by the tensor alone (kernel on
 CUDA, plain version on the CPU), so the CPU tests drive the same stream
-code that runs on the card. ``NumpyEngine`` is a copy of the JAX package's
-host engine: the way a caller asks for the CPU.
+code that runs on the card. ``ShardedTorchEngine(devices)`` lays each
+batch out as rows over several devices (port of ``ShardedJaxEngine``, on
+``blt_tpu_torch/parallel/`` and ``ops/sharded_cuda.py``). ``NumpyEngine``
+is a copy of the JAX package's host engine: the way a caller asks for the
+CPU.
 
 Pipelining is the JAX engine's: feed (pack into a pinned buffer, upload,
 launch), device-to-host copy, and host drain each run on their own thread
@@ -34,12 +37,15 @@ from blt_tpu_torch.ops.bpe_cuda import (
     CudaFlatEncoder,
     unpack_slots_host,
 )
-from blt_tpu_torch.ops.multipass_cuda import (
-    CudaTokenEncoder,
-    expand_gap_wire_host,
-    mp_compact_mode,
+from blt_tpu_torch.ops.multipass_cuda import CudaTokenEncoder
+from blt_tpu_torch.ops.sharded_cuda import (
+    CudaShardedFlatEncoder,
+    CudaShardedTokenEncoder,
+    copy_streams,
 )
-from blt_tpu_torch.pipeline.feeder import pinned_buffer, prefetch_iter
+from blt_tpu_torch.parallel.mesh import make_mesh, replicated
+from blt_tpu_torch.parallel.sharded import sharded_basic_encode, sharded_flat_encode
+from blt_tpu_torch.pipeline.feeder import pack_into, pinned_buffer, prefetch_iter, upload
 from blt_tpu_torch.utils.chunking import align_up
 from blt_tpu_torch.utils.device import cuda_device, require_cuda
 from blt_tpu_torch.utils.logging import get_logger
@@ -152,6 +158,7 @@ class TorchEngine:
         self.device = torch.device(device)
         if self.device.type == "cuda":
             require_cuda()  # raises without a CUDA device
+        self.mesh = (self.device,)  # the rows a general table's chunks cycle over
         self.depth = depth
         self.threads = threads if threads > 0 else (os.cpu_count() or 1)
 
@@ -312,23 +319,19 @@ class TorchEngine:
         the tombstones. ``BLT_MP_COMPACT=sort`` runs the K4 loop and ships the
         compacted prefix. Feed, D2H and drain each run on a ``prefetch_iter``
         stage, ``depth`` chunks in flight. The encoder is sized from the
-        chunk size, and a chunk is never cut."""
-        enc = CudaTokenEncoder(
-            table, self.device, capacity_tokens=align_up(max(chunk_hint, 1))
+        chunk size, and a chunk is never cut. Chunk i runs on row ``i % B``
+        of the engine's mesh (one row for this engine)."""
+        enc = CudaShardedTokenEncoder(
+            table, self.mesh, capacity_tokens=align_up(max(chunk_hint, 1))
         )
-        staging = pinned_buffer(enc.padded_bytes, self.device)
-        sort_mode = mp_compact_mode() == "sort"
+        staging = pinned_buffer(enc.rows[0].padded_bytes, self.device)
         threads = self.threads
 
         def feed():
-            for chunk in _whole_chunks(chunks, enc.capacity):
-                dev, n = enc.upload(chunk, staging, threads)
-                dev = dev.reshape(-1)[:n]
-                if sort_mode:
-                    toks, m = enc.encode_resident_dispatch(dev)
-                    yield bpe_torch.tokens_to_be_bytes_device(toks), m, None
-                else:
-                    yield enc.encode_resident_wire_dispatch(dev)
+            for i, chunk in enumerate(_whole_chunks(chunks, enc.capacity)):
+                r = i % enc.n_rows
+                dev, n = enc.rows[r].upload(chunk, staging, threads)
+                yield enc.dispatch(r, dev.reshape(-1)[:n])
 
         def d2h(items):
             for out, m, capacity in items:
@@ -336,14 +339,7 @@ class TorchEngine:
 
         def drain(items):
             for host, m, capacity in items:
-                if capacity is None:
-                    # uint16 LE image == u16-BE stream; copy the valid part
-                    yield host[:m].copy()
-                    continue
-                toks = expand_gap_wire_host(host, capacity)
-                if toks.shape[0] != m:
-                    raise RuntimeError(f"{toks.shape[0]} alive tokens, count says {m}")
-                yield toks
+                yield enc.expand(host, m, capacity)
 
         yield from prefetch_iter(
             drain(
@@ -361,8 +357,9 @@ class TorchEngine:
         self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
     ) -> Iterator[np.ndarray]:
         """Plain torch ops on the engine's device (the JAX engine's
-        ``_bpe_multipass_xla_stream``)."""
-        keys, vals = bpe_torch.sparse_table_device(table, self.device)
+        ``_bpe_multipass_xla_stream``); chunk i on row ``i % B`` of the
+        mesh."""
+        tables = {d: bpe_torch.sparse_table_device(table, d) for d in dict.fromkeys(self.mesh)}
         n_static = align_up(max(chunk_hint, 1))
         pending: collections.deque = collections.deque()
 
@@ -370,11 +367,12 @@ class TorchEngine:
             count, be = pending.popleft()
             return be[: int(count)].cpu().numpy()
 
-        for chunk in _whole_chunks(chunks, n_static):
+        for i, chunk in enumerate(_whole_chunks(chunks, n_static)):
+            device = self.mesh[i % len(self.mesh)]
             buf = np.zeros(n_static, np.uint8)
             buf[: chunk.shape[0]] = chunk
-            dev = torch.from_numpy(buf).to(self.device)
-            toks, count = bpe_torch.multipass_encode(dev, chunk.shape[0], keys, vals)
+            dev = torch.from_numpy(buf).to(device)
+            toks, count = bpe_torch.multipass_encode(dev, chunk.shape[0], *tables[device])
             pending.append((count, bpe_torch.tokens_to_be_bytes_device(toks)))
             if len(pending) > self.depth:
                 yield drain()
@@ -382,10 +380,313 @@ class TorchEngine:
             yield drain()
 
 
+class ShardedTorchEngine(TorchEngine):
+    """Multi-device engine: row-sharded batches over a mesh (port of
+    ``ShardedJaxEngine``).
+
+    Each feed batch is laid out as ``B`` rows of one contiguous fill, row r
+    on ``mesh[r]`` (``parallel/mesh.py``), the merges table replicated.
+    Basic runs K1 a row; flat BPE runs the halo-sharded K2
+    (``CudaShardedFlatEncoder``), exact across rows and batches, and sends
+    a batch whose halo does not converge through the carry composition of
+    ``parallel.sharded``; general tables keep the per-chunk semantics, chunk
+    i on row ``i % B`` (``TorchEngine``'s route: each row dispatches by its
+    tensor, so a CUDA row runs the K3 or K4 loop and a CPU row its plain
+    version). ``devices``: the rows' devices, one may repeat (default:
+    every CUDA device; raises without one).
+
+    ``counts["carry_batches"]`` tallies the flat batches that took the carry
+    composition; the kernels' own counters count their launches.
+    """
+
+    name = "shard"
+
+    def __init__(self, devices=None, depth: int = 2, threads: int = 0):
+        mesh = make_mesh(devices)
+        super().__init__(mesh[0], depth=depth, threads=threads)
+        self.mesh = mesh
+        self.n_rows = len(mesh)
+        self._copy_streams = copy_streams(mesh)
+        self.counts = {"carry_batches": 0}
+
+    def _row_bytes(self, chunk_hint: int) -> int:
+        return align_up(-(-max(chunk_hint, 1) // self.n_rows))
+
+    def _layout(self, chunk: np.ndarray, row_bytes: int, staging: torch.Tensor):
+        """Fill a (B, row_bytes) batch front to back, upload each non-empty
+        row to its device. Returns (B row tensors, lengths int32[B]).
+
+        The fill is one contiguous (native multithreaded) copy into the
+        pinned ``staging``; bytes past each row's length are stale, and an
+        empty row is uninitialised memory on its device: every consumer
+        masks by the lengths."""
+        b = self.n_rows
+        n = chunk.shape[0]
+        if n > b * row_bytes:
+            raise ValueError(f"batch of {n} bytes exceeds {b} rows of {row_bytes}")
+        pack_into(staging.numpy(), chunk, self.threads)
+        full = n // row_bytes
+        lengths = np.zeros(b, np.int32)
+        lengths[:full] = row_bytes
+        if full < b:
+            lengths[full] = n - full * row_bytes
+        view = staging[: b * row_bytes].reshape(b, row_bytes)
+        rows = [
+            upload(view[r], dev, self._copy_streams.get(dev)) if lengths[r]
+            else torch.empty(row_bytes, dtype=torch.uint8, device=dev)
+            for r, dev in enumerate(self.mesh)
+        ]
+        return rows, lengths
+
+    def basic_stream(
+        self, chunks: Iterable[np.ndarray], chunk_hint: int
+    ) -> Iterator[np.ndarray]:
+        row_bytes = self._row_bytes(chunk_hint)
+        staging = pinned_buffer(self.n_rows * row_bytes, self.device)
+
+        def feed():
+            for batch in _batches(chunks, self.n_rows * row_bytes):
+                rows, lengths = self._layout(batch, row_bytes, staging)
+                live = [r for r in range(self.n_rows) if lengths[r]]
+                # the valid tokens are one contiguous prefix of the rows
+                yield sharded_basic_encode([rows[r] for r in live]), lengths[live]
+
+        def drain(items):
+            for outs, lengths in items:
+                for out, n in zip(outs, lengths):
+                    yield out[:n].cpu().numpy()  # u16 image; b << 8 LE is the BE wire
+
+        yield from prefetch_iter(
+            drain(prefetch_iter(feed(), self.depth, "feed")), self.depth, "drain"
+        )
+
+    def bpe_stream(
+        self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
+    ) -> Iterator:
+        if not table.flat:
+            yield from self._bpe_multipass_stream(chunks, table, chunk_hint)
+        elif CudaShardedFlatEncoder.supports(table):
+            slab = align_up(-(-max(chunk_hint, 1) // self.n_rows) + CudaShardedFlatEncoder.HALO)
+            enc = CudaShardedFlatEncoder(table, self.mesh, capacity_bytes=slab,
+                                         streams=self._copy_streams)
+            yield from self._bpe_flat_halo_stream(chunks, table, enc, chunk_hint)
+        else:
+            yield from self._bpe_flat_carry_stream(chunks, table, chunk_hint)
+
+    def _carry_dispatch(self, data, row_bytes, staging, dense_d, carry, next_byte):
+        """One batch through the carry composition. Returns (tokens,
+        counts, carry_out) of ``sharded_flat_encode``."""
+        rows, lengths = self._layout(data, row_bytes, staging)
+        return sharded_flat_encode(rows, lengths, dense_d, carry, next_byte)
+
+    @staticmethod
+    def _carry_host(tokens, counts) -> np.ndarray:
+        """A carry-composition batch's tokens on the host, as u16-BE."""
+        counts_h = counts.cpu().numpy()
+        parts = [t[:c].cpu().numpy() for t, c in zip(tokens, counts_h) if c]
+        return np.concatenate(parts).astype(">u2") if parts else np.empty(0, ">u2")
+
+    def _bpe_flat_halo_stream(
+        self,
+        chunks: Iterable[np.ndarray],
+        table: MergeTable,
+        enc: CudaShardedFlatEncoder,
+        chunk_hint: int,
+    ) -> Iterator:
+        """Flat BPE over the mesh at K2's rate a slab.
+
+        Halo convergence (``CudaShardedFlatEncoder``): slabs run K2 fused
+        with its pack from carry 0, and each slab's payload expands on the
+        host on its own, so the fast path holds no state across batches. A
+        batch with a degenerate (all-match) halo goes through the exact
+        carry composition with the true boundary carry, read from the
+        previous batch's last slab only then.
+
+        The packed wire splits a merge that straddles a boundary (its hi
+        byte at the start's slab, its lo byte at the consuming slab), which
+        composes across slabs and batches. The carry composition emits whole
+        tokens, so the transitions need a bridge: after a carry batch whose
+        carry consumed this batch's first byte, the first packed position is
+        skipped (its token was already emitted whole); a carry batch after a
+        packed batch with a pending merge prepends that merge's lo byte.
+        """
+        H = enc.HALO
+        d_rows = enc.n_rows
+        payload = enc.payload
+        dense = table.dense
+        use_native = native.available()
+        threads = self.threads
+        carry_row_bytes = self._row_bytes(chunk_hint)
+        staging = pinned_buffer(d_rows * enc.padded_bytes, self.device)
+        slabs = staging.numpy().reshape(d_rows, enc.padded_bytes)
+        carry_staging = None  # only a degenerate batch needs these
+        dense_d = None
+
+        def feed():
+            nonlocal carry_staging, dense_d
+            tail = np.empty(0, np.uint8)
+            # the boundary carry, for the carry path only: ("const", bool) |
+            # ("dev", carry-composition 0-d tensor) | ("slab", last slab's
+            # (1, 1) carry)
+            carry_state = ("const", False)
+            prev_kind = None  # "p" | "x": emission convention of the last batch
+
+            def boundary_carry():
+                kind, value = carry_state
+                return bool(value) if kind == "slab" else value
+
+            def dispatch(data: np.ndarray, next_byte: int):
+                nonlocal tail, carry_state, prev_kind, carry_staging, dense_d
+                n = data.shape[0]
+                lengths = np.zeros(d_rows, np.int32)
+                next_bytes = np.full(d_rows, -1, np.int32)
+                metas = []
+                offset = 0
+                converged = True
+                for r in range(d_rows):
+                    pl = min(payload, n - offset)
+                    if pl <= 0:
+                        metas.append((0, 0))
+                        continue
+                    halo = tail[-H:] if r == 0 else data[max(0, offset - H) : offset]
+                    if not enc.halo_converges(
+                        dense, np.concatenate([halo, data[offset : offset + 1]])
+                    ):
+                        converged = False
+                        break
+                    hl = halo.shape[0]
+                    slabs[r, :hl] = halo
+                    pack_into(slabs[r, hl:], data[offset : offset + pl], threads)
+                    lengths[r] = hl + pl
+                    next_bytes[r] = int(data[offset + pl]) if offset + pl < n else next_byte
+                    metas.append((hl, pl))
+                    offset += pl
+                if converged:
+                    # bridge rule 1: the carry batch before consumed this
+                    # batch's first byte and emitted the whole merged token
+                    skip_first = prev_kind == "x" and bool(boundary_carry())
+                    wires, carries = enc.encode_batch(staging.reshape(d_rows, -1),
+                                                      lengths, next_bytes)
+                    r_last = max(r for r, (_, pl) in enumerate(metas) if pl)
+                    carry_state = ("slab", carries[r_last])
+                    prev_kind = "p"
+                    tail = data[-H:].copy() if n >= H else np.concatenate([tail, data])[-H:]
+                    return "p", wires, metas, skip_first
+                # degenerate halo: the exact carry composition
+                if dense_d is None:
+                    dense_d = replicated(self.mesh, dense)
+                    carry_staging = pinned_buffer(d_rows * carry_row_bytes, self.device)
+                carry = boundary_carry()
+                # bridge rule 2: a pending merge of a packed batch emitted only
+                # its hi byte; its consumed byte (this batch's first) emits
+                # nothing here, so prepend the merge's lo byte
+                prefix = b""
+                if prev_kind == "p" and bool(carry):
+                    prefix = bytes([int(dense[int(tail[-1]) * 256 + int(data[0])]) & 0xFF])
+                tokens, counts, carry_out = self._carry_dispatch(
+                    data, carry_row_bytes, carry_staging, dense_d, carry, next_byte
+                )
+                carry_state = ("dev", carry_out)
+                prev_kind = "x"
+                tail = np.concatenate([tail, data])[-H:]
+                self.counts["carry_batches"] += 1
+                return "x", tokens, counts, prefix
+
+            prev: Optional[np.ndarray] = None
+            for batch in _batches(chunks, d_rows * payload):
+                if prev is not None:
+                    yield dispatch(prev, int(batch[0]))
+                prev = batch
+            if prev is not None:
+                yield dispatch(prev, -1)
+
+        cap = enc.capacity
+
+        def d2h(items):
+            for item in items:
+                if item[0] == "p":
+                    _, wires, metas, skip_first = item
+                    yield "p", [None if w is None else w.cpu().numpy() for w in wires], \
+                        metas, skip_first
+                else:
+                    _, tokens, counts, prefix = item
+                    yield "x", self._carry_host(tokens, counts), prefix
+
+        def drain(items):
+            for item in items:
+                if item[0] == "x":
+                    _, out, prefix = item
+                    if prefix:
+                        yield prefix
+                    yield out
+                    continue
+                _, wires, metas, skip_first = item
+                for r, (hl, pl) in enumerate(metas):
+                    start, cnt = hl, pl
+                    if r == 0 and skip_first:
+                        start, cnt = hl + 1, pl - 1
+                    if cnt <= 0:
+                        continue
+                    packed, flags = wires[r][:cap], wires[r][cap:]
+                    if use_native:
+                        yield native.unpack_slots(packed, flags, cnt, threads, start)
+                    else:
+                        yield unpack_slots_host(packed, flags, cnt, start)
+
+        yield from prefetch_iter(
+            drain(prefetch_iter(d2h(prefetch_iter(feed(), self.depth, "feed")),
+                                self.depth, "d2h")),
+            self.depth,
+            "drain",
+        )
+
+    def _bpe_flat_carry_stream(
+        self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
+    ) -> Iterator[np.ndarray]:
+        """Flat tables K2 rejects (values < 256): every batch through the
+        carry composition, the carry kept on the device between batches (the
+        JAX engine's ``_bpe_flat_xla_stream``)."""
+        row_bytes = self._row_bytes(chunk_hint)
+        staging = pinned_buffer(self.n_rows * row_bytes, self.device)
+        dense_d = replicated(self.mesh, table.dense)
+
+        def feed():
+            carry = False  # a device tensor after the first batch
+            prev: Optional[np.ndarray] = None
+
+            def dispatch(data: np.ndarray, next_byte: int):
+                nonlocal carry
+                tokens, counts, carry = self._carry_dispatch(
+                    data, row_bytes, staging, dense_d, carry, next_byte
+                )
+                return tokens, counts
+
+            for batch in _batches(chunks, self.n_rows * row_bytes):
+                if prev is not None:
+                    yield dispatch(prev, int(batch[0]))
+                prev = batch
+            if prev is not None:
+                yield dispatch(prev, -1)
+
+        def drain(items):
+            for tokens, counts in items:
+                yield self._carry_host(tokens, counts)
+
+        yield from prefetch_iter(
+            drain(prefetch_iter(feed(), self.depth, "feed")), self.depth, "drain"
+        )
+
+
 def _probe_device_engine(threads: int = 0) -> Optional[TorchEngine]:
-    """The torch engine on the first CUDA device, or None without one."""
+    """The device engine for this process, or None without a CUDA device:
+    every card of a multi-card host (``ShardedTorchEngine``), else the
+    torch engine on the one card."""
     device = cuda_device()
-    return TorchEngine(device, threads=threads) if device is not None else None
+    if device is None:
+        return None
+    if torch.cuda.device_count() > 1:
+        return ShardedTorchEngine(threads=threads)
+    return TorchEngine(device, threads=threads)
 
 
 class AutoStreamEngine:
@@ -440,7 +741,7 @@ class AutoStreamEngine:
         yield from engine.bpe_stream(replay, table, chunk_hint)
 
 
-ENGINES = ("auto", "torch", "numpy")
+ENGINES = ("auto", "torch", "numpy", "shard")
 
 
 def select_engine(
@@ -450,15 +751,19 @@ def select_engine(
     mem_budget: Optional[int] = None,
 ):
     """``torch``: the torch engine on the first CUDA device (raises without
-    one). ``numpy``: the host engine. ``auto``: the torch engine for inputs
-    of at least ``AUTO_DEVICE_THRESHOLD`` bytes when a CUDA device exists,
-    else the host engine; unknown-size streams peek first."""
+    one). ``shard``: the sharded engine over every CUDA device (raises
+    without one). ``numpy``: the host engine. ``auto``: the device engine
+    (``_probe_device_engine``) for inputs of at least
+    ``AUTO_DEVICE_THRESHOLD`` bytes when a CUDA device exists, else the host
+    engine; unknown-size streams peek first."""
     if engine_pref not in ENGINES:
         raise ValueError(f"unknown engine {engine_pref!r}, expected one of {ENGINES}")
     if engine_pref == "numpy":
         return NumpyEngine(threads)
     if engine_pref == "torch":
         return TorchEngine(require_cuda(), threads=threads)
+    if engine_pref == "shard":
+        return ShardedTorchEngine(threads=threads)
     if input_size is None:
         return AutoStreamEngine(threads, mem_budget=mem_budget)
     engine = None

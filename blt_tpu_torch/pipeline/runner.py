@@ -4,7 +4,9 @@
 I/O setup, chunk planning, decode and the ordered writer are copies of the
 JAX package's helpers. What differs: the engine is the port's
 (``config.engine``, an engine name, or an engine object the caller passes),
-and there is no multi-host branch, warm-up or profiling yet (ROADMAP.md).
+and there is no warm-up or profiling yet (ROADMAP.md). With the
+multi-process contract set (``BLT_COORDINATOR_ADDRESS`` and the two
+others), the run goes to ``parallel/multihost.py``.
 
 Chunk-feed sizing (as the JAX runner):
 - passthrough / basic / flat-BPE outputs are chunk-size invariant, so the
@@ -51,11 +53,22 @@ def _plan_feed_size(chunk: int, dev: int) -> int:
 def run_tokenizer(config: CoreConfig, engine=None) -> None:
     """Execute one tokenization run.
 
-    ``engine`` is an engine name (``"torch"``, ``"numpy"`` or ``"auto"``)
-    or an engine object; None reads ``config.engine`` (``torch`` unless
-    the caller chose otherwise).
+    ``engine`` is an engine name (``"torch"``, ``"shard"``, ``"numpy"`` or
+    ``"auto"``) or an engine object; None reads ``config.engine`` (``torch``
+    unless the caller chose otherwise). A multi-process run passes it on
+    to ``multihost.run_tokenizer_distributed``.
     """
     log.info("Starting tokenizer")
+    from blt_tpu_torch.parallel import multihost
+
+    if multihost.env_distributed():
+        # every process runs its byte range into the shared output
+        from blt_tpu_torch.parallel import distributed as dist
+
+        multihost.initialize_from_env()
+        if dist.process_count() > 1:
+            multihost.run_tokenizer_distributed(config, engine)
+            return
     mode = config.mode
     effective_chunk_size = get_effective_chunk_size(
         config.cli_chunk_size, config.num_threads, config.mem_cap_percent

@@ -56,6 +56,21 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    loop counted; each leg traced once more;
 6. the CLI as a process, from a 64 MiB stdin pipe, byte for byte, and
    the seconds a fresh process takes to import the CLI and reach the card;
+6b. shard: (a) ``run_tokenizer(config, engine=ShardedTorchEngine(devices=
+   [cuda:0] * 4))`` on phases 4 and 5's five legs, on a degenerate flat
+   leg (64 MiB of the corpus with runs of one byte x across two slab
+   boundaries and the rule (x, x): at least one batch must take the carry
+   composition, and how many did is printed), then bpe_500 through
+   ``cli.main(... --engine shard)`` (one row a card); (b) two processes of
+   ``python3 -m blt_tpu_torch.cli --engine torch`` on this card, joined
+   over gloo by ``BLT_COORDINATOR_ADDRESS`` / ``BLT_NUM_PROCESSES`` /
+   ``BLT_PROCESS_ID``: bpe_500 and basic on the 1 GiB corpus, leg 4's
+   table (through the API: a merges file holds only byte pairs) and the
+   decode of the bpe_500 output, each process under a timeout. Every
+   output's sha256 equals its leg's reference (decode: the input's); the
+   launch counters, set to 0 before each leg, equal what the leg
+   dispatched (K1 the rows, fused K2 the slabs, K3 / K4 the rounds); wall
+   seconds, rows and processes are printed beside the one-row time;
 7. measure, the device-rate path (``blt_tpu_torch.tools``): (a) K5, T1,
    T7, T8, T9, T5, T4 and T6 against their plain versions on the card,
    exactly (K5 and T1 chained 1 and 3 times from a nonzero token, T7 at
@@ -828,6 +843,7 @@ def phase_main_path(corpus, merges500, merges50k, workdir):
             fail(f"leg {name}: cli.main returned {rc}")
 
     totals = {k: 0 for k in all_launches()}
+    checked = {}  # leg -> its merges file, reference sha256 and seconds
     for name, merges, pairs, kernel in legs:
         out = out_of(name)
         reset_all_launches()  # the counts of this leg alone
@@ -850,6 +866,7 @@ def phase_main_path(corpus, merges500, merges50k, workdir):
         ref_seconds = time.perf_counter() - t1
         if sha != ref:
             fail(f"leg {name}: sha256 {sha} != reference {ref}")
+        checked[name] = {"merges": merges, "sha256": ref, "seconds": seconds}
         emit({
             "phase": "main_path", "leg": name, "input_bytes": size,
             "output_bytes": out_bytes, "batches": batches, "launches": got,
@@ -869,7 +886,7 @@ def phase_main_path(corpus, merges500, merges50k, workdir):
         trace = device_profile(functools.partial(run_leg, name, merges))
         os.unlink(out_of(name))
         emit({"phase": "trace", "leg": name, **trace})
-    return inp, m500, totals
+    return inp, m500, totals, checked
 
 
 def phase_multipass(corpus, inp, rules, workdir, chunk: int = 16 * MIB,
@@ -898,7 +915,7 @@ def phase_multipass(corpus, inp, rules, workdir, chunk: int = 16 * MIB,
         finally:
             del os.environ["BLT_MP_COMPACT"]
 
-    results, totals = {}, {}
+    results, totals, seconds_of = {}, {}, {}
     for name, src, size, mode, kernel in legs:
         reset_all_launches()  # the counts of this leg alone
         stage_stats(reset=True)
@@ -916,6 +933,7 @@ def phase_multipass(corpus, inp, rules, workdir, chunk: int = 16 * MIB,
             fail(f"leg {name}: launches {got}, {len(loops)} loops of {sum(rounds)} "
                  f"rounds, expected {chunks} chunks")
         totals[kernel] = got[kernel]
+        seconds_of[name] = seconds
         results[name] = (sha256_file(out), os.path.getsize(out))
         os.unlink(out)
         emit({
@@ -946,7 +964,11 @@ def phase_multipass(corpus, inp, rules, workdir, chunk: int = 16 * MIB,
         trace = device_profile(functools.partial(run_leg, src, mode))
         os.unlink(out)
         emit({"phase": "trace", "leg": name, **trace})
-    return totals
+    checked = {"multipass_gap": {"src": inp, "sha256": ref_all},
+               "multipass_sort": {"src": part, "sha256": ref_head}}
+    for name in checked:
+        checked[name]["seconds"] = seconds_of[name]
+    return totals, checked
 
 
 def phase_process(inp, m500, merges500):
@@ -988,6 +1010,294 @@ def phase_process(inp, m500, merges500):
     emit({"phase": "process", "input_bytes": int(data.shape[0]),
           "output_bytes": len(proc.stdout), "seconds": seconds, "equal": True,
           "fresh_process": startup})
+
+
+# the byte the degenerate leg lays in runs across slab boundaries: absent
+# from the corpus's alphabet, its only rule is (x, x)
+DEGENERATE_BYTE = 1
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# a rank of a two-process leg: runs ``cli.main(args)`` ("cli") or leg 4's
+# tokenize_file through the API ("api": rules JSON, input, output, chunk
+# size), then writes ``<report>.<rank>.json``: the rank's launches, its
+# loops, the bounds its runner planned and whether it ran a distributed
+# decode. Both spies wrap the runner's own functions and change nothing.
+RANK_WRAPPER = """
+import json, os, sys
+from blt_tpu_torch.ops import bpe_cuda, multipass_cuda
+from blt_tpu_torch.parallel import multihost
+
+planned, decoded = [], []
+plan, decode = multihost.plan_bounds, multihost._run_decode_distributed
+multihost.plan_bounds = lambda *a: planned.append(plan(*a)) or planned[-1]
+multihost._run_decode_distributed = lambda *a: decoded.append(1) or decode(*a)
+report, how, args = sys.argv[1], sys.argv[2], sys.argv[3:]
+if how == "cli":
+    from blt_tpu_torch import cli
+    rc = cli.main(args)
+else:
+    import blt_tpu_torch as blt
+    rules = {(a, b): v for a, b, v in json.load(open(args[0]))}
+    blt.ByteTokenizer(merges=rules, engine="torch", chunk_size=args[3]).tokenize_file(
+        args[1], args[2])
+    rc = 0
+launches = {k: v for m in (bpe_cuda, multipass_cuda) for k, v in m.launches.items() if v}
+with open(f"{report}.{os.environ['BLT_PROCESS_ID']}.json", "w") as f:
+    json.dump({"launches": launches, "loops": multipass_cuda.loop_log,
+               "bounds": planned, "decoded": bool(decoded)}, f)
+sys.exit(rc)
+"""
+
+
+def run_processes(args, workdir: str, label: str, n: int = 2, timeout: float = 600) -> float:
+    """``n`` processes of ``python3 args`` under the multi-process contract
+    (gloo on 127.0.0.1, all on this machine's card). Waits for every rank;
+    one that fails or outlives ``timeout`` fails the phase, and every
+    process still running is killed. Returns the wall seconds."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(BLT_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
+               BLT_NUM_PROCESSES=str(n))
+    logs = [os.path.join(workdir, f"{label}.rank{r}.log") for r in range(n)]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r, log in enumerate(logs):
+            with open(log, "wb") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, *args], env={**env, "BLT_PROCESS_ID": str(r)},
+                    cwd=ROOT, stdout=f, stderr=subprocess.STDOUT))
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad or time.perf_counter() - t0 > timeout:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    seconds = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(log, "rb") as f:
+                tail = f.read()[-2000:].decode(errors="replace")
+            fail(f"{label}: rank {r} exited {p.returncode} after {seconds:.1f} s: {tail}")
+    return seconds
+
+
+def phase_shard(corpus, inp, workdir, flat_legs, multipass_legs, rules, merges500,
+                rows: int = 4, chunk: int = 16 * MIB):
+    """Phase 6b: (a) ``ShardedTorchEngine(devices=[cuda:0] * rows)`` through
+    ``run_tokenizer`` on phases 4 and 5's legs and a degenerate flat leg,
+    then one leg through ``cli.main(... --engine shard)`` (one row a card);
+    (b) two processes of the CLI (the API for leg 4's table) on this card,
+    joined over gloo. Each output is held against its reference; the launch
+    counters, set to 0 before each leg, must equal what the leg dispatched
+    (K1 the rows, fused K2 the slabs, K3 / K4 the rounds)."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from blt_tpu_torch import cli
+    from blt_tpu_torch.config import ContentType, CoreConfig
+    from blt_tpu_torch.ops import multipass_cuda
+    from blt_tpu_torch.pipeline.engines import ShardedTorchEngine
+    from blt_tpu_torch.pipeline.runner import run_tokenizer
+
+    engine = ShardedTorchEngine(devices=[torch.device("cuda", 0)] * rows)
+    out = os.path.join(workdir, "out_shard.bin")
+    header = (0xFF01).to_bytes(2, "big")  # the text content-type token
+
+    def run_leg(src, merges=None, general=None, content_type=ContentType.TEXT):
+        config = CoreConfig.new_from_cli(
+            input=Path(src), output=Path(out), merges=Path(merges) if merges else None,
+            content_type=content_type, chunksize=f"{chunk // 1024}KB")
+        if general is not None:
+            config.with_merges(general)
+        for k in engine.counts:
+            engine.counts[k] = 0
+        reset_all_launches()  # the counts of this leg alone
+        t0 = time.perf_counter()
+        run_tokenizer(config, engine=engine)
+        seconds = time.perf_counter() - t0
+        got = {k: v for k, v in all_launches().items() if v}
+        sha, out_bytes = sha256_file(out), os.path.getsize(out)
+        os.unlink(out)
+        return {"rows": rows, "processes": 1, "seconds": seconds, "output_bytes": out_bytes,
+                "sha256": sha, "launches": got, "counts": dict(engine.counts),
+                "loops": list(multipass_cuda.loop_log)}
+
+    def check(name, r, ref, kernel, want):
+        if r["sha256"] != ref:
+            fail(f"shard leg {name}: sha256 {r['sha256']} != reference {ref}")
+        if set(r["launches"]) - {kernel} or r["launches"].get(kernel, 0) != want or not want:
+            fail(f"shard leg {name}: launches {r['launches']}, expected {want} of {kernel}")
+
+    from blt_tpu_torch.pipeline.runner import _device_batch_bytes, _plan_feed_size
+
+    size = corpus.shape[0]
+    # the runner feeds flat and basic legs in batches of ``feed`` bytes, a
+    # row (and a slab's payload) ``row_bytes`` of each
+    feed = _plan_feed_size(chunk, _device_batch_bytes())
+    row_bytes = engine._row_bytes(feed)
+    batches = -(-size // feed)
+    slabs = sum(-(-min(feed, size - s) // row_bytes) for s in range(0, size, feed))
+    # (a) in process, every leg of phases 4 and 5 over four rows
+    for name, leg in flat_legs.items():
+        r = run_leg(inp, leg["merges"])
+        r.pop("loops")
+        # K1 a non-empty row, fused K2 a slab, and no carry batch
+        check(name, r, leg["sha256"], "widen" if name == "basic" else "flat_bpe_packed", slabs)
+        if r["counts"]["carry_batches"]:
+            fail(f"shard leg {name}: {r['counts']}, expected no carry-composition batch")
+        emit({"phase": "shard", "leg": name, "input_bytes": size,
+              "one_row_seconds": leg["seconds"], **r})
+    for name, leg in multipass_legs.items():
+        mode = "sort" if name == "multipass_sort" else "gap"
+        os.environ["BLT_MP_COMPACT"] = mode
+        try:
+            r = run_leg(leg["src"], general=rules, content_type=None)
+        finally:
+            del os.environ["BLT_MP_COMPACT"]
+        kernel = "token_pass_lookback" if mode == "sort" else "token_pass_gap"
+        src_size = os.path.getsize(leg["src"])
+        if len(r["loops"]) != -(-src_size // chunk):
+            fail(f"shard leg {name}: {len(r['loops'])} loops for {src_size} bytes")
+        check(name, r, leg["sha256"], kernel, sum(n for n, _ in r.pop("loops")))
+        emit({"phase": "shard", "leg": name, "compact": mode, "input_bytes": src_size,
+              "one_row_seconds": leg["seconds"], **r})
+
+    # a degenerate flat leg: runs of one byte x across slab boundaries (batch
+    # 1's and batch 3's second slab) send those batches through the carry
+    # composition; odd run lengths leave merges pending at their ends
+    degen = np.array(corpus[: min(64 * MIB, size)])
+    carried = set()  # the batches whose second slab's halo is all x
+    for center in (feed + row_bytes, 3 * feed + row_bytes):
+        if center + 700 <= degen.shape[0]:
+            degen[center - 1501 : center + 700] = DEGENERATE_BYTE
+            carried.add(center // feed)
+    n = degen.shape[0]
+    packed_slabs = sum(-(-min(feed, n - s) // row_bytes) for s in range(0, n, feed)
+                       if s // feed not in carried)
+    pairs = list(merges500) + [(DEGENERATE_BYTE, DEGENERATE_BYTE)]
+    degen_in = os.path.join(workdir, "degenerate.bin")
+    degen_merges = os.path.join(workdir, "merges_degenerate.txt")
+    degen.tofile(degen_in)
+    write_merges(degen_merges, pairs)
+    r = run_leg(degen_in, degen_merges)
+    r.pop("loops")
+    ref = reference_sha(degen, dense_of(numbered(pairs)), header)
+    check("degenerate", r, ref, "flat_bpe_packed", packed_slabs)
+    if r["counts"]["carry_batches"] != len(carried) or not carried:
+        fail(f"shard leg degenerate: {r['counts']}, expected {len(carried)} batches "
+             "through the carry composition")
+    emit({"phase": "shard", "leg": "degenerate", "input_bytes": int(degen.shape[0]),
+          "carry_composition_batches": r["counts"]["carry_batches"], **r})
+    os.unlink(degen_in)
+
+    # the CLI's --engine shard: one row a card on this machine
+    cli_out = os.path.join(workdir, "out_shard_cli.bin")
+    reset_all_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", inp, "-o", cli_out, "--engine", "shard", "--type", "text",
+                   "--chunksize", f"{chunk // 1024}KB", "--merges", flat_legs["bpe_500"]["merges"]])
+    seconds = time.perf_counter() - t0
+    got = {k: v for k, v in all_launches().items() if v}
+    r = {"rows": torch.cuda.device_count(), "processes": 1, "seconds": seconds,
+         "sha256": sha256_file(cli_out), "launches": got}
+    os.unlink(cli_out)
+    if rc != 0:
+        fail(f"cli --engine shard returned {rc}")
+    check("cli_bpe_500", r, flat_legs["bpe_500"]["sha256"], "flat_bpe_packed",
+          batches * torch.cuda.device_count())
+    emit({"phase": "shard", "leg": "cli_bpe_500", "input_bytes": size,
+          "one_row_seconds": flat_legs["bpe_500"]["seconds"], **r})
+
+    # (b) two processes on this card, over gloo. Each rank runs through
+    # RANK_WRAPPER, which reports its launches, its loops and the bounds its
+    # runner planned; each rank's launches must be what its byte range gives
+    def mp_leg(name, how, args, target, ref, src_bytes, one_row_seconds, kernel, per_rank):
+        report = os.path.join(workdir, f"{name}.report")
+        seconds = run_processes(["-c", RANK_WRAPPER, report, how, *args], workdir, name)
+        sha = sha256_file(target)
+        if sha != ref:
+            fail(f"two-process leg {name}: sha256 {sha} != reference {ref}")
+        ranks = []
+        for r in range(2):
+            with open(f"{report}.{r}.json") as f:
+                ranks.append(json.load(f))
+        launches, expected = {}, 0
+        for r, rep in enumerate(ranks):
+            if kernel is None:  # decode: the host's work, no kernel
+                if not rep["decoded"] or rep["launches"]:
+                    fail(f"two-process leg {name}: rank {r} {rep}, expected a "
+                         "distributed decode and no launch")
+                continue
+            plans = rep["bounds"]
+            if (len(plans) != 1 or plans != ranks[0]["bounds"] or len(plans[0]) != 3
+                    or plans[0][0] != 0 or plans[0][-1] != src_bytes):
+                fail(f"two-process leg {name}: rank {r} planned {plans}, expected one "
+                     f"split of [0, {src_bytes}) shared by both ranks")
+            lo, hi = plans[0][r], plans[0][r + 1]
+            want = per_rank(r, lo, hi, rep["loops"])
+            if set(rep["launches"]) - {kernel} or rep["launches"].get(kernel, 0) != want:
+                fail(f"two-process leg {name}: rank {r} on [{lo}, {hi}) launched "
+                     f"{rep['launches']}, expected {want} of {kernel}")
+            for k, v in rep["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            expected += want
+        if kernel is not None and not expected:
+            fail(f"two-process leg {name}: no launch of {kernel}")
+        emit({"phase": "shard", "leg": name, "rows": 1, "processes": 2, "input_bytes": src_bytes,
+              "seconds": seconds, "one_process_seconds": one_row_seconds, "sha256": sha,
+              "output_bytes": os.path.getsize(target), "launches": launches,
+              "launches_expected": expected, "bounds": ranks[0]["bounds"]})
+
+    def batches_of(r, lo, hi, loops):  # the runner's feed batches in [lo, hi)
+        return -(-(hi - lo) // feed)
+
+    def rounds_of(r, lo, hi, loops):  # K3 a round, over one loop a chunk
+        if len(loops) != -(-(hi - lo) // chunk):
+            fail(f"two-process leg mp_multipass_gap: rank {r} ran {len(loops)} loops "
+                 f"on [{lo}, {hi})")
+        return sum(n for n, _ in loops)
+
+    cli_args = ["--engine", "torch", "--type", "text", "--chunksize", f"{chunk // 1024}KB",
+                "-i", inp]
+    wire = os.path.join(workdir, "mp_bpe_500.bin")
+    mp_leg("mp_bpe_500", "cli", cli_args + ["-o", wire, "--merges", flat_legs["bpe_500"]["merges"]],
+           wire, flat_legs["bpe_500"]["sha256"], size, flat_legs["bpe_500"]["seconds"],
+           "flat_bpe_packed", batches_of)
+    basic_out = os.path.join(workdir, "mp_basic.bin")
+    mp_leg("mp_basic", "cli", cli_args + ["-o", basic_out], basic_out, flat_legs["basic"]["sha256"],
+           size, flat_legs["basic"]["seconds"], "widen", batches_of)
+    os.unlink(basic_out)
+    # leg 4's table has token keys, which a merges file cannot hold: the API
+    rules_json = os.path.join(workdir, "rules.json")
+    with open(rules_json, "w") as f:
+        json.dump([[a, b, v] for (a, b), v in rules.items()], f)
+    general_out = os.path.join(workdir, "mp_multipass_gap.bin")
+    mp_leg("mp_multipass_gap", "api", [rules_json, inp, general_out, f"{chunk // 1024}KB"],
+           general_out, multipass_legs["multipass_gap"]["sha256"], size,
+           multipass_legs["multipass_gap"]["seconds"], "token_pass_gap", rounds_of)
+    os.unlink(general_out)
+    back = os.path.join(workdir, "mp_decoded.bin")
+    mp_leg("mp_decode_bpe_500", "cli",
+           ["--decode", "--type", "text", "--merges", flat_legs["bpe_500"]["merges"],
+            "-i", wire, "-o", back],
+           back, sha256_file(inp), os.path.getsize(wire), None, None, None)
+    os.unlink(wire)
+    os.unlink(back)
 
 
 # the card tests' rules for T6's segment cases: (a, b) and (a, a) rules,
@@ -1541,9 +1851,12 @@ def main() -> int:
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     try:
-        inp, m500, launches = phase_main_path(corpus, merges500, merges50k, workdir)
-        launches.update(phase_multipass(corpus, inp, rules, workdir))
+        inp, m500, launches, flat_legs = phase_main_path(corpus, merges500, merges50k, workdir)
+        multipass_launches, multipass_legs = phase_multipass(corpus, inp, rules, workdir)
+        launches.update(multipass_launches)
         phase_process(inp, m500, merges500)
+        # 6b. the sharded engine and the multi-process runner
+        phase_shard(corpus, inp, workdir, flat_legs, multipass_legs, rules, merges500)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -19,8 +19,9 @@ from blt_tpu_torch import cli
 from blt_tpu_torch.merges import MergeTable
 from blt_tpu_torch.ops import _cuda_build, bpe_cuda, multipass_cuda, tools_cuda
 from blt_tpu_torch.ops.bpe_numpy import bpe_encode_flat, bpe_encode_multipass
+from blt_tpu_torch.ops.sharded_cuda import CudaShardedFlatEncoder, CudaShardedTokenEncoder
 from blt_tpu_torch.ops.tables import cuckoo_planes, wire_table
-from blt_tpu_torch.pipeline.engines import TorchEngine
+from blt_tpu_torch.pipeline.engines import ShardedTorchEngine, TorchEngine
 from blt_tpu_torch.tools import (
     _common,
     exp_16bit,
@@ -793,3 +794,80 @@ def test_block_scans_equal_plain_version_on_segment_cases(cuda):
                 lambda variant=variant: exp_scan.chain(variant, d, d.numel() - 3, 98, table, c, 4,
                                                        rpb), 4, d.numel(), cuda, expect)
             assert timing["exact"] and timing["graph"] is not None, (variant, rpb)
+
+
+@pytest.mark.parametrize("mode", ["gap", "sort"])
+def test_sharded_encoders_on_four_rows_of_the_card(cuda, mode, monkeypatch):
+    """Both sharded encoders on [cuda:0] * 4 against the same encoders on
+    four CPU rows (their plain versions), with K2, K3 or K4 launched a row."""
+    monkeypatch.setenv("BLT_MP_COMPACT", mode)
+    cpu = torch.device("cpu")
+    table = MergeTable.build(MERGES)
+    slabs = {d: CudaShardedFlatEncoder(table, [d] * 4, capacity_bytes=64 * 1024)
+             for d in (cuda, cpu)}
+    enc = slabs[cuda]
+    batch = _text(31, 4 * enc.padded_bytes).reshape(4, -1)
+    lengths = np.array([enc.padded_bytes, enc.padded_bytes, 5000, 0], np.int32)
+    next_bytes = np.array([97, 98, -1, -1], np.int32)
+    bpe_cuda.reset_launches()
+    got = enc.encode_batch(batch, lengths, next_bytes)
+    assert bpe_cuda.launches["flat_bpe_packed"] == 3  # the non-empty slabs
+    want = slabs[cpu].encode_batch(batch, lengths, next_bytes)
+    for r, n in enumerate(lengths):
+        if n:
+            cap = enc.capacity
+            w, wp = got[0][r].cpu(), want[0][r]
+            assert torch.equal(w[:n], wp[:n]) and torch.equal(got[1][r].cpu(), want[1][r])
+            bits = np.unpackbits(w[cap:].numpy(), bitorder="little")[:n]
+            assert (bits == np.unpackbits(wp[cap:].numpy(), bitorder="little")[:n]).all()
+
+    general = MergeTable.build(GENERAL)
+    chunks = [_text(40 + i, s, alphabet=b"aaaabbc xyz") for i, s in
+              enumerate((64 * 1024, 1, 0, 40_000))]
+    multipass_cuda.reset_launches()
+    rows = CudaShardedTokenEncoder(general, [cuda] * 4, 64 * 1024).encode_batch_resident(chunks)
+    rounds = sum(r for r, _ in multipass_cuda.loop_log)
+    kernel = "token_pass_lookback" if mode == "sort" else "token_pass_gap"
+    assert multipass_cuda.launches[kernel] == rounds > 0
+    plain = CudaShardedTokenEncoder(general, [cpu] * 4, 64 * 1024).encode_batch_resident(chunks)
+    assert [r.tolist() for r in rows] == [p.tolist() for p in plain]
+    assert [r.tolist() for r in rows] == [bpe_encode_multipass(c, general).tolist()
+                                          for c in chunks]
+
+
+def test_shard_engine_degenerate_batch_on_the_card(cuda):
+    """A run of one byte across a slab boundary sends its batch through the
+    carry composition on the card; the stream stays exact."""
+    table = MergeTable.build({**MERGES, (120, 120): 300})
+    engine = ShardedTorchEngine([cuda] * 4)
+    hint = 4 * 64 * 1024
+    data = _text(50, 3 * hint + 123)
+    for center in (hint + 64 * 1024, 2 * hint + 128 * 1024):
+        data[center - 1501 : center + 700] = 120  # odd runs over slab boundaries
+    chunks = [data[i : i + hint] for i in range(0, data.shape[0], hint)]
+    bpe_cuda.reset_launches()
+    got = _join(engine.bpe_stream(iter(chunks), table, hint))
+    assert got == bpe_encode_flat(data, table).astype(">u2").tobytes()
+    assert engine.counts["carry_batches"] == 2
+    # fused K2 runs every slab of the two packed batches (0 and 3), a slab
+    # a quarter of the hint
+    packed = (chunks[0], chunks[3])
+    assert bpe_cuda.launches["flat_bpe_packed"] == sum(-(-c.size // (hint // 4)) for c in packed)
+
+
+def test_shard_engine_mixed_mesh_routes_each_row_by_its_device(cuda, monkeypatch):
+    """A mesh of a card row and a CPU row: general-table chunks on the card
+    row launch K3 (K4 under sort), those on the CPU row run the plain loop;
+    the stream is exact."""
+    general = MergeTable.build(GENERAL)
+    engine = ShardedTorchEngine([cuda, torch.device("cpu")])
+    chunks = [_text(60 + i, 40_000, alphabet=b"aaaabbc xyz") for i in range(4)]
+    want = b"".join(bpe_encode_multipass(c, general).astype(">u2").tobytes() for c in chunks)
+    for mode, kernel in (("gap", "token_pass_gap"), ("sort", "token_pass_lookback")):
+        monkeypatch.setenv("BLT_MP_COMPACT", mode)
+        multipass_cuda.reset_launches()
+        assert _join(engine.bpe_stream(iter(chunks), general, 40_000)) == want, mode
+        # chunks 0 and 2 on the card: their rounds are the launches
+        rounds = [r for r, _ in multipass_cuda.loop_log]
+        assert len(rounds) == 4
+        assert multipass_cuda.launches[kernel] == rounds[0] + rounds[2] > 0
