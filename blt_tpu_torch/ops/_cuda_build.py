@@ -248,6 +248,24 @@ def sass_counts(match: str, opcodes: tuple | None) -> dict | None:
     return out
 
 
+# one lock for every module's launch counters: requests on several threads
+# launch at once, and ``launches[name] += k`` is a read and then a write
+_count_lock = threading.Lock()
+
+
+def count(launches: dict, name: str, k: int = 1) -> None:
+    """Add ``k`` to ``launches[name]``; a wrapper calls it where it launches."""
+    with _count_lock:
+        launches[name] += k
+
+
+def reset_counts(launches: dict) -> None:
+    """Set every count of ``launches`` to 0."""
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+
+
 def check(err: int, what: str) -> None:
     """Raise when a launch reported a CUDA error."""
     if err != 0:

@@ -105,8 +105,7 @@ launches = {"widen": 0, "pack_slots": 0, "flat_bpe_packed": 0, **dict.fromkeys(C
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    _cuda_build.reset_counts(launches)
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -160,7 +159,7 @@ def basic_encode(data: torch.Tensor) -> torch.Tensor:
             data.data_ptr(), out.data_ptr(), data.numel(), _stream(data.device)
         )
     _cuda_build.check(err, "widen")
-    launches["widen"] += 1
+    _cuda_build.count(launches, "widen")
     return out
 
 
@@ -280,7 +279,7 @@ def chain_encode(
             steps if per_step else 0, _stream(dev),
         )
     _cuda_build.check(err, name)
-    launches[name] += k
+    _cuda_build.count(launches, name, k)
     return out, toks[(k - 1) & 1].reshape(1, 1)
 
 
@@ -459,7 +458,7 @@ def flat_encode_slots(
             scratch.data_ptr(), _stream(dev),
         )
     _cuda_build.check(err, name)
-    launches[name] += 1
+    _cuda_build.count(launches, name)
     return slots, carry_out
 
 
@@ -532,7 +531,7 @@ def pack_slots(
             wire.data_ptr(), last.data_ptr(), _stream(dev),
         )
     _cuda_build.check(err, "pack_slots")
-    launches["pack_slots"] += 1
+    _cuda_build.count(launches, "pack_slots")
     return wire, last
 
 
@@ -593,7 +592,7 @@ def flat_encode_packed(
             _stream(dev),
         )
     _cuda_build.check(err, "flat_bpe_packed")
-    launches["flat_bpe_packed"] += 1
+    _cuda_build.count(launches, "flat_bpe_packed")
     return wire, carry_out, last
 
 

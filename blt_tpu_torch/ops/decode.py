@@ -70,6 +70,20 @@ def header_mismatch_error(content_type, found: int) -> DecodeError:
     )
 
 
+def verify_strip_header(data: bytes, content_type) -> bytes:
+    """Verify + strip the leading content-type token of an in-memory wire
+    (the server's ``/detokenize``); raises through the same error
+    constructors as the streaming paths."""
+    if content_type is None:
+        return data
+    if len(data) < 2:
+        raise missing_header_error()
+    tok = (data[0] << 8) | data[1]
+    if tok != content_type.token_value:
+        raise header_mismatch_error(content_type, tok)
+    return data[2:]
+
+
 @dataclass
 class ExpansionTable:
     """Per-id byte expansions, flattened for the vectorized gather.

@@ -95,8 +95,7 @@ loop_log: list = []
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    _cuda_build.reset_counts(launches)
     loop_log.clear()
 
 
@@ -227,7 +226,7 @@ def token_pass(
             scratch.data_ptr(), _stream(dev),
         )
     _cuda_build.check(err, name)
-    launches[name] += 1
+    _cuda_build.count(launches, name)
     return out
 
 
@@ -298,7 +297,7 @@ def token_pass_gap(
             planes.a2, planes.shift, out.data_ptr(), scratch.data_ptr(), _stream(dev),
         )
     _cuda_build.check(err, "token_pass_gap")
-    launches["token_pass_gap"] += 1
+    _cuda_build.count(launches, "token_pass_gap")
     return out, scratch[-1]
 
 

@@ -93,8 +93,7 @@ launches = {"subgather": 0, "subgather_direct": 0, **{f"op_mix_{d}": 0 for d in 
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    _cuda_build.reset_counts(launches)
 
 
 def _blocks(rows: int, rpb: int, what: str) -> int:
@@ -184,7 +183,7 @@ def subgather(
         err = lib.blt_subgather(tbl.data_ptr(), idx.data_ptr(), out.data_ptr(),
                                 tbl.shape[0], rpb, plan["width"], done.data_ptr(), _stream(dev))
     _cuda_build.check(err, plan["kernel"])
-    launches[plan["kernel"]] += 1
+    _cuda_build.count(launches, plan["kernel"])
     return out, done
 
 
@@ -253,7 +252,7 @@ def op_mix(
                              tok.data_ptr(), toks[0].data_ptr(), toks[1].data_ptr(),
                              x.shape[0] // rpb - 1, k, _stream(dev))
     _cuda_build.check(err, f"op_mix_{name}")
-    launches[f"op_mix_{name}"] += k
+    _cuda_build.count(launches, f"op_mix_{name}", k)
     return out, toks[(k - 1) & 1].reshape(1, 1)
 
 
@@ -283,7 +282,7 @@ def copy_tokens(tokens: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(dev):
         err = lib.blt_copy_tokens(tokens.data_ptr(), cap, out.data_ptr(), _stream(dev))
     _cuda_build.check(err, "token_parts_copy")
-    launches["token_parts_copy"] += 1
+    _cuda_build.count(launches, "token_parts_copy")
     return out
 
 
@@ -397,7 +396,7 @@ def block_scan(
             scratch.data_ptr(), rpb, _stream(dev),
         )
     _cuda_build.check(err, f"scan_parts_{variant}")
-    launches[f"scan_parts_{variant}"] += 1
+    _cuda_build.count(launches, f"scan_parts_{variant}")
     return slots, carry_out
 
 
@@ -494,7 +493,7 @@ def row_scan(
             slots.data_ptr(), carry_out.data_ptr(), scratch.data_ptr(), rpb, _stream(dev),
         )
     _cuda_build.check(err, "chd_noscan2")
-    launches["chd_noscan2"] += 1
+    _cuda_build.count(launches, "chd_noscan2")
     return slots, carry_out
 
 
@@ -550,7 +549,7 @@ def mask_scan(variant: str, mask: torch.Tensor, rpb: int = 1024) -> torch.Tensor
         err = lib.blt_mask_scan(MASK_SCANS.index(variant), mask.data_ptr(), out.data_ptr(),
                                 mask.shape[0], rpb, scratch.data_ptr(), _stream(mask.device))
     _cuda_build.check(err, f"bf16scan_{variant}")
-    launches[f"bf16scan_{variant}"] += 1
+    _cuda_build.count(launches, f"bf16scan_{variant}")
     return out
 
 
@@ -638,7 +637,7 @@ def lookup(variant: str, tbl: torch.Tensor, p: torch.Tensor, c=None) -> torch.Te
                              0 if c is None else c.data_ptr(), out.data_ptr(), p.numel(),
                              _stream(p.device))
     _cuda_build.check(err, f"gather_{variant}")
-    launches[f"gather_{variant}"] += 1
+    _cuda_build.count(launches, f"gather_{variant}")
     return out
 
 
@@ -776,7 +775,7 @@ def pmxu(dtype: str, planes: torch.Tensor, p: torch.Tensor, c=None,
                            0 if c is None else c.data_ptr(), out.data_ptr(), p.numel(), tile,
                            _stream(p.device))
     _cuda_build.check(err, f"gather_{row}")
-    launches[f"gather_{row}"] += 1
+    _cuda_build.count(launches, f"gather_{row}")
     return out
 
 
@@ -841,5 +840,5 @@ def probe16(probe: str, x: torch.Tensor) -> torch.Tensor:
         err = lib.blt_probe16(PROBES16.index(probe), x.data_ptr(), out.data_ptr(), rows,
                               _stream(x.device))
     _cuda_build.check(err, probe)
-    launches[probe] += 1
+    _cuda_build.count(launches, probe)
     return out

@@ -10,7 +10,8 @@ code that runs on the card. ``ShardedTorchEngine(devices)`` lays each
 batch out as rows over several devices (port of ``ShardedJaxEngine``, on
 ``blt_tpu_torch/parallel/`` and ``ops/sharded_cuda.py``). ``NumpyEngine``
 is a copy of the JAX package's host engine: the way a caller asks for the
-CPU.
+CPU. ``PayloadAutoEngine`` picks one of them per in-memory payload, as the
+server's ``--engine auto`` does.
 
 Pipelining is the JAX engine's: feed (pack into a pinned buffer, upload,
 launch), device-to-host copy, and host drain each run on their own thread
@@ -24,6 +25,7 @@ from __future__ import annotations
 import collections
 import itertools
 import os
+import threading
 from typing import Iterable, Iterator, Optional
 
 import numpy as np
@@ -54,6 +56,26 @@ log = get_logger("engine")
 
 # AUTO's size rule (the JAX package's): inputs below this run on the host
 AUTO_DEVICE_THRESHOLD = 32 * 1024 * 1024
+
+# In-memory device payloads (server) take a power-of-two capacity of at
+# least this many bytes (the JAX package's floor, one Pallas block). The
+# kernels take any length, so the bucket changes no output; it keeps the
+# sizes of the blocks that torch's device and pinned-host caching
+# allocators hand out to a small set, which a warm-up can fill ahead.
+DEVICE_HINT_FLOOR = 1 << 16
+DEVICE_ENGINES = ("torch", "shard")
+
+
+def device_capacity_hint(size: int, engine) -> int:
+    """Capacity hint for a single in-memory payload of ``size`` bytes.
+
+    Device engines (``DEVICE_ENGINES``) get the power-of-two bucket >=
+    size, never less than ``DEVICE_HINT_FLOOR``; host engines keep the
+    exact size. Never below ``size``: a general table's request is one
+    chunk, and a chunk is never cut."""
+    if size <= 0 or getattr(engine, "name", "") not in DEVICE_ENGINES:
+        return size
+    return max(DEVICE_HINT_FLOOR, 1 << (size - 1).bit_length())
 
 
 def _batches(chunks: Iterable[np.ndarray], capacity: int) -> Iterator[np.ndarray]:
@@ -739,6 +761,50 @@ class AutoStreamEngine:
     def bpe_stream(self, chunks, table: MergeTable, chunk_hint: int) -> Iterator:
         engine, replay = self._select(chunks)
         yield from engine.bpe_stream(replay, table, chunk_hint)
+
+
+class PayloadAutoEngine:
+    """Per-payload engine choice for known-size in-memory requests (port of
+    the JAX package's ``PayloadAutoEngine``).
+
+    The serving twin of the CLI's AUTO policy: each request's size is known
+    up front (Content-Length), so the choice is a threshold. Payloads below
+    it run on the host engine; larger ones on the device engine
+    (``_probe_device_engine``) when a CUDA device exists, else on the host
+    engine too. The device engine is probed once, under a lock, on the first
+    large payload and shared by every request after it; callers resolve the
+    engine with ``select(size)`` before streaming.
+    """
+
+    name = "auto"
+
+    def __init__(self, threads: int = 0, device_threshold: Optional[int] = None):
+        self.threads = threads
+        self.threshold = (
+            device_threshold
+            if device_threshold and device_threshold > 0
+            else AUTO_DEVICE_THRESHOLD
+        )
+        self._host = NumpyEngine(threads)
+        self._device = None
+        self._probed = False
+        # two concurrent large requests must neither probe twice nor race
+        # check-then-act into serving a large payload on the host
+        self._probe_lock = threading.Lock()
+
+    def select(self, size: int):
+        if size >= self.threshold:
+            if not self._probed:
+                with self._probe_lock:
+                    if not self._probed:
+                        self._device = _probe_device_engine(self.threads)
+                        self._probed = True
+                        if self._device is not None:
+                            log.info("payload AUTO: %s engine for payloads >= %d bytes",
+                                     self._device.name, self.threshold)
+            if self._device is not None:
+                return self._device
+        return self._host
 
 
 ENGINES = ("auto", "torch", "numpy", "shard")

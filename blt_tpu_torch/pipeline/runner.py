@@ -3,10 +3,12 @@
 
 I/O setup, chunk planning, decode and the ordered writer are copies of the
 JAX package's helpers. What differs: the engine is the port's
-(``config.engine``, an engine name, or an engine object the caller passes),
-and there is no warm-up or profiling yet (ROADMAP.md). With the
-multi-process contract set (``BLT_COORDINATOR_ADDRESS`` and the two
-others), the run goes to ``parallel/multihost.py``.
+(``config.engine``, an engine name, or an engine object the caller passes).
+``BLT_WARMUP=1`` (or ``full``) runs ``warmup.warm_for_run`` before the
+first batch, and ``BLT_PROFILE=<dir>`` traces the compute and drain under
+``torch.profiler`` (``utils/profiling.py``), at the JAX runner's places.
+With the multi-process contract set (``BLT_COORDINATOR_ADDRESS`` and the
+two others), the run goes to ``parallel/multihost.py``.
 
 Chunk-feed sizing (as the JAX runner):
 - passthrough / basic / flat-BPE outputs are chunk-size invariant, so the
@@ -28,11 +30,13 @@ from blt_tpu_torch.config import CoreConfig, Mode
 from blt_tpu_torch.io.sources import OutputWriter, kernel_copy, setup_io
 from blt_tpu_torch.pipeline.engines import (
     AutoStreamEngine,
+    ShardedTorchEngine,
     TorchEngine,
     select_engine,
 )
 from blt_tpu_torch.utils.chunking import get_effective_chunk_size, mem_budget_bytes
 from blt_tpu_torch.utils.logging import get_logger, span
+from blt_tpu_torch.utils.profiling import maybe_profile
 
 log = get_logger("runner")
 
@@ -85,7 +89,8 @@ def run_tokenizer(config: CoreConfig, engine=None) -> None:
                 src.chunks(effective_chunk_size), table, config.content_type,
                 threads=config.num_threads,
             )
-            _drain_to_writer(results, writer)
+            with maybe_profile():
+                _drain_to_writer(results, writer)
             log.info("Detokenizer run completed successfully")
             return
 
@@ -112,6 +117,25 @@ def run_tokenizer(config: CoreConfig, engine=None) -> None:
         if isinstance(engine, (TorchEngine, AutoStreamEngine)) and invariant_output:
             feed_size = _plan_feed_size(effective_chunk_size, _device_batch_bytes())
 
+        warm_env = os.environ.get("BLT_WARMUP", "0")
+        # the sharded engine first: it is a TorchEngine, and warm_for_run
+        # warms one device's encoders, which it does not run
+        if warm_env in ("1", "full") and isinstance(engine, ShardedTorchEngine):
+            log.info("BLT_WARMUP: skipped (the sharded engine's row layout is not "
+                     "covered by the one-device warm-up)")
+        elif warm_env in ("1", "full") and isinstance(engine, TorchEngine):
+            from blt_tpu_torch.warmup import warm_for_run
+
+            warm_for_run(
+                mode,
+                config.table() if mode == Mode.BPE else None,
+                feed_size,
+                engine.device,
+                _device_batch_bytes(),
+                config.num_threads,
+                full=warm_env == "full",
+            )
+
         chunks = src.chunks(feed_size)
         if mode == Mode.PASSTHROUGH:
             results = engine.passthrough_stream(chunks, feed_size)
@@ -119,7 +143,10 @@ def run_tokenizer(config: CoreConfig, engine=None) -> None:
             results = engine.basic_stream(chunks, feed_size)
         else:
             results = engine.bpe_stream(chunks, config.table(), feed_size)
-        _drain_to_writer(results, writer)
+        # BLT_PROFILE=<dir> traces the whole compute and drain (the engines'
+        # streams are lazy generators, so every launch runs inside it)
+        with maybe_profile(getattr(engine, "device", None)):
+            _drain_to_writer(results, writer)
     except BaseException:
         # a failed run removes its partial output file (as the JAX runner)
         try:

@@ -71,6 +71,24 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    launch counters, set to 0 before each leg, equal what the leg
    dispatched (K1 the rows, fused K2 the slabs, K3 / K4 the rounds); wall
    seconds, rows and processes are printed beside the one-row time;
+6c. serve: ``blt_tpu_torch.server`` on the card. In process: the 500-pair
+   table's server warmed to 16 MiB (one fused K2 a bucket) and a server
+   without merges answer 1 KiB, 64 KiB, 1 MiB, 16 MiB and 64 MiB slices in
+   BPE, basic and passthrough mode, an empty body and a /detokenize of the
+   16 MiB reply; the 50k table at 64 MiB; leg 4's table at 16 MiB (K3
+   rounds, then K4 rounds under ``BLT_MP_COMPACT=sort``, against
+   ``multipass_reference``); eight clients sending 64 requests of 64 KiB to
+   16 MiB at once (p50 / p99 latency by size, aggregate MB/s); ``engine
+   auto`` at a 1 MiB threshold; ``engine shard``. Each body's sha256 equals
+   its NumPy reference's, and the counters, set to 0 before each request
+   (before the concurrent batch as a whole), give one fused K2 a non-empty
+   BPE request, one K1 a basic one, none for passthrough, detokenize, an
+   empty body and AUTO's requests below its threshold. The per-request
+   costs (an encoder with its wire table, pinned staging, three stage
+   threads) are timed alone. Then ``python -m blt_tpu_torch.server`` as a
+   process with and without ``--warmup 16MB``: seconds to /health, a 1 MiB
+   request's latency cold and warm; and one 64 MiB BPE leg of the CLI under
+   ``BLT_PROFILE``, whose trace must name ``flat_packed_kernel``;
 7. measure, the device-rate path (``blt_tpu_torch.tools``): (a) K5, T1,
    T7, T8, T9, T5, T4 and T6 against their plain versions on the card,
    exactly (K5 and T1 chained 1 and 3 times from a nonzero token, T7 at
@@ -1300,6 +1318,366 @@ def phase_shard(corpus, inp, workdir, flat_legs, multipass_legs, rules, merges50
     os.unlink(back)
 
 
+def _http(addr, method, path, body=b""):
+    """One request to a server at ``addr``. Returns (status, body, seconds
+    from the send to the last byte of the answer)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        data = r.read()
+        return r.status, data, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _serving(srv):
+    """Start ``srv.serve_forever`` on a thread; returns the address."""
+    import threading
+
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv.server_address[:2]
+
+
+def _stop(*servers):
+    for srv in servers:
+        srv.shutdown()
+        srv.server_close()
+
+
+def _percentiles(values) -> dict:
+    import numpy as np
+
+    v = np.asarray(values, dtype=np.float64)
+    return {"n": int(v.size), "p50_s": float(np.percentile(v, 50)),
+            "p99_s": float(np.percentile(v, 99)), "max_s": float(v.max())}
+
+
+def serve_process(m500, warmup, body):
+    """``python -m blt_tpu_torch.server --engine torch --merges m500`` (with
+    ``--warmup 16MB`` when ``warmup``) as a process: seconds from its start
+    until /health answers, then the latency of ``body`` as a BPE request,
+    twice. The process is stopped (SIGINT, then killed) before returning."""
+    import signal
+
+    port = _free_port()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    argv = [sys.executable, "-m", "blt_tpu_torch.server", "--engine", "torch",
+            "--merges", m500, "--port", str(port)] + (["--warmup", "16MB"] if warmup else [])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE)
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail(f"server process exited {proc.returncode}: "
+                     f"{proc.stderr.read().decode()[-2000:]}")
+            if time.perf_counter() - t0 > 300:
+                fail("server process: /health did not answer in 300 s")
+            try:
+                status, _, _ = _http(("127.0.0.1", port), "GET", "/health")
+                if status == 200:
+                    break
+            except OSError:
+                time.sleep(0.05)
+        health_s = time.perf_counter() - t0
+        firsts = []
+        for _ in range(2):
+            status, out, seconds = _http(("127.0.0.1", port), "POST", "/tokenize", body)
+            if status != 200:
+                fail(f"server process answered {status}: {out[:200]!r}")
+            firsts.append((seconds, hashlib.sha256(out).hexdigest()))
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            fail("server process did not stop on SIGINT")
+        if rc != 0:
+            fail(f"server process exited {rc} on SIGINT")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"warmup": warmup, "health_s": health_s, "first_request_s": firsts[0][0],
+            "second_request_s": firsts[1][0], "sha256": firsts[0][1],
+            "same_both_times": firsts[0][1] == firsts[1][1]}
+
+
+def phase_serve(corpus, workdir, m500, merges500, merges50k, rules):
+    """Phase 6c: the HTTP server on the card (``blt_tpu_torch.server``).
+
+    In process, each server on a thread of this process: the 500-pair table
+    warmed to 16 MiB, a server without merges and one with the 50k table;
+    sequential requests of 1 KiB to 64 MiB in BPE, basic and passthrough
+    mode and a /detokenize, each body's sha256 held against the NumPy
+    reference and each request's launches read from the counters (set to 0
+    before it): one fused K2 a non-empty BPE request, one K1 a basic one,
+    none for passthrough, detokenize and an empty body. Then leg 4's
+    table (a 16 MiB request, K3 rounds, and again under
+    ``BLT_MP_COMPACT=sort``, K4 rounds), eight concurrent clients, ``engine
+    auto`` at a 1 MiB threshold, ``engine shard``; the server as a process
+    with and without ``--warmup``; one BPE leg of the CLI under
+    ``BLT_PROFILE``. Returns the phase's launches by kernel."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    from blt_tpu_torch import cli
+    from blt_tpu_torch.merges import MergeTable, load_bpe_merges_from_path
+    from blt_tpu_torch.ops import multipass_cuda
+    from blt_tpu_torch.ops.bpe_cuda import CudaFlatEncoder
+    from blt_tpu_torch.pipeline.feeder import pinned_buffer, prefetch_iter
+    from blt_tpu_torch.pipeline.runner import _device_batch_bytes, _plan_feed_size
+    from blt_tpu_torch.server import make_server
+    from blt_tpu_torch.warmup import pow2_buckets
+
+    KIB = 1024
+    header = (0xFF01).to_bytes(2, "big")  # the text content-type token
+    dense500 = dense_of(numbered(merges500))
+    totals = {}
+    phase_t0 = time.perf_counter()
+
+    def counted(fn, kernel, want):
+        """Run ``fn`` with the counters at 0; fail unless it launched
+        ``want`` of ``kernel`` and nothing else. Returns fn's result."""
+        reset_all_launches()
+        result = fn()
+        got = {k: v for k, v in all_launches().items() if v}
+        if set(got) - {kernel} or got.get(kernel, 0) != want:
+            fail(f"serve: launched {got}, expected {want} of {kernel}")
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+        return result
+
+    def request(addr, path, body, kernel, want, ref):
+        status, out, seconds = counted(lambda: _http(addr, "POST", path, body), kernel, want)
+        sha = hashlib.sha256(out).hexdigest()
+        if status != 200 or sha != ref:
+            fail(f"serve {path} of {len(body)} bytes: status {status}, sha256 {sha} != {ref}")
+        return out, seconds
+
+    outputs = {}  # (offset, size, rules) -> the reference's output bytes
+
+    def bpe_ref(off, size, head=b"", pairs=merges500):
+        """sha256 of ``head`` + the flat-BPE reference of corpus[off:off+size]."""
+        key = (off, size, len(pairs))
+        if key not in outputs:
+            dense = dense500 if pairs is merges500 else dense_of(numbered(pairs))
+            outputs[key] = b"".join(flat_bpe_reference(corpus[off : off + size], dense))
+        return hashlib.sha256(head + outputs[key]).hexdigest()
+
+    # (1) the 500-pair server warmed to 16 MiB, and a server without merges
+    reset_all_launches()
+    t0 = time.perf_counter()
+    bpe_srv = make_server(port=0, merges_path=m500, engine="torch", warmup_bytes=16 * MIB)
+    warm_s = time.perf_counter() - t0
+    warm_launches = {k: v for k, v in all_launches().items() if v}
+    if warm_launches != {"flat_bpe_packed": len(pow2_buckets(16 * MIB))}:
+        fail(f"serve warm-up: launched {warm_launches}, expected one fused K2 a bucket")
+    basic_srv = make_server(port=0, engine="torch")
+    bpe_addr, basic_addr = _serving(bpe_srv), _serving(basic_srv)
+    sizes = [KIB, 64 * KIB, MIB, 16 * MIB, 64 * MIB]
+    rows = []
+    try:
+        request(bpe_addr, "/tokenize?type=text", b"", "flat_bpe_packed", 0,
+                hashlib.sha256(header).hexdigest())
+        for size in sizes:
+            data = corpus[:size]
+            body = data.tobytes()
+            row = {"bytes": size}
+            out, row["bpe_s"] = request(bpe_addr, "/tokenize", body, "flat_bpe_packed", 1,
+                                        bpe_ref(0, size))
+            if size == 16 * MIB:
+                back, row["detokenize_s"] = request(bpe_addr, "/detokenize", out, None, 0,
+                                                    hashlib.sha256(body).hexdigest())
+            _, row["basic_s"] = request(basic_addr, "/tokenize?type=text", body, "widen", 1,
+                                        reference_sha(data, None, header))
+            _, row["passthrough_s"] = request(bpe_addr, "/tokenize?mode=passthrough", body,
+                                              None, 0, hashlib.sha256(body).hexdigest())
+            rows.append(row)
+        emit({"phase": "serve", "part": "sequential", "warmup_bytes": 16 * MIB,
+              "warmup_s": warm_s, "warmup_launches": warm_launches, "requests": rows})
+
+        # (4) eight clients, 64 requests of 64 KiB-16 MiB, BPE and passthrough
+        rng = np.random.default_rng(18)
+        slices = [(int(rng.integers(0, corpus.shape[0] - s)), s)
+                  for s in (64 * KIB, 256 * KIB, MIB, 4 * MIB, 16 * MIB) for _ in range(2)]
+        refs = {}
+        for off, s in slices:
+            data = corpus[off : off + s]
+            refs[(off, s, "bpe")] = bpe_ref(off, s, header)
+            refs[(off, s, "passthrough")] = hashlib.sha256(data.tobytes()).hexdigest()
+        jobs = [(*slices[int(rng.integers(0, len(slices)))], mode)
+                for mode in ("bpe", "bpe", "bpe", "passthrough") for _ in range(16)]
+        rng.shuffle(jobs)
+        bodies = {(off, s): corpus[off : off + s].tobytes() for off, s in slices}
+
+        def client(job):
+            off, s, mode = job
+            path = "/tokenize?type=text" if mode == "bpe" else "/tokenize?mode=passthrough"
+            status, out, seconds = _http(bpe_addr, "POST", path, bodies[(off, s)])
+            return status, hashlib.sha256(out).hexdigest(), seconds
+
+        n_bpe = sum(mode == "bpe" for _, _, mode in jobs)
+
+        def concurrent_run():
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                results = list(pool.map(client, jobs))
+            return results, time.perf_counter() - t0
+
+        results, wall = counted(concurrent_run, "flat_bpe_packed", n_bpe)
+        for job, (status, sha, _) in zip(jobs, results):
+            if status != 200 or sha != refs[job]:
+                fail(f"serve concurrent {job}: status {status}, sha256 {sha} != {refs[job]}")
+        by_size = {}
+        for (_, s, _), (_, _, seconds) in zip(jobs, results):
+            by_size.setdefault(s, []).append(seconds)
+        in_bytes = sum(s for _, s, _ in jobs)
+        emit({"phase": "serve", "part": "concurrent", "clients": 8, "requests": len(jobs),
+              "bpe_requests": n_bpe, "input_bytes": in_bytes, "wall_s": wall,
+              "aggregate_MB_per_s": in_bytes / wall / 1e6,
+              "latency_by_size": {str(s): _percentiles(v) for s, v in sorted(by_size.items())}})
+
+        # the per-request costs of a flat request on the card, each alone
+        device = torch.device("cuda", 0)
+        table500 = MergeTable.build(load_bpe_merges_from_path(m500))
+        costs = {}
+        for cap in (MIB, 16 * MIB, 64 * MIB):
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                CudaFlatEncoder(table500, device, cap)  # the wire table upload, a copy stream
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                pinned_buffer(cap, device)
+                t2 = time.perf_counter()
+                times.append((t1 - t0, t2 - t1))
+            costs[str(cap)] = {"encoder_ms": [1e3 * a for a, _ in times],
+                               "pinned_staging_ms": [1e3 * b for _, b in times]}
+        t0 = time.perf_counter()
+        for _ in range(10):  # a flat request's three stages, over nothing
+            list(prefetch_iter(prefetch_iter(prefetch_iter(iter(()), 2, "a"), 2, "b"), 2, "c"))
+        costs["three_stage_threads_ms"] = (time.perf_counter() - t0) * 1e2
+        emit({"phase": "serve", "part": "request_costs", **costs})
+    finally:
+        _stop(bpe_srv, basic_srv)
+
+    # (2) the 50k-rule table at 64 MiB
+    m50k = os.path.join(workdir, "merges_50k.txt")
+    write_merges(m50k, merges50k)
+    srv = make_server(port=0, merges_path=m50k, engine="torch")
+    try:
+        data = corpus[: 64 * MIB]
+        _, seconds = request(_serving(srv), "/tokenize", data.tobytes(), "flat_bpe_packed", 1,
+                             bpe_ref(0, 64 * MIB, pairs=merges50k))
+    finally:
+        _stop(srv)
+    emit({"phase": "serve", "part": "bpe_50k", "bytes": 64 * MIB, "seconds": seconds})
+
+    # (3) leg 4's 8000-rule table: one 16 MiB request, the K3 loop, then the K4 loop
+    data = corpus[: 16 * MIB]
+    t0 = time.perf_counter()
+    keys, vals = rule_arrays(rules)
+    ref = hashlib.sha256(multipass_reference(data, keys, vals).astype(">u2").tobytes()).hexdigest()
+    ref_s = time.perf_counter() - t0
+    srv = make_server(port=0, engine="torch", table=MergeTable.build(rules))
+    general = {"bytes": 16 * MIB, "reference_s": ref_s}
+    try:
+        addr = _serving(srv)
+        for mode, kernel in (("gap", "token_pass_gap"), ("sort", "token_pass_lookback")):
+            os.environ["BLT_MP_COMPACT"] = mode
+            try:
+                multipass_cuda.loop_log.clear()
+                reset_all_launches()
+                status, out, seconds = _http(addr, "POST", "/tokenize", data.tobytes())
+                got = {k: v for k, v in all_launches().items() if v}
+            finally:
+                del os.environ["BLT_MP_COMPACT"]
+            loops = list(multipass_cuda.loop_log)
+            rounds = sum(r for r, _ in loops)
+            sha = hashlib.sha256(out).hexdigest()
+            if status != 200 or sha != ref:
+                fail(f"serve leg 4 ({mode}): status {status}, sha256 {sha} != {ref}")
+            if len(loops) != 1 or got != {kernel: rounds}:
+                fail(f"serve leg 4 ({mode}): launched {got}, loops {loops}")
+            totals[kernel] = totals.get(kernel, 0) + rounds
+            general[mode] = {"seconds": seconds, "rounds": rounds, "launches": got}
+    finally:
+        _stop(srv)
+    emit({"phase": "serve", "part": "general", **general})
+
+    # (5) engine auto at a 1 MiB threshold: below it the host, at or above it K2
+    srv = make_server(port=0, merges_path=m500, engine="auto", device_threshold=MIB)
+    auto = []
+    try:
+        addr = _serving(srv)
+        for size in (64 * KIB, MIB - 1, MIB, 4 * MIB):
+            data = corpus[:size]
+            want = int(size >= MIB)
+            _, seconds = request(addr, "/tokenize", data.tobytes(),
+                                 "flat_bpe_packed" if want else None, want, bpe_ref(0, size))
+            auto.append({"bytes": size, "launches": want, "seconds": seconds})
+    finally:
+        _stop(srv)
+    emit({"phase": "serve", "part": "auto", "device_threshold": MIB, "requests": auto})
+
+    # (6) engine shard: one row a card on this machine
+    srv = make_server(port=0, merges_path=m500, engine="shard")
+    shard = []
+    try:
+        addr = _serving(srv)
+        for size in (16 * MIB, 64 * MIB):
+            data = corpus[:size]
+            _, seconds = request(addr, "/tokenize?type=text", data.tobytes(), "flat_bpe_packed",
+                                 torch.cuda.device_count(), bpe_ref(0, size, header))
+            shard.append({"bytes": size, "seconds": seconds})
+        if srv.RequestHandlerClass.engine.counts["carry_batches"]:
+            fail("serve shard: a request took the carry composition")
+    finally:
+        _stop(srv)
+    emit({"phase": "serve", "part": "shard", "rows": torch.cuda.device_count(),
+          "requests": shard})
+
+    # (7) the server as a process, warmed and not: what the warm-up buys
+    body = corpus[:MIB].tobytes()
+    ref = bpe_ref(0, MIB)
+    procs = [serve_process(m500, warm, body) for warm in (True, False)]
+    for p in procs:
+        if p.pop("sha256") != ref or not p["same_both_times"]:
+            fail(f"serve process: a 1 MiB answer differs from the reference: {p}")
+    emit({"phase": "serve", "part": "process", "request_bytes": MIB, "runs": procs})
+
+    # (8) one BPE leg of the CLI under BLT_PROFILE: the trace names the fused K2
+    src = os.path.join(workdir, "serve_profile.bin")
+    corpus[: 64 * MIB].tofile(src)
+    traces = os.path.join(workdir, "serve_traces")
+    os.environ["BLT_PROFILE"] = traces
+    try:
+        rc = counted(lambda: cli.main(["-i", src, "-o", src + ".out", "--engine", "torch",
+                                       "--merges", m500, "--chunksize", "16MB"]),
+                     "flat_bpe_packed", -(-64 * MIB // _plan_feed_size(16 * MIB, _device_batch_bytes())))
+    finally:
+        del os.environ["BLT_PROFILE"]
+    files = os.listdir(traces)
+    if rc != 0 or len(files) != 1:
+        fail(f"serve profile: rc {rc}, trace files {files}")
+    with open(os.path.join(traces, files[0])) as f:
+        trace = f.read()
+    if "flat_packed_kernel" not in trace or sha256_file(src + ".out") != bpe_ref(0, 64 * MIB):
+        fail("serve profile: the trace does not name flat_packed_kernel, or the output differs")
+    emit({"phase": "serve", "part": "profile", "trace_bytes": len(trace),
+          "names_flat_packed_kernel": True,
+          "flat_packed_kernel_events": trace.count("flat_packed_kernel"),
+          "phase_seconds": time.perf_counter() - phase_t0, "launches": totals})
+    return totals
+
+
 # the card tests' rules for T6's segment cases: (a, b) and (a, a) rules,
 # (x, a) none
 SEGMENT_MERGES = {(97, 98): 256, (98, 99): 257, (99, 97): 258, (97, 97): 259, (255, 255): 0xFFFF}
@@ -1857,6 +2235,9 @@ def main() -> int:
         phase_process(inp, m500, merges500)
         # 6b. the sharded engine and the multi-process runner
         phase_shard(corpus, inp, workdir, flat_legs, multipass_legs, rules, merges500)
+        # 6c. the HTTP server; its launches join the main path's
+        for k, v in phase_serve(corpus, workdir, m500, merges500, merges50k, rules).items():
+            launches[k] += v
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -871,3 +871,59 @@ def test_shard_engine_mixed_mesh_routes_each_row_by_its_device(cuda, monkeypatch
         rounds = [r for r, _ in multipass_cuda.loop_log]
         assert len(rounds) == 4
         assert multipass_cuda.launches[kernel] == rounds[0] + rounds[2] > 0
+
+
+def test_server_requests_launch_one_kernel_each(cuda, tmp_path):
+    """The server on the card: a BPE request launches one fused K2, a basic
+    one one K1, passthrough, detokenize and an empty body none; every body
+    equals the host engine's."""
+    import http.client
+    import threading
+
+    from blt_tpu_torch import server
+
+    merges = tmp_path / "m.txt"
+    merges.write_text("97 98\n98 99\n97 97\n255 255\n")
+    table = MergeTable.build({(97, 98): 256, (98, 99): 257, (97, 97): 258, (255, 255): 259})
+    data = _text(70, 300_000)
+    want = bpe_encode_flat(data, table).astype(">u2").tobytes()
+    srv = server.make_server(port=0, merges_path=merges, engine="torch", warmup_bytes=1 << 17)
+    plain = server.make_server(port=0, engine="torch")
+    for s in (srv, plain):
+        threading.Thread(target=s.serve_forever, daemon=True).start()
+    try:
+        cases = [(srv, "/tokenize", data.tobytes(), "flat_bpe_packed", want),
+                 (plain, "/tokenize", data.tobytes(), "widen", data.astype(">u2").tobytes()),
+                 (srv, "/tokenize?mode=passthrough", data.tobytes(), None, data.tobytes()),
+                 (srv, "/detokenize", want, None, data.tobytes()),
+                 (srv, "/tokenize?type=text", b"", None, b"\xff\x01")]
+        for s, path, body, kernel, expected in cases:
+            bpe_cuda.reset_launches()
+            conn = http.client.HTTPConnection(*s.server_address, timeout=120)
+            conn.request("POST", path, body=body)
+            r = conn.getresponse()
+            assert r.status == 200 and r.read() == expected, path
+            conn.close()
+            counts = {k: v for k, v in bpe_cuda.launches.items() if v}
+            assert counts == ({kernel: 1} if kernel else {}), (path, counts)
+    finally:
+        for s in (srv, plain):
+            s.shutdown()
+            s.server_close()
+
+
+def test_warm_shapes_launch_each_modes_kernels(cuda, monkeypatch):
+    from blt_tpu_torch.config import Mode
+    from blt_tpu_torch.warmup import warm_shapes
+
+    caps = [1 << 16, 1 << 20]
+    bpe_cuda.reset_launches()
+    assert warm_shapes(Mode.BASIC, None, caps, cuda) == 2
+    assert warm_shapes(Mode.BPE, MergeTable.build(MERGES), caps, cuda) == 2
+    assert warm_shapes(Mode.PASSTHROUGH, None, caps, cuda) == 0
+    assert bpe_cuda.launches["widen"] == 2 and bpe_cuda.launches["flat_bpe_packed"] == 2
+    for mode, kernel in (("gap", "token_pass_gap"), ("sort", "token_pass_lookback")):
+        monkeypatch.setenv("BLT_MP_COMPACT", mode)
+        multipass_cuda.reset_launches()
+        assert warm_shapes(Mode.BPE, MergeTable.build(GENERAL), caps, cuda) == 2
+        assert multipass_cuda.launches[kernel] >= 2

@@ -12,6 +12,10 @@ and its copies of the JAX package's host modules behave as the originals.
   a second one does the same with the next four tools (``exp_gather``'s
   T13 rows), at 1 MiB and one launch each, and a third with ``exp_16bit``,
   ``canary_16bit`` and ``exp_gather``'s T14 and library rows.
+- Serving: a fresh interpreter runs the server on a CPU ``TorchEngine``,
+  ``PayloadAutoEngine``, ``warmup`` and ``utils.profiling``; and
+  ``python -m blt_tpu_torch.server --engine numpy`` as a process answers a
+  request and loads neither package.
 - Parity of the copied host modules with the JAX package's: merges parsing
   and its errors, ``MergeTable`` fields and the cuckoo32 planes and
   constants, chunk planning and size parsing, and decode.
@@ -150,6 +154,108 @@ print("isolated")
                        timeout=240, cwd=REPO)
     assert r.returncode == 0, r.stderr.decode()[-3000:]
     assert r.stdout.decode().strip() == "isolated"
+
+
+def test_serving_runs_without_the_jax_package(tmp_path):
+    """The server (a ``TorchEngine`` on the CPU, flat and general tables),
+    ``PayloadAutoEngine``, the warm-up and ``BLT_PROFILE`` in a fresh
+    interpreter."""
+    merges = tmp_path / "m.txt"
+    merges.write_text("97 98\n32 99\n")
+    code = f"""
+import http.client, os, sys, threading, torch
+torch.set_num_threads(1)
+from blt_tpu_torch import server, warmup
+from blt_tpu_torch.config import Mode
+from blt_tpu_torch.merges import MergeTable
+from blt_tpu_torch.pipeline.engines import PayloadAutoEngine, TorchEngine
+from blt_tpu_torch.utils.profiling import maybe_profile
+cpu = torch.device("cpu")
+general = MergeTable.build({{(97, 98): 256, (256, 99): 257}})
+for kw in ({{"merges_path": {str(merges)!r}}}, {{"table": general}}):
+    srv = server.make_server(port=0, engine=TorchEngine(cpu), **kw)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    conn = http.client.HTTPConnection(*srv.server_address, timeout=60)
+    conn.request("POST", "/tokenize?type=text", body=b"ab c abcab")
+    r = conn.getresponse()
+    assert r.status == 200 and r.read()[:2] == b"\\xff\\x01"
+    srv.shutdown()
+    srv.server_close()
+assert server.tokenize_bytes_wire(b"ab", engine=PayloadAutoEngine()) == b"\\x00a\\x00b"
+assert warmup.warm_shapes(Mode.BASIC, None, [1 << 16], cpu) == 0
+os.environ["BLT_PROFILE"] = {str(tmp_path / "traces")!r}
+with maybe_profile(cpu):
+    torch.ones(4).sum()
+assert len(os.listdir({str(tmp_path / "traces")!r})) == 1
+bad = sorted(k for k in sys.modules
+             if k in ("blt_tpu", "tools") or k.startswith(("blt_tpu.", "tools.", "jax")))
+assert not bad, bad
+print("isolated")
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, env=env,
+                       timeout=240, cwd=tmp_path)
+    assert r.returncode == 0, r.stderr.decode()[-3000:]
+    assert r.stdout.decode().strip() == "isolated"
+
+
+# runs ``python -m blt_tpu_torch.server`` in this interpreter and, once it has
+# returned (SIGINT ends serve_forever), prints the forbidden modules it loaded
+SERVER_WRAPPER = """
+import runpy, sys
+sys.argv = ["blt_tpu_torch.server", *sys.argv[1:]]
+try:
+    runpy.run_module("blt_tpu_torch.server", run_name="__main__")
+except SystemExit as e:
+    rc = e.code
+bad = sorted(k for k in sys.modules
+             if k in ("blt_tpu", "tools") or k.startswith(("blt_tpu.", "tools.", "jax")))
+print(f"exit {rc} {bad}", flush=True)
+"""
+
+
+def test_server_process_answers_without_the_jax_package():
+    """``python -m blt_tpu_torch.server --engine numpy --port 0`` as a process:
+    it prints its address, answers one request and, stopped by SIGINT, exits
+    0 having loaded nothing of JAX or the JAX package."""
+    import http.client
+    import re
+    import signal
+    import threading
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SERVER_WRAPPER, "--engine", "numpy", "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, cwd=REPO)
+    try:
+        found = {}
+
+        def read_address():
+            for line in proc.stderr:
+                m = re.search(rb"serving on http://([\d.]+):(\d+)", line)
+                if m:
+                    found["addr"] = (m.group(1).decode(), int(m.group(2)))
+                    return
+
+        reader = threading.Thread(target=read_address, daemon=True)
+        reader.start()
+        reader.join(timeout=120)
+        assert "addr" in found, "the server printed no address"
+        conn = http.client.HTTPConnection(*found["addr"], timeout=60)
+        conn.request("POST", "/tokenize?type=text", body=b"hello")
+        r = conn.getresponse()
+        assert r.status == 200
+        assert r.read() == b"\xff\x01" + bytes(b for ch in b"hello" for b in (0, ch))
+        conn.close()
+        proc.send_signal(signal.SIGINT)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert out.decode().strip() == "exit 0 []"
 
 
 # --- parity of the copied host modules --------------------------------------
