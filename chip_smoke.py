@@ -89,6 +89,30 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    process with and without ``--warmup 16MB``: seconds to /health, a 1 MiB
    request's latency cold and warm; and one 64 MiB BPE leg of the CLI under
    ``BLT_PROFILE``, whose trace must name ``flat_packed_kernel``;
+6d. train (``blt_tpu_torch.parallel.train``): (a) ``learn_bpe`` on the
+   card, 500 rules, on the corpus's first 16 MiB, and ``learn_bpe_sharded``
+   at 8 rows on the same bytes, each table equal to a NumPy reference
+   written here (``train_reference``: greedy count, the first index of the
+   maximum, leftmost non-overlapping merges, rows apart); (b) ``learn_bpe``
+   on the first 256 MiB, 500 rules, timed whole, its first 16 rules equal
+   to the reference's; 20 of its rounds replayed with CUDA events between
+   the steps (the count, the argmax and its host read, the match and scan,
+   the compaction), each beside its bytes over 3.35 TB/s, and 20 under
+   ``torch.profiler`` for the idle share, and the first round's count and
+   scan beside ``torch.bincount`` and ``torch.cummax``; (c) ``python -m
+   blt_tpu_torch.train_cli`` on the first 64 MiB, 8 rows, 500 rules with a
+   checkpoint every 100, and a 250-rule run resumed to 500: the merges files
+   byte-equal, the final checkpoints' arrays equal; (d) the 256 MiB table's
+   merges file through ``cli.main(... --engine torch)`` (fused K2 launches
+   equal to the batches, sha256 equal to ``flat_bpe_reference``'s) and the
+   whole learned dict through ``ByteTokenizer.tokenize_file`` on 64 MiB (K3
+   launches equal to the rounds, sha256 equal to ``multipass_reference``'s);
+   the references run on a process pool during (c) and (d);
+6e. fuzz: ``blt_tpu_torch.tools.fuzz_e2e`` on the card in process, 50
+   trials of up to 200000 bytes (the three engines and the encoder legs at
+   the trial's full size, each against the oracle) and 2 multi-process
+   trials; the launches by kernel printed; then ``make_conformance``'s four
+   goldens reproduced byte for byte by ``cli.main(... --engine torch)``;
 7. measure, the device-rate path (``blt_tpu_torch.tools``): (a) K5, T1,
    T7, T8, T9, T5, T4 and T6 against their plain versions on the card,
    exactly (K5 and T1 chained 1 and 3 times from a nonzero token, T7 at
@@ -144,7 +168,9 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    take those launches during their own tool's run; the three-launch K2,
    the pack and the three-launch K4, which the main path no longer runs,
    report the launches of this run);
-   (c) ``python -m blt_tpu_torch.tools.<name>`` for each tool as a process;
+   (c) ``python -m blt_tpu_torch.tools.<name>`` for each tool as a process,
+   at most 8 MiB (``PROCESS_BYTES``; the row counts scaled to match): (b)
+   measured each at its original's size;
 8. neither ``jax`` nor ``blt_tpu`` was ever imported.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -1678,6 +1704,429 @@ def phase_serve(corpus, workdir, m500, merges500, merges50k, rules):
     return totals
 
 
+# --- phase 6d: training ---------------------------------------------------------
+
+# the steps of a training round, in order, as phase 6d splits it
+TRAIN_STEPS = ("count", "argmax_read", "match_scan", "compact")
+
+
+def merge_pair_reference(t, a: int, b: int, new_id: int):
+    """One merge pass of the rule (a, b) -> ``new_id`` over int32 tokens
+    ``t``: its leftmost-first non-overlapping occurrences become ``new_id``
+    and lose their second token. Occurrences overlap only when a == b (a
+    run of equal tokens); there every other one from the run's start
+    merges."""
+    import numpy as np
+
+    m = np.flatnonzero((t[:-1] == a) & (t[1:] == b))
+    if a == b and m.size > 1:
+        head = np.ones(m.size, bool)
+        head[1:] = np.diff(m) != 1
+        k = np.arange(m.size)
+        m = m[(k - np.maximum.accumulate(np.where(head, k, 0))) % 2 == 0]
+    out = t.copy()
+    out[m] = new_id
+    return np.delete(out, m + 1)
+
+
+def train_reference(path: str, size: int, rows: int, num_merges: int) -> list:
+    """Greedy BPE training on the host, independent of both packages. The
+    first ``size`` bytes of ``path`` are cut into rows of ceil(size / rows)
+    bytes (the last one short). Each round counts the adjacent pairs within
+    every row (none across two rows), takes the most frequent pair (the
+    smallest ``a * V + b`` among equals, V = 256 + num_merges), stops when
+    it occurs under twice, and merges it in every row. Returns the rules
+    in order, as (a, b) tuples."""
+    import numpy as np
+
+    data = np.fromfile(path, np.uint8, count=size)
+    step = -(-size // rows)
+    seqs = [data[s : s + step].astype(np.int32) for s in range(0, size, step)]
+    vocab = 256 + num_merges
+    rules = []
+    for new_id in range(256, 256 + num_merges):
+        hist = np.zeros(vocab * vocab, np.int64)
+        for t in seqs:
+            hist += np.bincount(t[:-1].astype(np.int64) * vocab + t[1:],
+                                minlength=vocab * vocab)
+        best = int(np.argmax(hist))  # the first maximum
+        if hist[best] < 2:
+            break
+        a, b = divmod(best, vocab)
+        rules.append((a, b))
+        seqs = [merge_pair_reference(t, a, b, new_id) for t in seqs]
+    return rules
+
+
+def train_step_bytes(width: int, live: int, vocab: int) -> dict:
+    """The bytes each step of a round must move, each input read and each
+    output written once: the count reads ``width`` int32 tokens and writes
+    the int32 (V, V) histogram; the argmax reads the histogram and writes
+    the index, its count and the longest length; the match and scan read
+    the ``live`` tokens and write one bool a position; the compaction reads
+    those tokens and bools and writes the tokens."""
+    hist = 4 * vocab * vocab
+    return {"count": 4 * width + hist, "argmax_read": hist + 24,
+            "match_scan": 4 * live + live, "compact": 5 * live + 4 * live}
+
+
+def train_rounds(tokens, length, vocab: int, rules, split=None, moved=None):
+    """Replay ``learn_bpe``'s rounds for ``rules`` from ``tokens`` through
+    ``parallel.train``'s steps, each round's pick held equal to its rule.
+    With ``split`` and ``moved`` (dicts by ``TRAIN_STEPS``), CUDA events
+    between the steps add each step's milliseconds to ``split`` and the
+    bytes it must move (``train_step_bytes``) to ``moved``."""
+    import torch
+
+    from blt_tpu_torch.parallel import train
+
+    for new_id, (a, b) in enumerate(rules, 256):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)] if split is not None else []
+
+        def mark(i):
+            if ev:
+                ev[i].record()
+
+        width = tokens.shape[-1]
+        mark(0)
+        hist = train._count_pairs(tokens, length, vocab)
+        mark(1)
+        best, _, live = train._best(hist, length)  # the round's one host read
+        mark(2)
+        tokens = tokens[:live]
+        starts = train._merge_starts(tokens, length, a, b)
+        mark(3)
+        tokens, length = train._compact_rule(tokens, length, starts, new_id)
+        mark(4)
+        if divmod(best, vocab) != (a, b):
+            fail(f"replayed round {new_id - 256} picked {divmod(best, vocab)}, learned {(a, b)}")
+        if ev:
+            ev[4].synchronize()
+            for i, (step, nbytes) in enumerate(train_step_bytes(width, live, vocab).items()):
+                split[step] += ev[i].elapsed_time(ev[i + 1])
+                moved[step] += nbytes
+    return tokens, length
+
+
+def train_glue_alternatives(tokens, length, vocab: int) -> dict:
+    """The first round's count and scan at full width beside one PyTorch
+    call of the same function, each held equal to it: the count beside
+    ``torch.bincount`` (int64 bins), ``_last_nonmatch`` over the matches of
+    the rule (x, x), x the most frequent token, beside ``torch.cummax`` of
+    the sentinel (the JAX trainer's scan; timed once). Milliseconds."""
+    import torch
+
+    from blt_tpu_torch.parallel import train
+
+    hist = train._count_pairs(tokens, length, vocab)
+
+    def bincount():
+        return torch.bincount(tokens[:-1].to(torch.int64) * vocab + tokens[1:],
+                              minlength=vocab * vocab)
+
+    if not torch.equal(bincount().to(torch.int32), hist):
+        fail("torch.bincount's pair counts differ from _count_pairs'")
+    x = int(torch.bincount(tokens).argmax())
+    match = (tokens == x) & (torch.roll(tokens, -1) == x)
+    match[-1] = False
+    idx = torch.arange(tokens.shape[0], dtype=torch.int32, device=tokens.device)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = torch.cummax(torch.where(match, train._NEG_INF32, idx), dim=0).values
+    b.record()
+    b.synchronize()
+    if not torch.equal(train._last_nonmatch(match), want):
+        fail("_last_nonmatch differs from torch.cummax of the sentinel")
+    return {"count": cuda_ms(lambda: train._count_pairs(tokens, length, vocab), reps=3),
+            "library_bincount": cuda_ms(bincount, reps=3),
+            "scan_last_nonmatch": cuda_ms(lambda: train._last_nonmatch(match), reps=3),
+            "library_cummax_once": a.elapsed_time(b),
+            "scan_rule": [x, x], "scan_match_share": float(match.float().mean())}
+
+
+def merges_file_pairs(path: str) -> list:
+    """The byte pairs of a merges file's rule lines, in order (``#`` lines
+    skipped): line i makes token 256 + i."""
+    with open(path) as f:
+        return [tuple(int(v) for v in line.split()) for line in f
+                if line.strip() and not line.startswith("#")]
+
+
+def run_train_cli(args):
+    """``python -m blt_tpu_torch.train_cli ARGS`` as a process (started,
+    not waited for: ``_wait_cli``)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.Popen([sys.executable, "-m", "blt_tpu_torch.train_cli", *args],
+                            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _wait_cli(proc, label: str, timeout: float = 600) -> None:
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{label}: the train CLI outlived {timeout} s")
+    if proc.returncode != 0:
+        fail(f"{label}: the train CLI exited {proc.returncode}: {err[-2000:]}")
+
+
+def phase_train(corpus, workdir, head_path: str, rules_n: int = 500):
+    """Phase 6d: BPE merge training on the card (``blt_tpu_torch.parallel.
+    train``, ``train_cli``), and the learned table on the main path.
+
+    (a) ``learn_bpe`` and ``learn_bpe_sharded`` (8 rows) at 16 MiB, 500
+    rules; (b) ``learn_bpe`` at 256 MiB, 500 rules, timed whole, then 20 of
+    its rounds replayed with CUDA events between the steps and 20 under
+    ``torch.profiler``; (c) the train CLI as processes at 64 MiB, 8 rows:
+    a clean 500-rule run, and a 250-rule run resumed to 500 from its
+    checkpoint; (d) the 256 MiB table's merges file through ``cli.main``
+    (K2 fused with its pack), the full learned dict through
+    ``ByteTokenizer.tokenize_file`` at 64 MiB (K3 rounds). The NumPy
+    references (``train_reference``, ``multipass_reference``) run on a
+    process pool during (c) and (d): the tables of (a) whole and the first
+    16 rules of (b) must equal theirs, (d)'s outputs their sha256. Returns
+    the phase's launches by kernel."""
+    import concurrent.futures
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    import blt_tpu_torch
+    from blt_tpu_torch import cli
+    from blt_tpu_torch.ops import multipass_cuda
+    from blt_tpu_torch.parallel import train
+    from blt_tpu_torch.pipeline.runner import _device_batch_bytes, _plan_feed_size
+
+    t_phase = time.perf_counter()
+    small, mid = 16 * MIB, 64 * MIB
+    head = corpus[: 256 * MIB]
+    path16 = os.path.join(workdir, "train_16.bin")
+    path64 = os.path.join(workdir, "train_64.bin")
+    corpus[:small].tofile(path16)
+    corpus[:mid].tofile(path64)
+    phase_launches = {k: 0 for k in all_launches()}
+
+    # (a) exactness at 16 MiB: one sequence, then 8 rows
+    t0 = time.perf_counter()
+    learned16 = train.learn_bpe(corpus[:small], rules_n)
+    s16 = time.perf_counter() - t0
+    rows = 8
+    batch = corpus[:small].reshape(rows, small // rows)
+    t0 = time.perf_counter()
+    learned16_rows = train.learn_bpe_sharded(batch, np.full(rows, small // rows, np.int32),
+                                             rules_n)
+    s16_rows = time.perf_counter() - t0
+
+    # (b) the realistic size: 256 MiB, the table timed whole
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learned = train.learn_bpe(head, rules_n)
+    seconds = time.perf_counter() - t0
+    if len(learned) != rules_n:
+        fail(f"learn_bpe at 256 MiB stopped after {len(learned)} rules")
+    learned_txt = os.path.join(workdir, "learned.txt")
+    train.save_merges(learned, learned_txt)
+    vocab = 256 + rules_n
+    dev = torch.device("cuda", 0)
+    rules20 = list(learned)[:20]
+
+    def start():
+        tokens = torch.from_numpy(head).to(dev).to(torch.int32)
+        return tokens, torch.tensor(head.shape[0], dtype=torch.int32, device=dev)
+
+    split, moved = {k: 0.0 for k in TRAIN_STEPS}, {k: 0 for k in TRAIN_STEPS}
+    train_rounds(*start(), vocab, rules20, split, moved)
+    tokens, length = start()
+    torch.cuda.synchronize()
+    trace = device_profile(functools.partial(train_rounds, tokens, length, vocab, rules20))
+    del tokens, length
+    glue = train_glue_alternatives(*start(), vocab)
+    emit({"phase": "train", "part": "learn_bpe", "input_bytes": int(head.shape[0]),
+          "rules": len(learned), "rounds": len(learned), "seconds": seconds,
+          "ms_per_round": seconds * 1e3 / len(learned),
+          "split_rounds": len(rules20),
+          "split_ms_per_round": {k: v / len(rules20) for k, v in split.items()},
+          "bound_ms_per_round": {k: bytes_bound_ms(v) / len(rules20) for k, v in moved.items()},
+          "round_bound_ms": bytes_bound_ms(sum(moved.values())) / len(rules20),
+          "trace_rounds": len(rules20), "trace_wall_s": trace["wall_s"],
+          "device_busy_s": trace["device_busy_s"], "idle_share": trace["idle_share"],
+          "device_ms": dict(list(trace["device_ms"].items())[:12]),
+          "round_0_ms": glue,
+          "at_16_mib": {"seconds": s16, "rules": len(learned16),
+                        "rows_8_seconds": s16_rows, "rows_8_rules": len(learned16_rows)}})
+
+    # the references, on a process pool while the card runs (c) and (d)
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(6, mp_context=ctx) as pool:
+        t_ref = time.perf_counter()
+        ref16 = pool.submit(train_reference, path16, small, 1, rules_n)
+        ref16_rows = pool.submit(train_reference, path16, small, rows, rules_n)
+        ref256 = pool.submit(train_reference, head_path, head.shape[0], 1, 16)
+        keys, vals = rule_arrays(learned)
+        ref_chunks = [pool.submit(_reference_chunk, (corpus[s : s + 16 * MIB], keys, vals))
+                      for s in range(0, mid, 16 * MIB)]
+
+        # (c) the train CLI as processes: a clean run and a 250-rule run at
+        # once, then the resume
+        base = [path64, "--rows", str(rows), "--checkpoint-every", "100"]
+        outs = {k: os.path.join(workdir, f"cli_{k}.txt") for k in ("clean", "half", "resumed")}
+        ckpt = {k: os.path.join(workdir, f"cli_{k}.npz") for k in ("clean", "half")}
+        t0 = time.perf_counter()
+        clean = run_train_cli([*base, "-o", outs["clean"], "-n", str(rules_n),
+                               "--checkpoint", ckpt["clean"]])
+        half = run_train_cli([*base, "-o", outs["half"], "-n", str(rules_n // 2),
+                              "--checkpoint", ckpt["half"]])
+        _wait_cli(half, "train_cli -n 250")
+        s_half = time.perf_counter() - t0
+        _wait_cli(clean, "train_cli -n 500")
+        s_clean = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        _wait_cli(run_train_cli([*base, "-o", outs["resumed"], "-n", str(rules_n),
+                                 "--checkpoint", ckpt["half"], "--resume"]),
+                  "train_cli --resume")
+        s_resume = time.perf_counter() - t1
+        with open(outs["clean"], "rb") as f, open(outs["resumed"], "rb") as g:
+            if f.read() != g.read():
+                fail("the resumed train CLI's merges file differs from the clean run's")
+        a, b = np.load(ckpt["clean"]), np.load(ckpt["half"])
+        for key in ("keys", "vals", "new_id", "tokens", "lengths"):
+            if a[key].dtype != b[key].dtype or not np.array_equal(a[key], b[key]):
+                fail(f"the resumed checkpoint's {key} differs from the clean run's")
+        emit({"phase": "train", "part": "cli", "input_bytes": mid, "rows": rows,
+              "rules": int(a["new_id"]) - 256, "seconds_clean": s_clean,
+              "seconds_250": s_half, "seconds_resume": s_resume, "equal": True,
+              "checkpoint_new_id": int(a["new_id"])})
+
+        # (d) the learned table on the main path: its merges file (byte
+        # pairs only) through K2 fused with its pack, the whole dict through
+        # the K3 loop
+        out = os.path.join(workdir, "learned_out.bin")
+        reset_all_launches()
+        t0 = time.perf_counter()
+        if cli.main(["-i", head_path, "-o", out, "--engine", "torch", "--merges",
+                     learned_txt, "--chunksize", "16MB"]) != 0:
+            fail("the learned merges file: cli.main failed")
+        s_flat = time.perf_counter() - t0
+        got = all_launches()
+        batches = -(-head.shape[0] // _plan_feed_size(16 * MIB, _device_batch_bytes()))
+        if got["flat_bpe_packed"] != batches:
+            fail(f"the learned merges file: launches {got}, expected {batches} batches")
+        for k, v in got.items():
+            phase_launches[k] += v
+        file_pairs = merges_file_pairs(learned_txt)
+        sha_flat = sha256_file(out)
+        ref_flat = reference_sha(head, dense_of(numbered(file_pairs)), b"")
+        if sha_flat != ref_flat:
+            fail(f"the learned merges file: sha256 {sha_flat} != reference {ref_flat}")
+        reset_all_launches()
+        t0 = time.perf_counter()
+        blt_tpu_torch.ByteTokenizer(merges=learned, engine="torch",
+                                    chunk_size="16MB").tokenize_file(path64, out)
+        s_dict = time.perf_counter() - t0
+        got = all_launches()
+        rounds = [r for r, _ in multipass_cuda.loop_log]
+        if len(rounds) != mid // (16 * MIB) or got["token_pass_gap"] != sum(rounds):
+            fail(f"the learned dict: launches {got}, rounds {rounds}")
+        for k, v in got.items():
+            phase_launches[k] += v
+        sha_dict = sha256_file(out)
+        os.unlink(out)
+
+        # the references' verdicts
+        h = hashlib.sha256()
+        for job in ref_chunks:
+            h.update(job.result())
+        ref_dict = h.hexdigest()
+        if sha_dict != ref_dict:
+            fail(f"the learned dict: sha256 {sha_dict} != reference {ref_dict}")
+        checks = {"learn_bpe_16": (list(learned16), ref16.result()),
+                  "learn_bpe_sharded_16": (list(learned16_rows), ref16_rows.result()),
+                  "learn_bpe_256_first_16": (list(learned)[:16], ref256.result())}
+        for name, (got_rules, want) in checks.items():
+            if got_rules != want:
+                first = next((i for i, (x, y) in enumerate(zip(got_rules, want)) if x != y),
+                             min(len(got_rules), len(want)))
+                fail(f"{name}: the card's table differs from the reference at rule {first} "
+                     f"({len(got_rules)} against {len(want)} rules)")
+        ref_seconds = time.perf_counter() - t_ref
+    emit({"phase": "train", "part": "main_path", "file_rules": len(file_pairs),
+          "flat": {"input_bytes": int(head.shape[0]), "batches": batches,
+                   "seconds": s_flat, "sha256": sha_flat},
+          "dict": {"input_bytes": mid, "rules": len(learned), "chunks": len(rounds),
+                   "rounds": rounds, "seconds": s_dict, "sha256": sha_dict},
+          "launches": {k: v for k, v in phase_launches.items() if v}})
+    emit({"phase": "train", "part": "references", "equal": True,
+          "tables": {k: len(w) for k, (_, w) in checks.items()},
+          "seconds_after_start": ref_seconds, "phase_seconds": time.perf_counter() - t_phase})
+    for p in (path16, path64):
+        os.unlink(p)
+    return phase_launches
+
+
+# --- phase 6e: the fuzzer and the conformance goldens ------------------------------
+
+# make_conformance's goldens and the CLI flags that reproduce each
+GOLDENS = {"golden_basic.bin": [], "golden_passthrough.bin": ["--passthrough"],
+           "golden_bpe.bin": ["--merges", "merges.txt", "--chunksize", "128MB"],
+           "golden_basic_type_text.bin": ["--type", "text"]}
+
+
+def phase_fuzz(workdir, trials: int = 50, multiproc_trials: int = 2):
+    """Phase 6e: ``blt_tpu_torch.tools.fuzz_e2e`` on the card in process
+    (each engine and encoder leg against the oracle, and multi-process
+    trials), then ``make_conformance``'s goldens reproduced by the CLI on
+    the card. Returns the phase's launches by kernel."""
+    from blt_tpu_torch import cli
+    from blt_tpu_torch.tools import fuzz_e2e, make_conformance
+
+    saved = os.environ.get("BLT_DEVICE_BATCH_BYTES")
+    reset_all_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = fuzz_e2e.main(["--trials", str(trials), "--max-bytes", "200000",
+                            "--multiproc-trials", str(multiproc_trials)])
+    finally:  # the fuzzer's small device batches stay out of later phases
+        if saved is None:
+            os.environ.pop("BLT_DEVICE_BATCH_BYTES", None)
+        else:
+            os.environ["BLT_DEVICE_BATCH_BYTES"] = saved
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in all_launches().items() if v}
+    # the engines' fused K2, the flat encoder's K2 slots, the K3 loop (K1
+    # runs only in a trial whose table is empty, about one in forty)
+    missing = [k for k in ("flat_bpe_packed", "flat_bpe", "token_pass_gap")
+               if not launches.get(k)]
+    if rc != 0 or missing:
+        fail(f"fuzz: rc {rc}, kernels never launched {missing} (launches {launches})")
+    emit({"phase": "fuzz", "trials": trials, "multiproc_trials": multiproc_trials,
+          "max_bytes": 200000, "seconds": seconds, "launches": launches})
+
+    conf = os.path.join(workdir, "conformance")
+    if make_conformance.main([conf]) != 0:
+        fail("make_conformance failed")
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = os.path.join(conf, "out.bin")
+    for golden, flags in GOLDENS.items():
+        flags = [os.path.join(conf, f) if f == "merges.txt" else f for f in flags]
+        if cli.main(["-i", os.path.join(conf, "input.bin"), "-o", out,
+                     "--engine", "torch", *flags]) != 0:
+            fail(f"{golden}: cli.main failed")
+        with open(out, "rb") as f, open(os.path.join(conf, golden), "rb") as g:
+            if f.read() != g.read():
+                fail(f"{golden}: the CLI's output differs")
+    for k, v in all_launches().items():
+        launches[k] = launches.get(k, 0) + v
+    emit({"phase": "conformance", "goldens": list(GOLDENS), "equal": True,
+          "seconds": time.perf_counter() - t0})
+    shutil.rmtree(conf)
+    return launches
+
+
 # the card tests' rules for T6's segment cases: (a, b) and (a, a) rules,
 # (x, a) none
 SEGMENT_MERGES = {(97, 98): 256, (98, 99): 257, (99, 97): 258, (97, 97): 259, (255, 255): 0xFFFF}
@@ -1747,6 +2196,9 @@ TOOLS = {"exp_chain": ("exp_chain", 64 * MIB, 96), "exp_sweep": ("exp_sweep", 64
 OFF_PATH = ("flat_bpe", "pack_slots", "token_pass")
 # tools whose size option is rows of 128 int32 in place of --size-mib
 ROWS_OPTION = ("exp_gather", "canary_16bit")
+# the most bytes a tool is given as a process (phase 7(c)): that run checks
+# the entry point, the in-process run (b) measures at the original's size
+PROCESS_BYTES = 8 * MIB
 
 
 def _summary(row: dict) -> dict:
@@ -2079,12 +2531,14 @@ def phase_measure(corpus, flat_cases, token_cases, err):
     if missing:
         fail(f"kernels of the device-rate path never launched: {missing}")
 
-    # (c) the entry points as processes
+    # (c) the entry points as processes, at most PROCESS_BYTES each: (b)
+    # measured every tool at its original's size
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     for name, (tool, size_bytes, _) in TOOLS.items():
         if name != tool:
             continue  # one process per tool
+        size_bytes = min(size_bytes, PROCESS_BYTES)
         size = ["--rows", str(size_bytes // 512)] if tool in ROWS_OPTION else [
             "--size-mib", str(size_bytes // MIB)]
         t0 = time.perf_counter()
@@ -2238,12 +2692,24 @@ def main() -> int:
         # 6c. the HTTP server; its launches join the main path's
         for k, v in phase_serve(corpus, workdir, m500, merges500, merges50k, rules).items():
             launches[k] += v
+        # 6d. training, and its table on the main path; 6e. the fuzzer and
+        # the conformance goldens
+        t0 = time.perf_counter()
+        for k, v in phase_train(corpus, workdir, multipass_legs["multipass_sort"]["src"]).items():
+            launches[k] += v
+        emit({"phase": "train_seconds", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        for k, v in phase_fuzz(workdir).items():
+            launches[k] += v
+        emit({"phase": "fuzz_seconds", "seconds": time.perf_counter() - t0})
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     # 7. the device-rate path
     measured = phase_measure(corpus, flat_cases, token_cases, err)
-    launches.update(measured["launches"])
+    # added, not replaced: K2's slot pass (flat_bpe) also runs in 6e
+    for k, v in measured["launches"].items():
+        launches[k] = launches.get(k, 0) + v
     # the standalone pack's time: chained through its last slot (a single
     # call's events time the host's launch)
     pack = next(r for r in measured["exp_lookback"]["rows"] if r["name"] == "pack")

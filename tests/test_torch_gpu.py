@@ -927,3 +927,36 @@ def test_warm_shapes_launch_each_modes_kernels(cuda, monkeypatch):
         multipass_cuda.reset_launches()
         assert warm_shapes(Mode.BPE, MergeTable.build(GENERAL), caps, cuda) == 2
         assert multipass_cuda.launches[kernel] >= 2
+
+
+def test_learn_bpe_on_the_card_equals_the_cpu(cuda):
+    from blt_tpu_torch.parallel import train
+
+    data = _common.make_corpus(np.random.default_rng(19), 1 << 20)
+    on_card = train.learn_bpe(data, 64, device=cuda)
+    assert len(on_card) == 64
+    assert list(on_card.items()) == list(train.learn_bpe(data, 64, device="cpu").items())
+    batch = data.reshape(4, -1)
+    lengths = np.array([1 << 18, 1 << 18, 1000, 0], np.int32)
+    assert (list(train.learn_bpe_sharded(batch, lengths, 32, device=cuda).items())
+            == list(train.learn_bpe_sharded(batch, lengths, 32, device="cpu").items()))
+
+
+def test_learn_bpe_ties_break_toward_the_smallest_pair_on_the_card(cuda):
+    """Two pairs occur three times each, the later one in the data with the
+    smaller index, at the two ends of a 1.6e9-bin histogram."""
+    from blt_tpu_torch.parallel import train
+
+    num_merges = 39_744
+    vocab = 256 + num_merges
+    lo, hi = (1, 2), (vocab - 2, vocab - 1)
+    seq = []
+    for i in range(3):  # distinct separators: no other pair repeats
+        seq += [*hi, 1000 + 2 * i, *lo, 1001 + 2 * i]
+    tokens = np.array(seq, np.int32)
+    t = torch.from_numpy(tokens).to(cuda)
+    length = torch.tensor(tokens.shape[0], dtype=torch.int32, device=cuda)
+    best, count, longest = train._best(train._count_pairs(t, length, vocab), length)
+    assert (divmod(best, vocab), count, longest) == (lo, 3, tokens.shape[0])
+    learned = list(train.learn_bpe(tokens, num_merges, device=cuda))
+    assert learned[:2] == [lo, hi]

@@ -12,13 +12,19 @@ and its copies of the JAX package's host modules behave as the originals.
   a second one does the same with the next four tools (``exp_gather``'s
   T13 rows), at 1 MiB and one launch each, and a third with ``exp_16bit``,
   ``canary_16bit`` and ``exp_gather``'s T14 and library rows.
+- Training and the correctness tools: the scan holds ``parallel.train``,
+  ``train_cli``, ``ops.bpe_oracle``, ``ops.basic``, ``ops.passthrough``,
+  ``tools.fuzz_e2e`` and ``tools.make_conformance``; a fresh interpreter
+  runs the train CLI, both trainers, a fuzz trial and ``make_conformance``
+  on the CPU and loads neither package.
 - Serving: a fresh interpreter runs the server on a CPU ``TorchEngine``,
   ``PayloadAutoEngine``, ``warmup`` and ``utils.profiling``; and
   ``python -m blt_tpu_torch.server --engine numpy`` as a process answers a
   request and loads neither package.
 - Parity of the copied host modules with the JAX package's: merges parsing
   and its errors, ``MergeTable`` fields and the cuckoo32 planes and
-  constants, chunk planning and size parsing, and decode.
+  constants, chunk planning and size parsing, decode, the oracle, and the
+  basic and passthrough host ops.
 """
 
 import ast
@@ -31,11 +37,17 @@ import numpy as np
 import pytest
 
 from blt_tpu import merges as jax_merges
+from blt_tpu.ops import basic as jax_basic
+from blt_tpu.ops import bpe_oracle as jax_oracle
 from blt_tpu.ops import decode as jax_decode
+from blt_tpu.ops import passthrough as jax_passthrough
 from blt_tpu.utils import chunking as jax_chunking
 from blt_tpu.utils import parsing as jax_parsing
 from blt_tpu_torch import merges as port_merges
+from blt_tpu_torch.ops import basic as port_basic
+from blt_tpu_torch.ops import bpe_oracle as port_oracle
 from blt_tpu_torch.ops import decode as port_decode
+from blt_tpu_torch.ops import passthrough as port_passthrough
 from blt_tpu_torch.utils import chunking as port_chunking
 from blt_tpu_torch.utils import parsing as port_parsing
 
@@ -59,6 +71,49 @@ def test_port_module_imports_no_jax_package(path):
             if _forbidden(node.module):
                 found.append(node.module)
     assert not found, f"{path.name} imports {found}"
+
+
+TRAINING_AND_CHECKS = ("parallel/train.py", "train_cli.py", "ops/bpe_oracle.py", "ops/basic.py",
+                       "ops/passthrough.py", "tools/fuzz_e2e.py", "tools/make_conformance.py")
+
+
+def test_the_scan_holds_training_and_the_correctness_tools():
+    scanned = {p.relative_to(REPO / "blt_tpu_torch").as_posix() for p in PORT_FILES[:-1]}
+    assert set(TRAINING_AND_CHECKS) <= scanned
+
+
+def test_training_and_the_correctness_tools_run_without_the_jax_package(tmp_path):
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_bytes(b"the cat sat on the mat " * 200)
+    code = f"""
+import sys, numpy as np, torch
+torch.set_num_threads(1)
+from blt_tpu_torch import train_cli
+from blt_tpu_torch.ops import basic, bpe_oracle, passthrough
+from blt_tpu_torch.parallel import train
+from blt_tpu_torch.tools import fuzz_e2e, make_conformance
+out, ckpt = {str(tmp_path / "m.txt")!r}, {str(tmp_path / "s.npz")!r}
+assert train_cli.main([{str(corpus)!r}, "-o", out, "-n", "12", "--device", "cpu"]) == 0
+assert train_cli.main([{str(corpus)!r}, "-o", out, "-n", "12", "--rows", "3",
+                       "--checkpoint", ckpt, "--checkpoint-every", "5", "--device", "cpu"]) == 0
+assert len(train.load_checkpoint(ckpt)[0]) == 12
+assert train.learn_bpe(b"abab abab", 3, device="cpu")
+data = np.frombuffer(b"abcab", np.uint8)
+assert basic.basic_encode_bytes_np(data) == bytes(bpe_oracle.tokens_to_be_bytes(data.tolist()))
+assert passthrough.passthrough_encode_np(data) is data
+fuzz_e2e.one_trial(np.random.default_rng(1), 0, 20000, "cpu")
+assert make_conformance.main([{str(tmp_path / "conf")!r}, "--size", "4096"]) == 0
+bad = sorted(k for k in sys.modules
+             if k in ("blt_tpu", "tools") or k.startswith(("blt_tpu.", "tools.", "jax")))
+assert not bad, bad
+print("isolated")
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, env=env,
+                       timeout=240, cwd=tmp_path)
+    assert r.returncode == 0, r.stderr.decode()[-3000:]
+    assert r.stdout.decode().strip().splitlines()[-1] == "isolated"
 
 
 def test_every_mode_runs_without_the_jax_package(tmp_path):
@@ -376,3 +431,31 @@ def test_decode_equal(merges, wire):
         port_decode.decode_wire(big, port_decode.build_expansion_table(merges)),
         jax_decode.decode_wire(big, jax_decode.build_expansion_table(merges)),
     )
+
+
+ORACLE_CASES = [
+    (b"", {}),
+    (b"abcab", {}),
+    (b"aaaaa", {(97, 97): 256}),  # leftmost-first, non-overlapping
+    (b"abcabc", {(97, 98): 256, (256, 99): 257}),  # merged tokens re-merge next pass
+    (b"xyxy", {(120, 121): 90, (90, 90): 300}),  # a value below 256
+    (b"ab" * 33 + b"a", {(97, 98): 256, (256, 256): 257, (257, 257): 258}),
+]
+
+
+@pytest.mark.parametrize("data,merges", ORACLE_CASES)
+def test_oracle_equal(data, merges):
+    got = port_oracle.bpe_encode_oracle(data, merges)
+    assert got == jax_oracle.bpe_encode_oracle(data, merges)
+    assert port_oracle.tokens_to_be_bytes(got) == jax_oracle.tokens_to_be_bytes(got)
+
+
+@pytest.mark.parametrize("n", [0, 1, 4097])
+def test_basic_and_passthrough_equal(n):
+    data = np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)
+    got = port_basic.basic_encode_np(data)
+    want = jax_basic.basic_encode_np(data)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert port_basic.basic_encode_bytes_np(data) == jax_basic.basic_encode_bytes_np(data)
+    assert np.array_equal(port_passthrough.passthrough_encode_np(data),
+                          jax_passthrough.passthrough_encode_np(data))
