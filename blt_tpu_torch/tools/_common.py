@@ -1,6 +1,7 @@
 """What the device-rate tools and ``chip_smoke.py`` share: the corpus and its
-frequent-pair table, the chain timer, rate statistics, the byte bound and
-the card's description.
+frequent-pair table, the chain timer, the wall-clock timer of the loop
+tools, rate statistics, the byte bound, the NumPy merge round and the card's
+description.
 
 The corpus recipe and ``rate_stats`` are copies of ``bench.py``'s
 (``make_corpus``, ``rate_stats``), without its on-disk cache: the corpus is
@@ -10,7 +11,9 @@ made from a seed on every run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -18,8 +21,9 @@ import time
 import numpy as np
 import torch
 
-from blt_tpu_torch.merges import MergeTable
+from blt_tpu_torch.merges import NO_RULE, MergeTable
 from blt_tpu_torch.ops.bpe_cuda import chain_passes
+from blt_tpu_torch.ops.bpe_numpy import _merge_starts, _pair_values_sparse
 
 MIB = 1 << 20
 LANES = 128
@@ -220,13 +224,105 @@ def median_ms(fn, device: torch.device, reps: int = 3) -> float:
     return statistics.median(_timed(fn, device)[0] for _ in range(reps)) * 1e3
 
 
-def parser(description: str, k: int, size_mib: int = 64) -> argparse.ArgumentParser:
+def read_count(out) -> int:
+    """The loop tools' force: the count of a call's result (its second
+    element) read on the host."""
+    return int(out[1])
+
+
+def time_wall(fn, in_bytes: int, device: torch.device, reps: int = REPS, pipe: int = 1,
+              force=read_count, warm: bool = True):
+    """The loop tools' wall-clock protocol (the originals'): after one
+    warm-up call (``warm``), ``reps`` samples of ``pipe`` calls of ``fn()``
+    back to back on the host clock, each sample ended by ``force`` on the
+    last call's result (None: nothing to read) and, on a card, a
+    synchronize. Returns (timing, the last result): the timing holds ms per
+    call and MB/s (``in_bytes`` a call, 1e6 bytes) as ``rate_stats``."""
+    if warm:
+        fn()
+    ms, rates, out = [], [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(pipe):
+            out = None  # free the last result first, so the allocator reuses it
+            out = fn()
+        if force is not None:
+            force(out)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        seconds = (time.perf_counter() - t0) / pipe
+        ms.append(seconds * 1e3)
+        rates.append(in_bytes / seconds / 1e6)
+    return {"reps": reps, "pipe": pipe, "ms": rate_stats(ms),
+            "MB_per_s": rate_stats(rates)}, out
+
+
+def wall_row(name: str, kernel, timing: dict, bound_bytes: int, exact: bool, **extra) -> dict:
+    """A row timed by the wall clock: ``timing`` from ``time_wall``, the
+    bytes the function must move over the card's memory rate."""
+    return {"name": name, "kernel": kernel, "rpb": None, **extra, "exact": bool(exact),
+            "wall": timing, "bound_ms": bound_ms(bound_bytes), "bound_by": "bytes"}
+
+
+@contextlib.contextmanager
+def env(name: str, value: str):
+    """``os.environ[name] = value`` inside the block, restored after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def pass_host(tokens: np.ndarray, table: MergeTable) -> np.ndarray:
+    """One merge round in NumPy (``bpe_numpy``'s steps): the merged value
+    at a merge start, -1 at the position it consumed, else the token: the
+    function of K4 over ``tokens`` (int32, all valid)."""
+    tokens = tokens.astype(np.int32, copy=False)
+    if tokens.shape[0] < 2:
+        return tokens.copy()
+    pair_vals = _pair_values_sparse(tokens, table)
+    starts = _merge_starts(pair_vals != NO_RULE)
+    out = np.where(np.append(starts, False), np.append(pair_vals, NO_RULE), tokens)
+    out[1:][starts] = -1
+    return out.astype(np.int32, copy=False)
+
+
+def rounds_host(tokens: np.ndarray, table: MergeTable):
+    """The multipass loop in NumPy, round by round (``pass_host``, then
+    the survivors): (the final tokens, the live counts before the first
+    round and after each). The loop stops after a round that merges
+    nothing, or at one token left, as the encoders' loops do."""
+    toks = tokens.astype(np.int32)
+    counts = [int(toks.shape[0])]
+    while toks.shape[0] > 1:
+        out = pass_host(toks, table)
+        kept = out[out != -1]
+        counts.append(int(kept.shape[0]))
+        if kept.shape[0] == toks.shape[0]:
+            break
+        toks = kept
+    return toks, counts
+
+
+def loop_bytes(counts) -> int:
+    """The bytes a multipass loop must move: each round reads its live int32
+    tokens and writes the survivors, once each."""
+    return sum(4 * (a + b) for a, b in zip(counts, counts[1:]))
+
+
+def parser(description: str, k: int, size_mib: int = 64,
+           k_means: str = "launches per chain") -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; fails without a card) or cpu")
     ap.add_argument("--size-mib", type=int, default=size_mib,
                     help=f"input size in MiB (default {size_mib}, the original's)")
-    ap.add_argument("--k", type=int, default=k, help=f"launches per chain (default {k})")
+    ap.add_argument("--k", type=int, default=k, help=f"{k_means} (default {k})")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 

@@ -57,7 +57,9 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
 6. the CLI as a process, from a 64 MiB stdin pipe, byte for byte, and
    the seconds a fresh process takes to import the CLI and reach the card;
 6b. shard: (a) ``run_tokenizer(config, engine=ShardedTorchEngine(devices=
-   [cuda:0] * 4))`` on phases 4 and 5's five legs, on a degenerate flat
+   [cuda:0] * 4))`` on phases 4 and 5's five legs (bpe_500 on the whole
+   corpus, the other four on its first 256 MiB, leg 5's input, each held to
+   a reference of what it read), on a degenerate flat
    leg (64 MiB of the corpus with runs of one byte x across two slab
    boundaries and the rule (x, x): at least one batch must take the carry
    composition, and how many did is printed), then bpe_500 through
@@ -89,11 +91,11 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    process with and without ``--warmup 16MB``: seconds to /health, a 1 MiB
    request's latency cold and warm; and one 64 MiB BPE leg of the CLI under
    ``BLT_PROFILE``, whose trace must name ``flat_packed_kernel``;
-6d. train (``blt_tpu_torch.parallel.train``): (a) ``learn_bpe`` on the
-   card, 500 rules, on the corpus's first 16 MiB, and ``learn_bpe_sharded``
-   at 8 rows on the same bytes, each table equal to a NumPy reference
-   written here (``train_reference``: greedy count, the first index of the
-   maximum, leftmost non-overlapping merges, rows apart); (b) ``learn_bpe``
+6d. train (``blt_tpu_torch.parallel.train``): (a) ``learn_bpe_sharded`` on
+   the card, 500 rules, at 8 rows of the corpus's first 16 MiB, its table
+   equal to a NumPy reference written here (``train_reference``: greedy
+   count, the first index of the maximum, leftmost non-overlapping merges,
+   rows apart); (b) ``learn_bpe``
    on the first 256 MiB, 500 rules, timed whole, its first 16 rules equal
    to the reference's; 20 of its rounds replayed with CUDA events between
    the steps (the count, the argmax and its host read, the match and scan,
@@ -168,9 +170,31 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    take those launches during their own tool's run; the three-launch K2,
    the pack and the three-launch K4, which the main path no longer runs,
    report the launches of this run);
+   then the eight glue-only timing tools of the multipass loop, the engine
+   and the 50k table at the originals' sizes, timed by the wall clock
+   (median and IQR of MB/s beside the bytes bound) unless said otherwise:
+   ``exp_multipass`` (a 9-rule hierarchical table, ``CudaTokenEncoder.encode``
+   with host compaction at 16 MiB, the twin route ``bpe_torch.
+   multipass_encode`` at 1 MiB), ``exp_mp`` (an 8-rule table at 4 MiB: host
+   compaction, the sort loop with its transfers and without), ``exp_gap``
+   (``gap_row`` again, then the gap loop with its wire, at rpb 512 and
+   1024, and the sort loop at 8 MiB, 5 samples of 6 calls, and the host
+   expansion of the wire), ``exp_gapvar`` (the gap loop's glue variants A-D
+   and the port's own, round-robin at 8 MiB), ``exp_compact`` (one K4 round,
+   ``sortkv``, ``sort1bit``, ``cumsum``, ``take``, ``scatter``, the port's
+   ``_compact`` and the whole sort loop at 8 Mi tokens), ``exp_e2e``
+   (file-to-file runs of 100 MiB through ``run_tokenizer`` at 64, 16 and 8
+   MiB batches with their stage split, a 10 MiB run's phases, the bare
+   upload and download), ``exp_dense`` (K2 fused with its pack on a
+   50k-rule table at 64 MiB chained 8 times, as a graph replay) and
+   ``exp_occ`` (the same on four tables of 50k to 9k rules over 256 to 48
+   first bytes); each result held to the oracle, a NumPy result or the
+   plain version (every output file's sha256 to the NumPy engine's);
    (c) ``python -m blt_tpu_torch.tools.<name>`` for each tool as a process,
-   at most 8 MiB (``PROCESS_BYTES``; the row counts scaled to match): (b)
-   measured each at its original's size;
+   four at a time (``PROCESSES_AT_ONCE``),
+   at most 8 MiB (``PROCESS_BYTES``; the row counts scaled to match;
+   ``exp_e2e`` at batches of 4 and 2 MiB), each showing ``exact`` on a
+   ``cuda`` device: (b) measured each at its original's size;
 8. neither ``jax`` nor ``blt_tpu`` was ever imported.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -1195,31 +1219,45 @@ def phase_shard(corpus, inp, workdir, flat_legs, multipass_legs, rules, merges50
     feed = _plan_feed_size(chunk, _device_batch_bytes())
     row_bytes = engine._row_bytes(feed)
     batches = -(-size // feed)
-    slabs = sum(-(-min(feed, size - s) // row_bytes) for s in range(0, size, feed))
-    # (a) in process, every leg of phases 4 and 5 over four rows
+
+    def slabs_of(n):
+        return sum(-(-min(feed, n - s) // row_bytes) for s in range(0, n, feed))
+
+    # (a) in process, every leg of phases 4 and 5 over four rows: bpe_500 on
+    # the whole corpus, the others on its first 256 MiB (leg 5's input),
+    # each against a reference of what it read
+    head = multipass_legs["multipass_sort"]
+    head_bytes = os.path.getsize(head["src"])
     for name, leg in flat_legs.items():
-        r = run_leg(inp, leg["merges"])
+        if name == "bpe_500":
+            src, n, ref = inp, size, leg["sha256"]
+        else:
+            src, n = head["src"], head_bytes
+            dense = dense_of(numbered(merges_file_pairs(leg["merges"]))) if leg["merges"] else None
+            ref = reference_sha(corpus[:n], dense, header)
+        r = run_leg(src, leg["merges"])
         r.pop("loops")
         # K1 a non-empty row, fused K2 a slab, and no carry batch
-        check(name, r, leg["sha256"], "widen" if name == "basic" else "flat_bpe_packed", slabs)
+        check(name, r, ref, "widen" if name == "basic" else "flat_bpe_packed", slabs_of(n))
         if r["counts"]["carry_batches"]:
             fail(f"shard leg {name}: {r['counts']}, expected no carry-composition batch")
-        emit({"phase": "shard", "leg": name, "input_bytes": size,
-              "one_row_seconds": leg["seconds"], **r})
+        emit({"phase": "shard", "leg": name, "input_bytes": n,
+              "one_row_seconds": leg["seconds"], "one_row_input_bytes": size, **r})
     for name, leg in multipass_legs.items():
         mode = "sort" if name == "multipass_sort" else "gap"
         os.environ["BLT_MP_COMPACT"] = mode
         try:
-            r = run_leg(leg["src"], general=rules, content_type=None)
+            r = run_leg(head["src"], general=rules, content_type=None)
         finally:
             del os.environ["BLT_MP_COMPACT"]
         kernel = "token_pass_lookback" if mode == "sort" else "token_pass_gap"
-        src_size = os.path.getsize(leg["src"])
-        if len(r["loops"]) != -(-src_size // chunk):
-            fail(f"shard leg {name}: {len(r['loops'])} loops for {src_size} bytes")
-        check(name, r, leg["sha256"], kernel, sum(n for n, _ in r.pop("loops")))
-        emit({"phase": "shard", "leg": name, "compact": mode, "input_bytes": src_size,
-              "one_row_seconds": leg["seconds"], **r})
+        if len(r["loops"]) != -(-head_bytes // chunk):
+            fail(f"shard leg {name}: {len(r['loops'])} loops for {head_bytes} bytes")
+        # gap and sort loops give the same tokens: leg 5's reference
+        check(name, r, head["sha256"], kernel, sum(n for n, _ in r.pop("loops")))
+        emit({"phase": "shard", "leg": name, "compact": mode, "input_bytes": head_bytes,
+              "one_row_seconds": leg["seconds"],
+              "one_row_input_bytes": os.path.getsize(leg["src"]), **r})
 
     # a degenerate flat leg: runs of one byte x across slab boundaries (batch
     # 1's and batch 3's second slab) send those batches through the carry
@@ -1877,9 +1915,9 @@ def phase_train(corpus, workdir, head_path: str, rules_n: int = 500):
     """Phase 6d: BPE merge training on the card (``blt_tpu_torch.parallel.
     train``, ``train_cli``), and the learned table on the main path.
 
-    (a) ``learn_bpe`` and ``learn_bpe_sharded`` (8 rows) at 16 MiB, 500
-    rules; (b) ``learn_bpe`` at 256 MiB, 500 rules, timed whole, then 20 of
-    its rounds replayed with CUDA events between the steps and 20 under
+    (a) ``learn_bpe_sharded`` (8 rows) at 16 MiB, 500 rules; (b)
+    ``learn_bpe`` at 256 MiB, 500 rules, timed whole, then 20 of its rounds
+    replayed with CUDA events between the steps and 20 under
     ``torch.profiler``; (c) the train CLI as processes at 64 MiB, 8 rows:
     a clean 500-rule run, and a 250-rule run resumed to 500 from its
     checkpoint; (d) the 256 MiB table's merges file through ``cli.main``
@@ -1910,10 +1948,8 @@ def phase_train(corpus, workdir, head_path: str, rules_n: int = 500):
     corpus[:mid].tofile(path64)
     phase_launches = {k: 0 for k in all_launches()}
 
-    # (a) exactness at 16 MiB: one sequence, then 8 rows
-    t0 = time.perf_counter()
-    learned16 = train.learn_bpe(corpus[:small], rules_n)
-    s16 = time.perf_counter() - t0
+    # (a) exactness at 16 MiB over 8 rows (one sequence is checked at 256
+    # MiB, (b), by the first 16 rules)
     rows = 8
     batch = corpus[:small].reshape(rows, small // rows)
     t0 = time.perf_counter()
@@ -1956,14 +1992,12 @@ def phase_train(corpus, workdir, head_path: str, rules_n: int = 500):
           "device_busy_s": trace["device_busy_s"], "idle_share": trace["idle_share"],
           "device_ms": dict(list(trace["device_ms"].items())[:12]),
           "round_0_ms": glue,
-          "at_16_mib": {"seconds": s16, "rules": len(learned16),
-                        "rows_8_seconds": s16_rows, "rows_8_rules": len(learned16_rows)}})
+          "at_16_mib": {"rows_8_seconds": s16_rows, "rows_8_rules": len(learned16_rows)}})
 
     # the references, on a process pool while the card runs (c) and (d)
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(6, mp_context=ctx) as pool:
         t_ref = time.perf_counter()
-        ref16 = pool.submit(train_reference, path16, small, 1, rules_n)
         ref16_rows = pool.submit(train_reference, path16, small, rows, rules_n)
         ref256 = pool.submit(train_reference, head_path, head.shape[0], 1, 16)
         keys, vals = rule_arrays(learned)
@@ -2043,8 +2077,7 @@ def phase_train(corpus, workdir, head_path: str, rules_n: int = 500):
         ref_dict = h.hexdigest()
         if sha_dict != ref_dict:
             fail(f"the learned dict: sha256 {sha_dict} != reference {ref_dict}")
-        checks = {"learn_bpe_16": (list(learned16), ref16.result()),
-                  "learn_bpe_sharded_16": (list(learned16_rows), ref16_rows.result()),
+        checks = {"learn_bpe_sharded_16": (list(learned16_rows), ref16_rows.result()),
                   "learn_bpe_256_first_16": (list(learned)[:16], ref256.result())}
         for name, (got_rules, want) in checks.items():
             if got_rules != want:
@@ -2190,28 +2223,59 @@ TOOLS = {"exp_chain": ("exp_chain", 64 * MIB, 96), "exp_sweep": ("exp_sweep", 64
          "exp_gather_4096": ("exp_gather", 2 * MIB, 16),
          "exp_gather": ("exp_gather", 64 * MIB, 16),
          "exp_16bit": ("exp_16bit", 64 * MIB, 16), "canary_16bit": ("canary_16bit", 8 * 512, 16),
-         "exp_lookback": ("exp_lookback", 64 * MIB, 8)}
+         "exp_lookback": ("exp_lookback", 64 * MIB, 8),
+         # the glue-only timing tools of the multipass loop, the engine and the
+         # 50k table (their k: warm calls, samples, the K3 chain, calls a
+         # sample, calls a sample, timed runs, chain, chain)
+         "exp_multipass": ("exp_multipass", 16 * MIB, 1), "exp_mp": ("exp_mp", 4 * MIB, 1),
+         "exp_gap": ("exp_gap", 16 * MIB, 8), "exp_gapvar": ("exp_gapvar", 8 * MIB, 2),
+         "exp_compact": ("exp_compact", 8 * MIB, 3), "exp_e2e": ("exp_e2e", 100 * MIB, 1),
+         "exp_dense": ("exp_dense", 64 * MIB, 8), "exp_occ": ("exp_occ", 64 * MIB, 8)}
 # the three-launch designs the main path no longer runs (K2, its pack, K4):
 # their launches are phase 7's (exp_lookback, exp_mp_ablate, exp_chain, ...)
 OFF_PATH = ("flat_bpe", "pack_slots", "token_pass")
+# a tool's figures beside its rows, printed with them
+MEASURE_KEYS = ("split", "ratio", "exact_prefix", "rounds", "host_compaction_mb_s",
+                "device_resident_mb_s", "device_compute_only_mb_s", "expand_host_ms",
+                "tombstones", "small_run", "small_link")
 # tools whose size option is rows of 128 int32 in place of --size-mib
 ROWS_OPTION = ("exp_gather", "canary_16bit")
 # the most bytes a tool is given as a process (phase 7(c)): that run checks
 # the entry point, the in-process run (b) measures at the original's size
 PROCESS_BYTES = 8 * MIB
+# the tools' processes that run at once in phase 7(c): their figures are
+# not kept, and each one's start (the import, the card) dominates its time
+PROCESSES_AT_ONCE = 4
+# a tool's other arguments as a process (its batches within PROCESS_BYTES)
+PROCESS_ARGS = {"exp_e2e": ["--batches-mb", "4,2"]}
 
 
 def _summary(row: dict) -> dict:
     """A tool's row, short: ms per launch (median, IQR) and GB/s (median)
-    as launched and replayed from a graph, beside bound, plain and clone."""
+    as launched and replayed from a graph, beside bound, plain and clone;
+    a row timed by the wall clock, ms a call (median, IQR) and MB/s
+    (median, IQR) beside its bound."""
     out = {k: row[k] for k in ("name", "kernel", "route", "rpb", "blocks", "dtype", "idx_range",
-                               "p_rows", "x_rows", "tile", "k", "exact") if k in row}
+                               "p_rows", "x_rows", "tile", "k", "rules", "first_bytes",
+                               "occupied_first_bytes", "rounds", "batch_bytes", "stage_stats",
+                               "exact") if k in row}
+    if "wall" in row:
+        t = row["wall"]
+        return {**out, "ms": t["ms"]["median"], "iqr_ms": t["ms"]["iqr"],
+                "MB_per_s": t["MB_per_s"]["median"], "iqr_MB_per_s": t["MB_per_s"]["iqr"],
+                "n": t["ms"]["n"], "bound_ms": row["bound_ms"]}
     for mode in ("eager", "graph"):
         t = row[mode]
         out[mode] = {"ms": t["ms_per_launch"]["median"], "iqr_ms": t["ms_per_launch"]["iqr"],
                      "GB_per_s": t["GB_per_s"]["median"]}
     return {**out, "bound_ms": row["bound_ms"], "bound_by": row.get("bound_by", "bytes"),
             "plain_ms": row["plain_ms"], "library_ms": row["library_ms"]}
+
+
+def _label(row: dict) -> str:
+    """A tool's row by its name and the fields that tell its rows apart."""
+    return "/".join(str(row[k]) for k in ("name", "rpb", "dtype", "idx_range", "x_rows", "rules")
+                    if row.get(k) is not None)
 
 
 def phase_measure(corpus, flat_cases, token_cases, err):
@@ -2229,9 +2293,16 @@ def phase_measure(corpus, flat_cases, token_cases, err):
         exp_bf16scan,
         exp_chain,
         exp_chd,
+        exp_compact,
+        exp_dense,
+        exp_e2e,
         exp_gather,
+        exp_gapvar,
         exp_lookback,
+        exp_mp,
         exp_mp_ablate,
+        exp_multipass,
+        exp_occ,
         exp_opt,
         exp_pack,
         exp_parts,
@@ -2511,7 +2582,9 @@ def phase_measure(corpus, flat_cases, token_cases, err):
                "exp_pack": exp_pack, "exp_mp_ablate": exp_mp_ablate, "exp_scan": exp_scan,
                "exp_opt": exp_opt, "exp_chd": exp_chd, "exp_bf16scan": exp_bf16scan,
                "exp_gather": exp_gather, "exp_16bit": exp_16bit, "canary_16bit": canary_16bit,
-               "exp_lookback": exp_lookback}
+               "exp_lookback": exp_lookback, "exp_multipass": exp_multipass, "exp_mp": exp_mp,
+               "exp_gap": exp_gap, "exp_gapvar": exp_gapvar, "exp_compact": exp_compact,
+               "exp_e2e": exp_e2e, "exp_dense": exp_dense, "exp_occ": exp_occ}
     reset_all_launches()
     results, during = {}, {}
     for name, (tool, size, k) in TOOLS.items():
@@ -2524,39 +2597,52 @@ def phase_measure(corpus, flat_cases, token_cases, err):
         emit({"phase": "measure", "tool": name, "size_bytes": size,
               "seconds": time.perf_counter() - t0,
               "rows": [_summary(r) for r in results[name]["rows"]],
-              **{key: results[name][key] for key in ("split", "ratio") if key in results[name]}})
+              **{key: results[name][key] for key in MEASURE_KEYS if key in results[name]}})
     launches = {**all_launches(),
                 **{row: during[tool][c] for row, (tool, c) in COUNTED_AS.items()}}
     missing = [k for k in (*MEASURED_ROWS, *OFF_PATH) if not launches[k]]
     if missing:
         fail(f"kernels of the device-rate path never launched: {missing}")
 
-    # (c) the entry points as processes, at most PROCESS_BYTES each: (b)
-    # measured every tool at its original's size
+    # (c) the entry points as processes, at most PROCESS_BYTES each, a few at
+    # once (a process's start dominates): (b) measured every tool at its
+    # original's size, alone
+    import concurrent.futures
+
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    for name, (tool, size_bytes, _) in TOOLS.items():
-        if name != tool:
-            continue  # one process per tool
+
+    def run_tool(tool, size_bytes):
         size_bytes = min(size_bytes, PROCESS_BYTES)
         size = ["--rows", str(size_bytes // 512)] if tool in ROWS_OPTION else [
             "--size-mib", str(size_bytes // MIB)]
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", f"blt_tpu_torch.tools.{tool}", *size],
+            [sys.executable, "-m", f"blt_tpu_torch.tools.{tool}", *size,
+             *PROCESS_ARGS.get(tool, [])],
             capture_output=True, text=True, env=env, cwd=ROOT, timeout=600,
         )
-        if proc.returncode != 0:
-            fail(f"{name} exited {proc.returncode}: {proc.stderr[-2000:]}")
-        out = json.loads(proc.stdout.strip().splitlines()[-1])
-        if not out["exact"] or out["device"]["type"] != "cuda":
-            fail(f"{name} as a process: exact {out['exact']}, device {out['device']}")
-        emit({"phase": "measure_process", "tool": name, "rc": 0,
-              "seconds": time.perf_counter() - t0,
-              "graph_ms": {"/".join(str(r[k]) for k in ("name", "rpb", "dtype", "idx_range",
-                                                         "x_rows")
-                                    if r.get(k) is not None):
-                           r["graph"]["ms_per_launch"]["median"] for r in out["rows"]}})
+        return proc, time.perf_counter() - t0
+
+    t_all = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(PROCESSES_AT_ONCE) as pool:
+        # one process per tool
+        runs = [(name, pool.submit(run_tool, tool, size_bytes))
+                for name, (tool, size_bytes, _) in TOOLS.items() if name == tool]
+        for name, job in runs:
+            proc, seconds = job.result()
+            if proc.returncode != 0:
+                fail(f"{name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+            if not out["exact"] or out["device"]["type"] != "cuda":
+                fail(f"{name} as a process: exact {out['exact']}, device {out['device']}")
+            emit({"phase": "measure_process", "tool": name, "rc": 0, "seconds": seconds,
+                  "graph_ms": {_label(r): r["graph"]["ms_per_launch"]["median"]
+                               for r in out["rows"] if "graph" in r},
+                  "wall_ms": {_label(r): r["wall"]["ms"]["median"]
+                              for r in out["rows"] if "wall" in r}})
+    emit({"phase": "measure_processes", "processes": len(runs), "at_once": PROCESSES_AT_ONCE,
+          "seconds": time.perf_counter() - t_all})
 
     def row(tool, name, **want):
         return next(r for r in results[tool]["rows"]

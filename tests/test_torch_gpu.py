@@ -28,9 +28,17 @@ from blt_tpu_torch.tools import (
     exp_bf16scan,
     exp_chain,
     exp_chd,
+    exp_compact,
+    exp_dense,
+    exp_e2e,
+    exp_gap,
+    exp_gapvar,
     exp_gather,
     exp_lookback,
+    exp_mp,
     exp_mp_ablate,
+    exp_multipass,
+    exp_occ,
     exp_opt,
     exp_parts,
     exp_scan,
@@ -960,3 +968,18 @@ def test_learn_bpe_ties_break_toward_the_smallest_pair_on_the_card(cuda):
     assert (divmod(best, vocab), count, longest) == (lo, 3, tokens.shape[0])
     learned = list(train.learn_bpe(tokens, num_merges, device=cuda))
     assert learned[:2] == [lo, hi]
+
+
+# the glue-only timing tools at 1-2 MiB: (module, bytes, k)
+LOOP_TOOLS = {"exp_multipass": (exp_multipass, 2 << 20, 1), "exp_mp": (exp_mp, 1 << 20, 1),
+              "exp_gap": (exp_gap, 1 << 20, 2), "exp_gapvar": (exp_gapvar, 1 << 20, 1),
+              "exp_compact": (exp_compact, 1 << 20, 1), "exp_e2e": (exp_e2e, 2 << 20, 1),
+              "exp_dense": (exp_dense, 1 << 20, 2), "exp_occ": (exp_occ, 1 << 20, 1)}
+
+
+@pytest.mark.parametrize("name", sorted(LOOP_TOOLS))
+def test_loop_tools_measure_exactly_on_the_card(cuda, name):
+    module, size, k = LOOP_TOOLS[name]
+    result = module.measure(cuda, size, k=k)
+    assert result["exact"] is True and result["device"]["type"] == "cuda"
+    assert all(row["exact"] for row in result["rows"])

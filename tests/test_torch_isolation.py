@@ -82,6 +82,15 @@ def test_the_scan_holds_training_and_the_correctness_tools():
     assert set(TRAINING_AND_CHECKS) <= scanned
 
 
+LOOP_TOOLS = tuple(f"tools/{t}.py" for t in ("exp_multipass", "exp_mp", "exp_gap", "exp_gapvar",
+                                              "exp_compact", "exp_e2e", "exp_dense", "exp_occ"))
+
+
+def test_the_scan_holds_the_loop_tools():
+    scanned = {p.relative_to(REPO / "blt_tpu_torch").as_posix() for p in PORT_FILES[:-1]}
+    assert set(LOOP_TOOLS) <= scanned
+
+
 def test_training_and_the_correctness_tools_run_without_the_jax_package(tmp_path):
     corpus = tmp_path / "corpus.txt"
     corpus.write_bytes(b"the cat sat on the mat " * 200)
@@ -175,6 +184,11 @@ from blt_tpu_torch.tools import exp_bf16scan, exp_chd, exp_gather, exp_opt
 for tool in (exp_opt, exp_chd, exp_bf16scan):
     assert tool.measure(torch.device("cpu"), 1 << 20, k=1)["exact"]
 assert exp_gather.measure(torch.device("cpu"), 1 << 20, k=1, only=tools_cuda.LOOKUPS)["exact"]
+from blt_tpu_torch.tools import (exp_compact, exp_dense, exp_e2e, exp_gap, exp_gapvar, exp_mp,
+                                 exp_multipass, exp_occ)
+for tool in (exp_multipass, exp_mp, exp_gap, exp_gapvar, exp_compact, exp_dense, exp_occ):
+    assert tool.measure(torch.device("cpu"), 64 << 10, k=1)["exact"]
+assert exp_e2e.measure(torch.device("cpu"), 1 << 20, k=1, batches_mb=(1,))["exact"]
 bad = sorted(k for k in sys.modules
              if k in ("blt_tpu", "tools") or k.startswith(("blt_tpu.", "tools.", "jax")))
 assert not bad, bad
