@@ -20,6 +20,10 @@ from blt_tpu_torch.config import ContentType, CoreConfig, Engine
 from blt_tpu_torch.merges import MergeTable
 from blt_tpu_torch.pipeline.engines import ENGINES
 from blt_tpu_torch.pipeline.runner import run_tokenizer
+from blt_tpu_torch.utils.logging import get_logger
+from blt_tpu_torch.utils.profiling import job
+
+log = get_logger("api")
 
 
 class ByteTokenizer:
@@ -72,7 +76,8 @@ class ByteTokenizer:
 
     def tokenize_file(self, input_path: str, output_path: str) -> None:
         """Tokenize input_path into output_path (u16-BE token stream)."""
-        run_tokenizer(self._config(input_path, output_path))
+        with job(log, self.engine):
+            run_tokenizer(self._config(input_path, output_path))
 
     def detokenize_file(self, input_path: str, output_path: str) -> None:
         """Invert a token stream this tokenizer produced (host decode)."""

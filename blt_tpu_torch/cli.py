@@ -85,30 +85,33 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     from blt_tpu_torch.config import ContentType, CoreConfig, Engine
-    from blt_tpu_torch.utils.logging import configure
+    from blt_tpu_torch.utils.logging import configure, get_logger
+    from blt_tpu_torch.utils.profiling import job
     from blt_tpu_torch.pipeline.runner import run_tokenizer
 
     configure()
-    args = build_parser().parse_args(argv)
-    try:
-        config = CoreConfig.new_from_cli(
-            input=Path(args.input) if args.input else None,
-            output=Path(args.output) if args.output else None,
-            merges=Path(args.merges) if args.merges else None,
-            content_type=(
-                ContentType.from_cli(args.content_type) if args.content_type else None
-            ),
-            threads=args.threads,
-            chunksize=args.chunksize,
-            memcap=args.memcap,
-            passthrough=args.passthrough,
-            decode=args.decode,
-            engine=Engine(args.engine),
-        )
-        run_tokenizer(config)
-    except (OSError, ValueError, RuntimeError) as e:
-        print(f"Error running tokenizer: {e}", file=sys.stderr)
-        return 1
+    # one job: its set-up holds the argument parse and the merges file's
+    with job(get_logger("cli")):
+        args = build_parser().parse_args(argv)
+        try:
+            config = CoreConfig.new_from_cli(
+                input=Path(args.input) if args.input else None,
+                output=Path(args.output) if args.output else None,
+                merges=Path(args.merges) if args.merges else None,
+                content_type=(
+                    ContentType.from_cli(args.content_type) if args.content_type else None
+                ),
+                threads=args.threads,
+                chunksize=args.chunksize,
+                memcap=args.memcap,
+                passthrough=args.passthrough,
+                decode=args.decode,
+                engine=Engine(args.engine),
+            )
+            run_tokenizer(config)
+        except (OSError, ValueError, RuntimeError) as e:
+            print(f"Error running tokenizer: {e}", file=sys.stderr)
+            return 1
     return 0
 
 

@@ -50,7 +50,7 @@ from blt_tpu_torch.parallel.sharded import sharded_basic_encode, sharded_flat_en
 from blt_tpu_torch.pipeline.feeder import pack_into, pinned_buffer, prefetch_iter, upload
 from blt_tpu_torch.utils.chunking import align_up
 from blt_tpu_torch.utils.device import cuda_device, require_cuda
-from blt_tpu_torch.utils.logging import get_logger
+from blt_tpu_torch.utils.logging import get_logger, span
 
 log = get_logger("engine")
 
@@ -194,7 +194,9 @@ class TorchEngine:
         def feed():
             for batch in _batches(chunks, encoder.capacity):
                 dev, n = encoder.upload(batch, staging, self.threads)
-                yield encoder.encode_device(dev, n)
+                with span(log, "feed.launch"):
+                    out = encoder.encode_device(dev, n)
+                yield out
 
         def drain(items):
             for out, n in items:
@@ -243,9 +245,10 @@ class TorchEngine:
             def dispatch(data: np.ndarray, next_byte: int):
                 nonlocal carry, prev_slot
                 dev, n = encoder.upload(data, staging, threads)
-                wire, carry, prev_slot = encoder.encode_packed_device(
-                    dev, n, carry, next_byte, prev_slot
-                )
+                with span(log, "feed.launch"):
+                    wire, carry, prev_slot = encoder.encode_packed_device(
+                        dev, n, carry, next_byte, prev_slot
+                    )
                 return wire, n
 
             for batch in _batches(chunks, cap):

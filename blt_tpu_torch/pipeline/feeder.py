@@ -3,7 +3,8 @@
 
 ``prefetch_iter`` (a generator on a worker thread behind a bounded queue),
 its per-stage accounting ``stage_stats`` and the multithreaded ``pack_into``
-are copies of the JAX package's. What changes is the upload
+are copies of the JAX package's, with the spans of ``utils/logging`` and a
+byte count a stage added. What changes is the upload
 (``upload_owned`` there): each encoder packs into one pinned
 host staging buffer, the copy is asynchronous on a side stream, and
 ``upload`` returns only after a CUDA event recorded after the copy has
@@ -14,6 +15,7 @@ flight.
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
@@ -23,34 +25,59 @@ from typing import Iterable, Iterator, TypeVar
 import numpy as np
 import torch
 
+from blt_tpu_torch.utils.logging import adopt, begin, current, end, get_logger, record, span
+
 T = TypeVar("T")
+
+log = get_logger("feeder")
 
 _SENTINEL = object()
 
 # Per-stage occupancy accounting (chip_smoke.py prints it per leg to
 # attribute stalls): for each named stage, cumulative seconds the worker spent
-# producing items (src_time), blocked handing off (put_wait), and the
-# consumer spent waiting on it (get_wait). Cheap (a few perf_counter
-# calls per *batch*), so always on.
+# producing items (src_time, the call that finds the source exhausted
+# included), blocked handing off (put_wait), and the consumer spent waiting
+# on it (get_wait), with the items and their bytes it handed on. Cheap (a
+# few perf_counter calls per *batch*), so always on. Kept in nanoseconds:
+# the same readings time the stage's spans (``<stage>.item``, ``.put``,
+# ``.get``), whose sums these are.
 _STATS_LOCK = threading.Lock()
 _STAGE_STATS: dict = {}
+_TIMES = ("src_time", "put_wait", "get_wait")
 
 
-def _stat(name: str):
+def _account(name: str, items: int = 0, nbytes: int = 0, src_time: int = 0,
+             put_wait: int = 0, get_wait: int = 0) -> None:
+    # re-resolve the dict each time: stage_stats(reset=True) swaps the
+    # registry under live pipelines
     with _STATS_LOCK:
-        return _STAGE_STATS.setdefault(
-            name,
-            {"items": 0, "src_time": 0.0, "put_wait": 0.0, "get_wait": 0.0},
-        )
+        s = _STAGE_STATS.setdefault(
+            name, {"items": 0, "bytes": 0, "src_time": 0, "put_wait": 0, "get_wait": 0})
+        s["items"] += items
+        s["bytes"] += nbytes
+        s["src_time"] += src_time
+        s["put_wait"] += put_wait
+        s["get_wait"] += get_wait
 
 
 def stage_stats(reset: bool = False) -> dict:
-    """Snapshot (and optionally reset) cumulative per-stage timings."""
+    """Snapshot (and optionally reset) cumulative per-stage timings, in
+    seconds, and the items and bytes each stage handed on."""
     with _STATS_LOCK:
-        snap = {k: dict(v) for k, v in _STAGE_STATS.items()}
+        snap = {k: {f: v / 1e9 if f in _TIMES else v for f, v in st.items()}
+                for k, st in _STAGE_STATS.items()}
         if reset:
             _STAGE_STATS.clear()
     return snap
+
+
+def _nbytes(item) -> int:
+    """The bytes of a stage's item: its arrays' and tensors' (a tuple's summed)."""
+    if isinstance(item, tuple):
+        return sum(_nbytes(x) for x in item)
+    if isinstance(item, (bytes, bytearray)):
+        return len(item)
+    return int(getattr(item, "nbytes", 0))
 
 
 class _Failure:
@@ -66,35 +93,40 @@ def prefetch_iter(it: Iterable[T], depth: int = 2, name: str = "feeder") -> Iter
     Exceptions raised by the source re-raise at the consumer exactly once,
     at the position they occurred (never silently truncating the stream).
     If the consumer abandons the iterator early (generator close), the
-    worker is unblocked and exits.
+    worker is unblocked and exits. The worker records for the consumer's
+    job, item ``k`` as the spans' batch.
     """
     q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
     abandoned = threading.Event()
+    job = current()
+    item_span, put_span, get_span = f"{name}.item", f"{name}.put", f"{name}.get"
 
     def worker() -> None:
+        adopt(job)
         try:
             src = iter(it)
-            while True:
-                t0 = time.perf_counter()
+            for k in itertools.count():
+                sid = begin(k)
+                t0 = time.perf_counter_ns()
                 try:
                     item = next(src)
                 except StopIteration:
+                    item = _SENTINEL
+                finally:
+                    t1 = time.perf_counter_ns()
+                    end(sid, item_span, t0, t1)
+                if item is _SENTINEL:
+                    _account(name, src_time=t1 - t0)
                     break
-                t1 = time.perf_counter()
                 while not abandoned.is_set():
                     try:
                         q.put(item, timeout=0.1)
                         break
                     except queue.Full:
                         continue
-                t2 = time.perf_counter()
-                # re-resolve the dict each time: stage_stats(reset=True)
-                # swaps the registry under live pipelines
-                stats = _stat(name)
-                with _STATS_LOCK:
-                    stats["items"] += 1
-                    stats["src_time"] += t1 - t0
-                    stats["put_wait"] += t2 - t1
+                t2 = time.perf_counter_ns()
+                record(put_span, t1, t2, k)
+                _account(name, 1, _nbytes(item), t1 - t0, t2 - t1)
                 if abandoned.is_set():
                     return
         except BaseException as e:  # propagate to consumer
@@ -116,12 +148,12 @@ def prefetch_iter(it: Iterable[T], depth: int = 2, name: str = "feeder") -> Iter
     t = threading.Thread(target=worker, name=f"blt-{name}", daemon=True)
     t.start()
     try:
-        while True:
-            t0 = time.perf_counter()
+        for k in itertools.count():
+            t0 = time.perf_counter_ns()
             item = q.get()
-            stats = _stat(name)
-            with _STATS_LOCK:
-                stats["get_wait"] += time.perf_counter() - t0
+            t1 = time.perf_counter_ns()
+            record(get_span, t0, t1, k)
+            _account(name, get_wait=t1 - t0)
             if item is _SENTINEL:
                 return
             if isinstance(item, _Failure):
@@ -144,10 +176,11 @@ def pack_into(dst, src, threads: int = 0) -> None:
     n = src.shape[0]
     if n == 0:
         return
-    if native.available() and n >= (1 << 22):
-        native.copy_into(src, dst, threads if threads > 0 else (os.cpu_count() or 1))
-    else:
-        dst[:n] = src
+    with span(log, "feed.pack"):
+        if native.available() and n >= (1 << 22):
+            native.copy_into(src, dst, threads if threads > 0 else (os.cpu_count() or 1))
+        else:
+            dst[:n] = src
 
 
 def pinned_buffer(nbytes: int, device: torch.device) -> torch.Tensor:
@@ -166,19 +199,20 @@ def upload(buf, device: torch.device, copy_stream=None) -> torch.Tensor:
     (default: the current stream) and the current stream waits for it.
     """
     host = torch.from_numpy(buf) if isinstance(buf, np.ndarray) else buf
-    if device.type != "cuda":
-        return host.to(device, copy=True)
-    compute = torch.cuda.current_stream(device)
-    copy = copy_stream if copy_stream is not None else compute
-    with torch.cuda.stream(copy):
-        dev = torch.empty(host.shape, dtype=host.dtype, device=device)
-        dev.copy_(host, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(copy)
-    if copy != compute:
-        compute.wait_event(done)
-        # the allocator must not hand the memory out again while work on
-        # the compute stream still reads it
-        dev.record_stream(compute)
-    done.synchronize()
-    return dev
+    with span(log, "feed.h2d"):
+        if device.type != "cuda":
+            return host.to(device, copy=True)
+        compute = torch.cuda.current_stream(device)
+        copy = copy_stream if copy_stream is not None else compute
+        with torch.cuda.stream(copy):
+            dev = torch.empty(host.shape, dtype=host.dtype, device=device)
+            dev.copy_(host, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(copy)
+        if copy != compute:
+            compute.wait_event(done)
+            # the allocator must not hand the memory out again while work on
+            # the compute stream still reads it
+            dev.record_stream(compute)
+        done.synchronize()
+        return dev

@@ -5,8 +5,12 @@ I/O setup, chunk planning, decode and the ordered writer are copies of the
 JAX package's helpers. What differs: the engine is the port's
 (``config.engine``, an engine name, or an engine object the caller passes).
 ``BLT_WARMUP=1`` (or ``full``) runs ``warmup.warm_for_run`` before the
-first batch, and ``BLT_PROFILE=<dir>`` traces the compute and drain under
-``torch.profiler`` (``utils/profiling.py``), at the JAX runner's places.
+first batch, and ``BLT_PROFILE=<dir>`` traces the whole job under
+``torch.profiler`` (``utils/profiling.py``). A run is a job
+(``utils/logging.job``): its set-up ends at the first ``next()`` on the
+engine's results, its finish begins after the last; the writer's spans are
+``write`` (on its thread) and ``write.wait`` (the wait on the previous
+write).
 With the multi-process contract set (``BLT_COORDINATOR_ADDRESS`` and the
 two others), the run goes to ``parallel/multihost.py``.
 
@@ -35,8 +39,8 @@ from blt_tpu_torch.pipeline.engines import (
     select_engine,
 )
 from blt_tpu_torch.utils.chunking import get_effective_chunk_size, mem_budget_bytes
-from blt_tpu_torch.utils.logging import get_logger, span
-from blt_tpu_torch.utils.profiling import maybe_profile
+from blt_tpu_torch.utils.logging import adopt, current, finishing, get_logger, setup_done, span
+from blt_tpu_torch.utils.profiling import job
 
 log = get_logger("runner")
 
@@ -62,6 +66,11 @@ def run_tokenizer(config: CoreConfig, engine=None) -> None:
     unless the caller chose otherwise). A multi-process run passes it on
     to ``multihost.run_tokenizer_distributed``.
     """
+    with job(log, engine if engine is not None else config.engine.value):
+        _run_tokenizer(config, engine)
+
+
+def _run_tokenizer(config: CoreConfig, engine) -> None:
     log.info("Starting tokenizer")
     from blt_tpu_torch.parallel import multihost
 
@@ -89,8 +98,7 @@ def run_tokenizer(config: CoreConfig, engine=None) -> None:
                 src.chunks(effective_chunk_size), table, config.content_type,
                 threads=config.num_threads,
             )
-            with maybe_profile():
-                _drain_to_writer(results, writer)
+            _drain_to_writer(results, writer)
             log.info("Detokenizer run completed successfully")
             return
 
@@ -143,10 +151,7 @@ def run_tokenizer(config: CoreConfig, engine=None) -> None:
             results = engine.basic_stream(chunks, feed_size)
         else:
             results = engine.bpe_stream(chunks, config.table(), feed_size)
-        # BLT_PROFILE=<dir> traces the whole compute and drain (the engines'
-        # streams are lazy generators, so every launch runs inside it)
-        with maybe_profile(getattr(engine, "device", None)):
-            _drain_to_writer(results, writer)
+        _drain_to_writer(results, writer)
     except BaseException:
         # a failed run removes its partial output file (as the JAX runner)
         try:
@@ -210,19 +215,31 @@ def _decode_stream(
         raise odd_trailing_error()
 
 
+def _write(writer: OutputWriter, data, job, chunk_id: int) -> None:
+    """One write on the writer's thread, recorded for the consumer's job."""
+    adopt(job)
+    with span(log, "write", batch=chunk_id):
+        writer.write(data)
+
+
 def _drain_to_writer(results: Iterator, writer: OutputWriter) -> None:
     """Write ordered results, overlapping disk writes with compute.
 
     The per-chunk debug spans are the analog of the reference's
-    ``process_chunk_task`` tracing spans (pipeline.rs:148,348).
+    ``process_chunk_task`` tracing spans (pipeline.rs:148,348). The job's
+    set-up ends at the first ``next()`` on ``results``, and its finish
+    begins after the last result.
     """
-    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+    this_job = current()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="blt-writer") as pool:
         prev: Optional[concurrent.futures.Future] = None
+        setup_done(log)
         for chunk_id, data in enumerate(results):
             nbytes = getattr(data, "nbytes", None) or len(data)
-            with span(log, "drain_chunk", chunk_id=chunk_id, bytes=nbytes):
+            with span(log, "write.wait", batch=chunk_id, bytes=nbytes):
                 if prev is not None:
                     prev.result()
-                prev = pool.submit(writer.write, data)
+                prev = pool.submit(_write, writer, data, this_job, chunk_id)
+        finishing(log)
         if prev is not None:
             prev.result()
