@@ -155,6 +155,12 @@ def load() -> ctypes.CDLL:
         lib.blt_pmxu.restype = i
         lib.blt_probe16.argtypes = [i, p, p, i, p]
         lib.blt_probe16.restype = i
+        lib.blt_host_register.argtypes = [p, i64]
+        lib.blt_host_register.restype = i
+        lib.blt_host_unregister.argtypes = [p]
+        lib.blt_host_unregister.restype = i
+        lib.blt_h2d.argtypes = [p, p, i64, p]
+        lib.blt_h2d.restype = i
         for entry in CTAS_PER_SM.values():
             getattr(lib, entry).argtypes = [ctypes.POINTER(i)]
             getattr(lib, entry).restype = i

@@ -610,8 +610,9 @@ def _pad(data: np.ndarray, capacity: int) -> np.ndarray:
 
 
 class _Uploader:
-    """Pack into a reusable host buffer and upload (``feeder.upload``),
-    on a side copy stream when the device is a CUDA device."""
+    """Upload a batch, on a side copy stream when the device is a CUDA
+    device: straight from its file mapping (``feeder.MappedWindows``), or
+    packed into a reusable host buffer first (``feeder.upload``)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -619,9 +620,11 @@ class _Uploader:
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )
 
-    def upload(self, data: np.ndarray, buf, threads: int = 0):
+    def upload(self, data: np.ndarray, buf, threads: int = 0, windows=None):
         """Returns (device uint8 (rows, 128), n). Tail bytes past ``n`` stay
-        stale: every kernel masks by length."""
+        stale: every kernel masks by length. ``windows``: the feed's
+        ``MappedWindows``, which copies a batch of a mapped input to its
+        device from the mapping; every other batch is packed into ``buf``."""
         from blt_tpu_torch.pipeline.feeder import pack_into, upload
 
         n = data.shape[0]
@@ -630,9 +633,13 @@ class _Uploader:
                 f"batch of {n} bytes / buffer of {buf.shape[0]} does not match "
                 f"capacity {self.capacity}"
             )
-        host = buf.numpy() if isinstance(buf, torch.Tensor) else buf
-        pack_into(host, data, threads)
-        dev = upload(buf, self.device, self._copy_stream)
+        dev = None
+        if windows is not None and windows.device == self.device:
+            dev = windows.upload(data, self.padded_bytes, self._copy_stream)
+        if dev is None:
+            host = buf.numpy() if isinstance(buf, torch.Tensor) else buf
+            pack_into(host, data, threads)
+            dev = upload(buf, self.device, self._copy_stream)
         return dev.reshape(self.capacity // LANES, LANES), n
 
 

@@ -15,9 +15,11 @@ server's ``--engine auto`` does.
 
 Pipelining is the JAX engine's: feed (pack into a pinned buffer, upload,
 launch), device-to-host copy, and host drain each run on their own thread
-(``prefetch_iter``). The BPE carry and the previous raw slot stay on the
-device between batches: the kernels read and write them by pointer, so no
-batch waits on the host for them.
+(``prefetch_iter``). A batch of a file mapping skips the pack on a CUDA
+device: it is copied from the mapping (``feeder.MappedWindows``). The BPE
+carry and the previous raw slot stay on the device between batches: the
+kernels read and write them by pointer, so no batch waits on the host for
+them.
 """
 
 from __future__ import annotations
@@ -47,7 +49,13 @@ from blt_tpu_torch.ops.sharded_cuda import (
 )
 from blt_tpu_torch.parallel.mesh import make_mesh, replicated
 from blt_tpu_torch.parallel.sharded import sharded_basic_encode, sharded_flat_encode
-from blt_tpu_torch.pipeline.feeder import pack_into, pinned_buffer, prefetch_iter, upload
+from blt_tpu_torch.pipeline.feeder import (
+    MappedWindows,
+    pack_into,
+    pinned_buffer,
+    prefetch_iter,
+    upload,
+)
 from blt_tpu_torch.utils.chunking import align_up
 from blt_tpu_torch.utils.device import cuda_device, require_cuda
 from blt_tpu_torch.utils.logging import get_logger, span
@@ -192,11 +200,12 @@ class TorchEngine:
         staging = pinned_buffer(encoder.padded_bytes, self.device)
 
         def feed():
-            for batch in _batches(chunks, encoder.capacity):
-                dev, n = encoder.upload(batch, staging, self.threads)
-                with span(log, "feed.launch"):
-                    out = encoder.encode_device(dev, n)
-                yield out
+            with MappedWindows(self.device) as windows:
+                for batch in _batches(chunks, encoder.capacity):
+                    dev, n = encoder.upload(batch, staging, self.threads, windows)
+                    with span(log, "feed.launch"):
+                        out = encoder.encode_device(dev, n)
+                    yield out
 
         def drain(items):
             for out, n in items:
@@ -244,19 +253,20 @@ class TorchEngine:
 
             def dispatch(data: np.ndarray, next_byte: int):
                 nonlocal carry, prev_slot
-                dev, n = encoder.upload(data, staging, threads)
+                dev, n = encoder.upload(data, staging, threads, windows)
                 with span(log, "feed.launch"):
                     wire, carry, prev_slot = encoder.encode_packed_device(
                         dev, n, carry, next_byte, prev_slot
                     )
                 return wire, n
 
-            for batch in _batches(chunks, cap):
+            with MappedWindows(self.device) as windows:
+                for batch in _batches(chunks, cap):
+                    if prev_batch is not None:
+                        yield dispatch(prev_batch, int(batch[0]))
+                    prev_batch = batch
                 if prev_batch is not None:
-                    yield dispatch(prev_batch, int(batch[0]))
-                prev_batch = batch
-            if prev_batch is not None:
-                yield dispatch(prev_batch, -1)
+                    yield dispatch(prev_batch, -1)
 
         def d2h(items):
             for wire, n in items:
@@ -353,10 +363,11 @@ class TorchEngine:
         threads = self.threads
 
         def feed():
-            for i, chunk in enumerate(_whole_chunks(chunks, enc.capacity)):
-                r = i % enc.n_rows
-                dev, n = enc.rows[r].upload(chunk, staging, threads)
-                yield enc.dispatch(r, dev.reshape(-1)[:n])
+            with MappedWindows(self.device) as windows:
+                for i, chunk in enumerate(_whole_chunks(chunks, enc.capacity)):
+                    r = i % enc.n_rows
+                    dev, n = enc.rows[r].upload(chunk, staging, threads, windows)
+                    yield enc.dispatch(r, dev.reshape(-1)[:n])
 
         def d2h(items):
             for out, m, capacity in items:

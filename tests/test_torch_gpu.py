@@ -10,17 +10,21 @@ there:
 """
 
 import itertools
+import os
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from blt_tpu_torch import cli
+from blt_tpu_torch.io.sources import InputSource
 from blt_tpu_torch.merges import MergeTable
 from blt_tpu_torch.ops import _cuda_build, bpe_cuda, multipass_cuda, tools_cuda
 from blt_tpu_torch.ops.bpe_numpy import bpe_encode_flat, bpe_encode_multipass
 from blt_tpu_torch.ops.sharded_cuda import CudaShardedFlatEncoder, CudaShardedTokenEncoder
 from blt_tpu_torch.ops.tables import cuckoo_planes, wire_table
+from blt_tpu_torch.pipeline import feeder
 from blt_tpu_torch.pipeline.engines import ShardedTorchEngine, TorchEngine
 from blt_tpu_torch.tools import (
     _common,
@@ -125,6 +129,52 @@ def test_cli_engine_torch_equals_engine_numpy(cuda, tmp_path, monkeypatch):
             assert cli.main(argv + extra) == 0
             outs.append(out.read_bytes())
         assert outs[0] == outs[1]
+
+
+def test_mapped_input_uploads_from_its_mapping(cuda, tmp_path, monkeypatch):
+    """A file's batches reach the card from its mapping, window by window
+    (``feed.direct``): the basic, flat and multipass streams equal the
+    staging copy of the same bytes and the host references. The file is a
+    ``memfd``, whose pages CUDA pins; a file whose filesystem refuses
+    (``feed.register_failed``) takes the staging copy, with the same bytes."""
+    monkeypatch.setattr(feeder, "WINDOW_BYTES", 1 << 20)
+    hint = 1 << 18
+    data = _text(13, 3 * (1 << 20) + 12345)
+    fd = os.memfd_create("blt-test-input")
+    os.write(fd, data.tobytes())
+    disk = tmp_path / "in.bin"
+    disk.write_bytes(data.tobytes())
+    flat, general = MergeTable.build(MERGES), MergeTable.build(GENERAL)
+    runs = {
+        "basic": (lambda e, c: e.basic_stream(c, hint), data.astype(">u2").tobytes()),
+        "flat": (lambda e, c: e.bpe_stream(c, flat, hint),
+                 bpe_encode_flat(data, flat).astype(">u2").tobytes()),
+        "general": (lambda e, c: e.bpe_stream(c, general, hint), b"".join(
+            bpe_encode_multipass(data[i : i + hint], general).astype(">u2").tobytes()
+            for i in range(0, data.shape[0], hint))),
+    }
+    batches = -(-data.shape[0] // hint)
+
+    def run(stream, chunks):
+        feeder.stage_stats(reset=True)
+        got = _join(stream(TorchEngine(cuda), chunks))
+        return got, feeder.stage_stats(reset=True)
+
+    try:
+        for name, (stream, want) in runs.items():
+            got, stats = run(stream, InputSource(Path(f"/proc/self/fd/{fd}")).chunks(hint))
+            assert stats["feed.direct"]["items"] == batches, name
+            assert stats["feed.direct"]["bytes"] == data.shape[0], name
+            assert "feed.staged" not in stats and "feed.register_failed" not in stats, name
+            staged, stats = run(stream, iter(
+                data[i : i + hint].copy() for i in range(0, data.shape[0], hint)))
+            assert stats["feed.staged"]["items"] == batches and "feed.direct" not in stats, name
+            on_disk, stats = run(stream, InputSource(disk).chunks(hint))
+            count = lambda k: stats.get(k, {}).get("items", 0)  # noqa: E731
+            assert count("feed.direct") + count("feed.staged") == batches, name
+            assert got == staged == on_disk == want, name
+    finally:
+        os.close(fd)
 
 
 GENERAL = {(97, 98): 256, (256, 99): 257, (257, 257): 300, (97, 97): 301,

@@ -7,6 +7,7 @@ is the same; the job ranges put the record on the trace's clock; and
 
 from __future__ import annotations
 
+import ctypes
 import json
 import logging
 from collections import Counter
@@ -19,6 +20,8 @@ from torch.profiler import ProfilerActivity, profile
 from blt_tpu_torch import cli
 from blt_tpu_torch.api import ByteTokenizer
 from blt_tpu_torch.config import ContentType, CoreConfig
+from blt_tpu_torch.merges import MergeTable
+from blt_tpu_torch.ops.bpe_numpy import bpe_encode_flat
 from blt_tpu_torch.pipeline import engines, feeder, runner
 from blt_tpu_torch.pipeline.engines import TorchEngine
 from blt_tpu_torch.pipeline.runner import run_tokenizer
@@ -132,7 +135,9 @@ def test_one_feed_pack_a_batch(traced):
                                         ("get", "get_wait")])
 def test_stage_spans_sum_to_stage_stats(traced, part, field):
     kind, run = traced
-    assert set(run["stats"]) == set(STAGES[kind])
+    # beside the stages, the feed's count of batches packed into staging
+    # (every batch on a CPU device)
+    assert set(run["stats"]) == set(STAGES[kind]) | {"feed.staged"}
     for stage in STAGES[kind]:
         ns = sum(s.end_ns - s.start_ns for s in run["record"] if s.name == f"{stage}.{part}")
         assert ns / 1e9 == run["stats"][stage][field], stage
@@ -291,3 +296,40 @@ def test_the_writer_thread_records_for_the_consumers_job(tmp_path):
     main = next(s for s in record if s.name == "job").thread
     assert all(s.thread != main for s in writes)
     assert (tmp_path / "w.bin").read_bytes() == b"abcd"
+
+
+def test_direct_upload_spans(tmp_path, monkeypatch):
+    """On the direct upload of a mapped input (the CUDA calls stood in for
+    on the host) each batch still has one ``feed.pack``, and a window's
+    registration is a ``feed.register`` inside the ``feed.pack`` of the
+    batch that opens it; the output is the host encoder's."""
+
+    class Host:
+        windows = 0
+
+        def register(self, ptr, nbytes):
+            self.windows += 1
+            return True
+
+        def unregister(self, ptr):
+            pass
+
+        def copy(self, dst, src, nbytes):
+            ctypes.memmove(dst.data_ptr(), src, nbytes)
+
+    host = Host()
+    monkeypatch.setattr(feeder, "host_calls", lambda device: host)
+    monkeypatch.setattr(feeder, "WINDOW_BYTES", 4 * BATCH)
+    run = _traced_run(tmp_path, "flat")
+    record = run["record"]
+    by_id = {s.id: s for s in record}
+    registers = [s for s in record if s.name == "feed.register"]
+    assert 2 * 4 <= len(registers) <= host.windows  # 1.2 MB a job: five windows or more
+    assert all(by_id[s.parent].name == "feed.pack" for s in registers)
+    assert {s.job for s in registers} == {s.job for s in record if s.name == "job"}
+    assert Counter(s.name for s in record)["feed.pack"] == len(run["batches"])
+    assert run["stats"]["feed.direct"]["items"] == len(run["batches"])
+    assert "feed.staged" not in run["stats"]
+    data = np.frombuffer((tmp_path / "in.txt").read_bytes(), np.uint8)
+    want = bpe_encode_flat(data, MergeTable.build(FLAT)).astype(">u2").tobytes()
+    assert run["out"]["plain"][2:] == run["out"]["a"][2:] == run["out"]["b"][2:] == want
