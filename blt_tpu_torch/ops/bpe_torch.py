@@ -13,6 +13,9 @@ step waits on the host.
 per-chunk semantics: ``jnp.searchsorted`` over the sorted pair keys becomes
 ``torch.searchsorted``, and ``lax.while_loop`` a Python loop that reads
 "any merge, and at least two tokens left" on the host once per pass.
+Each chunk's loop is one ``mp.chunk`` span, each read an ``mp.read`` span
+inside it (``utils/logging``), and ``log_loop`` counts it, as the kernel
+loops of ``multipass_cuda`` count theirs.
 
 This module serves two purposes: it is the torch engine's twin route for
 tables that the kernel encoders reject (flat tables with rule values below
@@ -29,8 +32,25 @@ import numpy as np
 import torch
 
 from blt_tpu_torch.merges import NO_RULE, MergeTable
+from blt_tpu_torch.pipeline import feeder
+from blt_tpu_torch.utils.logging import MP_CHUNK, MP_READ, get_logger, span
+
+log = get_logger("multipass")
 
 _NEG_INF32 = -(2**31) + 1
+
+# (passes, compactions) of each chunk's multipass loop, in order: the
+# twin's and the kernel loops' (``multipass_cuda.loop_log`` is this list)
+loop_log: list = []
+
+
+def log_loop(route: str, nbytes: int, passes: int, compactions: int) -> None:
+    """Count one chunk's multipass loop: its entry in ``loop_log``, and in
+    ``feeder.stage_stats`` ``mp.<route>`` (items: chunks, bytes: input
+    bytes) and ``mp.passes`` (items: passes)."""
+    loop_log.append((passes, compactions))
+    feeder.count(f"mp.{route}", 1, nbytes)
+    feeder.count("mp.passes", passes)
 
 
 def basic_encode(data: torch.Tensor) -> torch.Tensor:
@@ -137,22 +157,29 @@ def multipass_encode(
     """
     n = data.shape[0]
     dev = data.device
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    tokens = data.to(torch.int32)
-    cur_len = torch.tensor(length, dtype=torch.int32, device=dev)
-    go = length >= 2  # lax.while_loop's cond before the first pass
-    while go:
-        nxt = torch.roll(tokens, -1)
-        valid_pair = idx < (cur_len - 1)
-        pv, match = _sparse_lookup(tokens, nxt, keys, vals, valid_pair)
-        lnm = torch.cummax(torch.where(match, _NEG_INF32, idx), 0).values
-        starts = match & (((idx - torch.clamp(lnm, min=-1)) & 1) == 1)
-        consumed = torch.roll(starts, 1)
-        consumed[0] = False
-        out_vals = torch.where(starts, pv, tokens)
-        keep = (~consumed) & (idx < cur_len)
-        tokens, cur_len = _compact(out_vals, keep)
-        go = bool(starts.any() & (cur_len >= 2))  # one host read per pass
+    passes = 0
+    with span(log, MP_CHUNK):
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        tokens = data.to(torch.int32)
+        cur_len = torch.tensor(length, dtype=torch.int32, device=dev)
+        go = length >= 2  # lax.while_loop's cond before the first pass
+        while go:
+            nxt = torch.roll(tokens, -1)
+            valid_pair = idx < (cur_len - 1)
+            pv, match = _sparse_lookup(tokens, nxt, keys, vals, valid_pair)
+            lnm = torch.cummax(torch.where(match, _NEG_INF32, idx), 0).values
+            starts = match & (((idx - torch.clamp(lnm, min=-1)) & 1) == 1)
+            consumed = torch.roll(starts, 1)
+            # a slice, filled on the device: an element write copies a host
+            # scalar in, which waits on the stream (a second read a pass)
+            consumed[:1] = False
+            out_vals = torch.where(starts, pv, tokens)
+            keep = (~consumed) & (idx < cur_len)
+            tokens, cur_len = _compact(out_vals, keep)
+            passes += 1
+            with span(log, MP_READ):
+                go = bool(starts.any() & (cur_len >= 2))  # one host read per pass
+    log_loop("twin", length, passes, 0)
     return tokens, cur_len
 
 

@@ -17,8 +17,14 @@ Each has a plain PyTorch version of the same function beside it
 (``*_plain``). Dispatch is by the tensors alone: CUDA tensors launch the
 kernel, CPU tensors run the plain version, anything else raises. Nothing
 else chooses between them and nothing falls back. Each kernel launch adds
-one to ``launches[name]``; each resident loop appends its (rounds,
-compactions) to ``loop_log``.
+one to ``launches[name]``; each resident loop is one ``mp.chunk`` span, its
+round's host read an ``mp.read`` span, and ``bpe_torch.log_loop`` counts it
+under ``mp.loop``: its (rounds, compactions) go to ``loop_log``, which the
+plain twin's loops share.
+
+``PlainTokenEncoder`` is the route for general tables that cuckoo32
+cannot place (more than 8192 rules): chunks upload as ``CudaTokenEncoder``'s
+do and run the plain twin, ``bpe_torch.multipass_encode``, on the device.
 
 ``CudaTokenEncoder`` keeps ``PallasTokenEncoder``'s methods and return
 shapes, with an explicit ``torch.device``. The loop's XLA glue becomes
@@ -47,8 +53,17 @@ from blt_tpu_torch.ops.bpe_cuda import (
     _stream,
     _Uploader,
 )
-from blt_tpu_torch.ops.bpe_torch import _compact
+from blt_tpu_torch.ops.bpe_torch import (
+    _compact,
+    log_loop,
+    loop_log,
+    multipass_encode,
+    sparse_table_device,
+)
 from blt_tpu_torch.ops.tables import CuckooPlanes, cuckoo_planes
+from blt_tpu_torch.utils.logging import MP_CHUNK, MP_READ, get_logger, span
+
+log = get_logger("multipass")
 
 GAP_LOOKAHEAD = 4  # next-alive window: a pair survives tombstone runs <= 3
 GAP_COMPACT_EVERY = 3  # rounds between compactions (gap growth 0 -> 1 -> 3)
@@ -90,8 +105,6 @@ K4_FLAGS = TOKEN_PASSES["token_pass_lookback"]  # the main path's round
 
 # kernel launches made by the wrappers below, by kernel name
 launches = {"token_pass_gap": 0, **dict.fromkeys(TOKEN_PASSES, 0)}
-# (rounds, compactions) of each resident loop, in order
-loop_log: list = []
 
 
 def reset_launches() -> None:
@@ -398,32 +411,36 @@ class CudaTokenEncoder(_Uploader):
     def _gap_loop(self, data):
         """K3 rounds until one merges nothing, compacting every third round
         when another round will run (``_multipass_gap_resident_call``)."""
-        buf, n, _ = self._buffer(data, -1)
-        m, prev, rounds, compactions = n, n + 1, 0, 0
-        count = None
-        while count is None or (m < prev and m > 1):
-            buf, count = token_pass_gap(buf, self.planes)
-            m2 = int(count)  # the round's one host read
-            rounds += 1
-            if rounds % GAP_COMPACT_EVERY == 0 and m2 < m and m2 > 1:
-                buf, _ = _compact(buf, buf >= 0, fill=-1)
-                compactions += 1
-            prev, m = m, m2
-        loop_log.append((rounds, compactions))
+        with span(log, MP_CHUNK):
+            buf, n, _ = self._buffer(data, -1)
+            m, prev, rounds, compactions = n, n + 1, 0, 0
+            count = None
+            while count is None or (m < prev and m > 1):
+                buf, count = token_pass_gap(buf, self.planes)
+                with span(log, MP_READ):
+                    m2 = int(count)  # the round's one host read
+                rounds += 1
+                if rounds % GAP_COMPACT_EVERY == 0 and m2 < m and m2 > 1:
+                    buf, _ = _compact(buf, buf >= 0, fill=-1)
+                    compactions += 1
+                prev, m = m, m2
+        log_loop("loop", n, rounds, compactions)
         return buf, count
 
     def _sort_loop(self, data):
         """K4 rounds with a compaction after each (``_multipass_resident_call``)."""
-        buf, n, capacity = self._buffer(data, 0)
-        idx = torch.arange(capacity, dtype=torch.int32, device=self.device)
-        m, prev, rounds = n, n + 1, 0
-        count = None
-        while count is None or (m < prev and m > 1):
-            out = token_pass(buf, m, self.planes, K4_FLAGS)
-            buf, count = _compact(out, (out != -1) & (idx < m))
-            rounds += 1
-            prev, m = m, int(count)  # the round's one host read
-        loop_log.append((rounds, rounds))
+        with span(log, MP_CHUNK):
+            buf, n, capacity = self._buffer(data, 0)
+            idx = torch.arange(capacity, dtype=torch.int32, device=self.device)
+            m, prev, rounds = n, n + 1, 0
+            count = None
+            while count is None or (m < prev and m > 1):
+                out = token_pass(buf, m, self.planes, K4_FLAGS)
+                buf, count = _compact(out, (out != -1) & (idx < m))
+                rounds += 1
+                with span(log, MP_READ):
+                    prev, m = m, int(count)  # the round's one host read
+        log_loop("loop", n, rounds, rounds)
         return buf, count
 
     def encode_resident_dispatch(self, data):
@@ -458,3 +475,23 @@ class CudaTokenEncoder(_Uploader):
         if out.shape[0] != int(m_d):
             raise RuntimeError(f"{out.shape[0]} alive tokens, count says {int(m_d)}")
         return out
+
+
+class PlainTokenEncoder(_Uploader):
+    """The plain twin's multipass for general tables that ``CudaTokenEncoder``
+    cannot place (port of the JAX engine's XLA route): the table's sorted
+    pair keys on ``device``, a chunk of up to ``capacity_tokens`` bytes
+    (rounded up to 128) uploaded as ``CudaTokenEncoder`` uploads it, and
+    ``bpe_torch.multipass_encode`` over it, whose loop counts under
+    ``mp.twin``."""
+
+    def __init__(self, table: MergeTable, device, capacity_tokens: int):
+        super().__init__(device)
+        self.capacity = self.padded_bytes = _round_capacity(capacity_tokens)
+        self.keys, self.vals = sparse_table_device(table, self.device)
+
+    def encode_resident_dispatch(self, data: torch.Tensor):
+        """One chunk (a 1-D uint8 tensor on the device) -> (its tokens int32
+        as a compacted prefix on the device, the count as an int32 tensor),
+        as ``CudaTokenEncoder``'s sort loop returns them."""
+        return multipass_encode(data, data.shape[0], self.keys, self.vals)

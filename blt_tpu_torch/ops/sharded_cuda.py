@@ -20,7 +20,8 @@ sends a batch whose halo holds none to the exact carry-composition path
 kernel and then ``pack_slots_batch`` as two dispatches; here one launch a
 slab writes the same packed wire over the slab's payload.
 
-``CudaShardedTokenEncoder`` holds one ``CudaTokenEncoder`` a row. General
+``CudaShardedTokenEncoder`` holds one ``CudaTokenEncoder`` a row, or with
+``plain`` one ``PlainTokenEncoder`` (a table cuckoo32 cannot place). General
 tables keep the reference's per-chunk semantics, so rows never stitch: a
 batch of up to B chunks is B independent loops. Each loop reads its alive
 count on the host once a round, so the rows of a batch run one after
@@ -43,6 +44,7 @@ from blt_tpu_torch.ops.bpe_cuda import (
 from blt_tpu_torch.ops.bpe_torch import tokens_to_be_bytes_device
 from blt_tpu_torch.ops.multipass_cuda import (
     CudaTokenEncoder,
+    PlainTokenEncoder,
     expand_gap_wire_host,
     mp_compact_mode,
 )
@@ -142,15 +144,19 @@ class CudaShardedFlatEncoder:
 
 class CudaShardedTokenEncoder:
     """Row-parallel multipass for general tables over a mesh: one
-    ``CudaTokenEncoder`` a row."""
+    ``CudaTokenEncoder`` a row; with ``plain``, one ``PlainTokenEncoder``,
+    whose rows only ``dispatch``."""
 
-    def __init__(self, table: MergeTable, mesh=None, capacity_tokens: int = 0):
+    def __init__(self, table: MergeTable, mesh=None, capacity_tokens: int = 0,
+                 plain: bool = False):
         self.mesh = make_mesh(mesh)
         self.n_rows = len(self.mesh)
         if not capacity_tokens:
             raise ValueError("CudaShardedTokenEncoder requires a fixed capacity")
-        self.rows = [CudaTokenEncoder(table, d, capacity_tokens) for d in self.mesh]
+        row = PlainTokenEncoder if plain else CudaTokenEncoder
+        self.rows = [row(table, d, capacity_tokens) for d in self.mesh]
         self.capacity = self.rows[0].capacity
+        self.plain = plain
 
     @staticmethod
     def supports(table: MergeTable) -> bool:
@@ -188,20 +194,29 @@ class CudaShardedTokenEncoder:
         1-D tensor on its device). Returns (uint8 wire on the device, the
         alive count as a tensor, capacity): the gap loop's wire, expanded on
         the host by ``expand_gap_wire_host``; under ``BLT_MP_COMPACT=sort``
-        the u16-BE image of the K4 loop's compacted prefix as bytes and
-        capacity None (the count's first tokens are the output)."""
+        or ``plain`` the u16-BE image of the loop's compacted prefix as
+        bytes and capacity None (the count's first tokens are the output)."""
         enc = self.rows[r]
-        if mp_compact_mode() == "sort":
+        if self.plain or mp_compact_mode() == "sort":
             toks, m = enc.encode_resident_dispatch(data)
             return tokens_to_be_bytes_device(toks).view(torch.uint8), m, None
         return enc.encode_resident_wire_dispatch(data)
 
     @staticmethod
-    def expand(wire: np.ndarray, m: int, capacity) -> np.ndarray:
-        """A ``dispatch`` result on the host -> byteswapped u16 tokens (LE
-        image = the u16-BE wire stream)."""
+    def download(wire: torch.Tensor, m, capacity):
+        """A ``dispatch`` result -> (its wire on the host, the count as an
+        int): the whole gap wire, or the compacted prefix's ``2 m`` bytes."""
+        m = int(m)
         if capacity is None:
-            return wire.view(np.uint16)[:m].copy()
+            wire = wire[: 2 * m]
+        return wire.cpu().numpy(), m
+
+    @staticmethod
+    def expand(wire: np.ndarray, m: int, capacity) -> np.ndarray:
+        """A ``download``ed wire -> byteswapped u16 tokens (LE image = the
+        u16-BE wire stream)."""
+        if capacity is None:
+            return wire.view(np.uint16)[:m]
         toks = expand_gap_wire_host(wire, capacity)
         if toks.shape[0] != m:
             raise RuntimeError(f"{toks.shape[0]} alive tokens, count says {m}")
@@ -213,7 +228,7 @@ class CudaShardedTokenEncoder:
         rows whose LE image is the u16-BE wire stream."""
         self._check(chunks)
         outs = [self.dispatch(r, c) for r, c in enumerate(chunks)]
-        return [self.expand(w.cpu().numpy(), int(m), cap) for w, m, cap in outs]
+        return [self.expand(*self.download(w, m, cap), cap) for w, m, cap in outs]
 
     def encode_batch_resident(self, chunks: list) -> List[np.ndarray]:
         """Full multipass of up to n_rows chunks -> int32 token arrays (the

@@ -331,33 +331,26 @@ class TorchEngine:
 
     def _bpe_multipass_stream(
         self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
-    ) -> Iterator:
-        """General (non-flat) tables, per-chunk semantics (port of the JAX
-        engine's ``_bpe_multipass_stream``). The kernel route when cuckoo32
-        places the table; the plain-torch twin (``bpe_torch.multipass_encode``)
-        for tables it cannot place and under ``BLT_MULTIPASS=xla`` (the JAX
-        package's name for its plain route). The table chooses, never a
-        failure."""
-        if os.environ.get("BLT_MULTIPASS", "pallas") != "xla" and (
-            CudaTokenEncoder.supports(table)
-        ):
-            yield from self._bpe_multipass_kernel_stream(chunks, table, chunk_hint)
-        else:
-            yield from self._bpe_multipass_twin_stream(chunks, table, chunk_hint)
-
-    def _bpe_multipass_kernel_stream(
-        self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
     ) -> Iterator[np.ndarray]:
-        """The device-resident loop per chunk (``_bpe_multipass_pallas_stream``):
-        upload, K3 rounds with a compaction every third round, and the gap
-        wire (the u16-BE image plus an alive-flag plane) down; the host drops
-        the tombstones. ``BLT_MP_COMPACT=sort`` runs the K4 loop and ships the
-        compacted prefix. Feed, D2H and drain each run on a ``prefetch_iter``
-        stage, ``depth`` chunks in flight. The encoder is sized from the
-        chunk size, and a chunk is never cut. Chunk i runs on row ``i % B``
-        of the engine's mesh (one row for this engine)."""
+        """General (non-flat) tables, per-chunk semantics (port of the JAX
+        engine's ``_bpe_multipass_stream``): a device-resident loop a chunk.
+        The kernel loop when cuckoo32 places the table: K3 rounds with a
+        compaction every third round and the gap wire (the u16-BE image
+        plus an alive-flag plane) down, the host dropping the tombstones;
+        ``BLT_MP_COMPACT=sort`` runs the K4 loop. For tables it cannot
+        place, and under ``BLT_MULTIPASS=xla`` (the JAX package's name for
+        its plain route), the plain twin (``multipass_cuda.PlainTokenEncoder``).
+        The table chooses, never a failure. Either route uploads a whole
+        chunk on the feed stage and runs its loop there; the D2H stage
+        downloads its wire (a compacted prefix: only its tokens), the drain
+        expands it, ``depth`` chunks in flight. The encoder is sized from
+        the chunk size, and a chunk is never cut. Chunk i runs on row
+        ``i % B`` of the engine's mesh (one row for this engine)."""
+        plain = os.environ.get("BLT_MULTIPASS", "pallas") == "xla" or (
+            not CudaTokenEncoder.supports(table)
+        )
         enc = CudaShardedTokenEncoder(
-            table, self.mesh, capacity_tokens=align_up(max(chunk_hint, 1))
+            table, self.mesh, capacity_tokens=align_up(max(chunk_hint, 1)), plain=plain
         )
         staging = pinned_buffer(enc.rows[0].padded_bytes, self.device)
         threads = self.threads
@@ -371,7 +364,7 @@ class TorchEngine:
 
         def d2h(items):
             for out, m, capacity in items:
-                yield out.cpu().numpy(), int(m), capacity
+                yield (*enc.download(out, m, capacity), capacity)
 
         def drain(items):
             for host, m, capacity in items:
@@ -388,32 +381,6 @@ class TorchEngine:
             self.depth,
             "drain",
         )
-
-    def _bpe_multipass_twin_stream(
-        self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
-    ) -> Iterator[np.ndarray]:
-        """Plain torch ops on the engine's device (the JAX engine's
-        ``_bpe_multipass_xla_stream``); chunk i on row ``i % B`` of the
-        mesh."""
-        tables = {d: bpe_torch.sparse_table_device(table, d) for d in dict.fromkeys(self.mesh)}
-        n_static = align_up(max(chunk_hint, 1))
-        pending: collections.deque = collections.deque()
-
-        def drain() -> np.ndarray:
-            count, be = pending.popleft()
-            return be[: int(count)].cpu().numpy()
-
-        for i, chunk in enumerate(_whole_chunks(chunks, n_static)):
-            device = self.mesh[i % len(self.mesh)]
-            buf = np.zeros(n_static, np.uint8)
-            buf[: chunk.shape[0]] = chunk
-            dev = torch.from_numpy(buf).to(device)
-            toks, count = bpe_torch.multipass_encode(dev, chunk.shape[0], *tables[device])
-            pending.append((count, bpe_torch.tokens_to_be_bytes_device(toks)))
-            if len(pending) > self.depth:
-                yield drain()
-        while pending:
-            yield drain()
 
 
 class ShardedTorchEngine(TorchEngine):

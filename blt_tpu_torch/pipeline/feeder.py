@@ -68,6 +68,12 @@ def _account(name: str, items: int = 0, nbytes: int = 0, src_time: int = 0,
         s["get_wait"] += get_wait
 
 
+def count(name: str, items: int = 0, nbytes: int = 0) -> None:
+    """Add ``items`` and their ``nbytes`` to the counter ``name`` that
+    ``stage_stats`` reports beside the stages."""
+    _account(name, items, nbytes)
+
+
 def stage_stats(reset: bool = False) -> dict:
     """Snapshot (and optionally reset) cumulative per-stage timings, in
     seconds, and the items and bytes each stage handed on."""

@@ -25,6 +25,11 @@ that entry thread only, so the job's own three spans (``job``,
 ``blt_tpu_torch.<span>``: each job's ``job`` range and span give one offset
 from the record's clock to the trace's. Without a profiler a span costs one
 read of the thread's job, and makes no ``record_function`` call.
+
+The multipass loop's spans carry one name on both of its routes (the plain
+twin, ``ops/bpe_torch.py``, and the kernel loop, ``ops/multipass_cuda.py``):
+``MP_CHUNK``, one chunk's passes until none merges, and inside it
+``MP_READ``, the one host read a pass of whether another runs.
 """
 
 from __future__ import annotations
@@ -106,6 +111,9 @@ class Span(NamedTuple):
 RECORD_SPANS = 1 << 17
 # the job's record_function ranges are this prefix and the span's name
 RANGE_PREFIX = "blt_tpu_torch."
+# the multipass loop's spans, on either route
+MP_CHUNK = "mp.chunk"
+MP_READ = "mp.read"
 
 _RECORD: "collections.deque[Span]" = collections.deque(maxlen=RECORD_SPANS)
 _RECORD_LOCK = threading.Lock()

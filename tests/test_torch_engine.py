@@ -11,9 +11,11 @@ exact; inputs come from numpy ``default_rng(seed)``.
 import ctypes
 import io
 import mmap
+import os
 import sys
 import time
 import types
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -244,6 +246,16 @@ STREAMS = {
                 lambda d: b"".join(tokens_to_be_bytes(bpe_encode_oracle(
                     d[i : i + HINT].tobytes(), GENERAL)) for i in range(0, d.shape[0], HINT))),
 }
+
+
+def _twin_stream(engine, chunks):
+    """The general stream on the plain twin, the route of a table cuckoo32
+    cannot place."""
+    with mock.patch.dict(os.environ, {"BLT_MULTIPASS": "xla"}):
+        yield from engine.bpe_stream(chunks, MergeTable.build(GENERAL), HINT)
+
+
+STREAMS["twin"] = (_twin_stream, STREAMS["general"][1])
 # a mapped input of 0 bytes, 1, one batch, one window and 1 byte, and several
 # windows with a short tail
 SIZES = [0, 1, HINT, WINDOW + 1, 3 * WINDOW + 777]
@@ -307,7 +319,7 @@ def test_batches_across_window_edges(fake_host, tmp_path, kind):
     data, path = _mapped_file(tmp_path, size)
     stream, want = STREAMS[kind]
     got = _join(stream(TorchEngine(CPU), InputSource(path).chunks(3001)))
-    if kind == "general":  # per-chunk semantics: the oracle's chunks are 3001 bytes
+    if kind in ("general", "twin"):  # per-chunk semantics: the oracle's chunks are 3001 bytes
         want = lambda d: b"".join(tokens_to_be_bytes(bpe_encode_oracle(
             d[i : i + 3001].tobytes(), GENERAL)) for i in range(0, d.shape[0], 3001))
     assert got == want(data)

@@ -219,21 +219,33 @@ def test_token_passes_equal_plain_versions(cuda):
                 assert torch.equal(out, ref) and int(count) == int(ref_count), (n, run)
 
 
-@pytest.mark.parametrize("mode", ["gap", "sort"])
+@pytest.mark.parametrize("mode", ["gap", "sort", "twin"])
 def test_multipass_engine_on_the_card(cuda, mode, monkeypatch):
-    monkeypatch.setenv("BLT_MP_COMPACT", mode)
+    """Each route of a general table on the card: the K3 and K4 loops, one
+    launch a round, and the plain twin (the route of a table cuckoo32
+    cannot place), which launches no kernel; one loop a chunk, counted
+    under its route."""
+    if mode == "twin":
+        monkeypatch.setenv("BLT_MULTIPASS", "xla")
+    else:
+        monkeypatch.setenv("BLT_MP_COMPACT", mode)
     table = MergeTable.build(GENERAL)
     hint = 64 * 1024
     data = _text(13, 5 * hint + 17, alphabet=b"aaaabbc xyz")
     chunks = [data[i : i + hint] for i in range(0, data.shape[0], hint)]
     multipass_cuda.reset_launches()
+    feeder.stage_stats(reset=True)
     got = _join(TorchEngine(cuda).bpe_stream(iter(chunks), table, hint))
     expected = b"".join(bpe_encode_multipass(c, table).astype(">u2").tobytes() for c in chunks)
     assert got == expected
     rounds = sum(r for r, _ in multipass_cuda.loop_log)
-    kernel = "token_pass_lookback" if mode == "sort" else "token_pass_gap"
-    assert len(multipass_cuda.loop_log) == len(chunks)
-    assert multipass_cuda.launches[kernel] == rounds > 0
+    taken = "mp.twin" if mode == "twin" else "mp.loop"
+    assert len(multipass_cuda.loop_log) == len(chunks) == feeder.stage_stats()[taken]["items"]
+    if mode == "twin":
+        assert sum(multipass_cuda.launches.values()) == 0 and rounds > 0
+    else:
+        kernel = "token_pass_lookback" if mode == "sort" else "token_pass_gap"
+        assert multipass_cuda.launches[kernel] == rounds > 0
 
 
 def test_chain_kernels_equal_plain_versions(cuda):

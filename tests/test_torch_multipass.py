@@ -11,6 +11,8 @@ The CUDA kernels themselves are held against the plain versions by
 tests/test_torch_gpu.py and by ``chip_smoke.py``.
 """
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from blt_tpu.ops.bpe_oracle import bpe_encode_oracle, tokens_to_be_bytes
 from blt_tpu.pipeline.engines import JaxEngine
 from blt_tpu.pipeline.engines import NumpyEngine as JaxNumpyEngine
 from blt_tpu.pipeline.runner import run_tokenizer as jax_run_tokenizer
+from blt_tpu_torch.api import ByteTokenizer
 from blt_tpu_torch.config import CoreConfig
 from blt_tpu_torch.merges import MergeTable
 from blt_tpu_torch.ops import bpe_torch, multipass_cuda
@@ -38,8 +41,12 @@ from blt_tpu_torch.ops.multipass_cuda import (
     token_pass_plain,
 )
 from blt_tpu_torch.ops.tables import cuckoo_planes, planes_from_jax
-from blt_tpu_torch.pipeline.engines import NumpyEngine, TorchEngine
+from blt_tpu_torch.pipeline import feeder, runner
+from blt_tpu_torch.pipeline.engines import NumpyEngine, ShardedTorchEngine, TorchEngine
 from blt_tpu_torch.pipeline.runner import run_tokenizer
+from h100_bench.common import recipes
+from h100_bench.reference import bpe as bench_bpe
+from h100_bench.tables import learned
 
 RPB = 8  # Pallas rows per block: 1024-token blocks
 CAP = 4096
@@ -479,8 +486,13 @@ def test_torch_engine_multipass_stream_equals_jax_numpy_and_oracle(name, mode, m
     data = _bytes(rng, 3 * HINT + 77, b"aaaab" if name == "chain" else b"abcabcxyzaxyz")
     chunks = _chunks(data, HINT)
     multipass_cuda.reset_launches()
+    feeder.stage_stats(reset=True)
     port = _join(TorchEngine(CPU, depth=2).bpe_stream(iter(chunks), MergeTable.build(merges), HINT))
-    assert len(multipass_cuda.loop_log) == (0 if mode == "twin" else len(chunks))
+    # the route taken: one loop a chunk, each counted under its route alone
+    taken, other = ("mp.twin", "mp.loop") if mode == "twin" else ("mp.loop", "mp.twin")
+    stats = feeder.stage_stats()
+    assert stats[taken]["items"] == len(multipass_cuda.loop_log) == len(chunks)
+    assert other not in stats
     jt = JaxMergeTable.build(merges)
     jax_out = _join(JaxEngine().bpe_stream(iter(chunks), jt, HINT))
     host = _join(NumpyEngine(1).bpe_stream(iter(chunks), MergeTable.build(merges), HINT))
@@ -501,8 +513,10 @@ def test_engine_routes_by_table_never_by_failure():
     data = rng.integers(0, 600, 2 * HINT).astype(np.uint8)
     chunks = _chunks(data, HINT)
     multipass_cuda.reset_launches()
+    feeder.stage_stats(reset=True)
     got = _join(TorchEngine(CPU).bpe_stream(iter(chunks), table, HINT))
-    assert multipass_cuda.loop_log == []
+    stats = feeder.stage_stats()  # the twin's loops, one a chunk, and no kernel loop
+    assert stats["mp.twin"]["items"] == len(chunks) and "mp.loop" not in stats
     assert got == b"".join(bpe_encode_multipass(c, table).astype(">u2").tobytes() for c in chunks)
     with pytest.raises(ValueError, match="never cut"):
         _join(TorchEngine(CPU).bpe_stream(iter([data]), MergeTable.build(HIER), HINT))
@@ -536,3 +550,81 @@ def test_run_tokenizer_general_table_equals_jax_runner(tmp_path):
         for c in _chunks(data, 256 * 1024)
     )
     assert outs["port"] == expected
+
+
+# --- the staged twin on a learned table of more than 8192 rules --------------
+
+# chunk sizes cycled over the input: a stream of 1, 4 or 64 KiB chunks, and
+# one of ragged chunks with 1-byte and empty ones among them
+LEARNED_CHUNKS = {"1k": (1024,), "4k": (4096,), "64k": (65536,),
+                  "ragged": (1, 3000, 0, 65536, 1, 777)}
+
+
+@pytest.fixture(scope="module")
+def learned_rules():
+    """The benchmark's learned recipe at a 256 KiB sample: 9000 rules on
+    merged tokens, more than cuckoo32's 8192 slots place."""
+    rules = learned.build({"rules": 9000, "per_round": 500, "sample_bytes": 256 << 10},
+                          11, CPU).rules
+    table = MergeTable.build(rules)
+    assert not table.flat and not CudaTokenEncoder.supports(table)
+    return rules
+
+
+def _cut(data, sizes):
+    out, i = [], 0
+    for size in itertools.cycle(sizes):
+        if i >= data.shape[0]:
+            return out
+        out.append(data[i : i + size])
+        i += size
+
+
+def _reference(rules, chunks) -> bytes:
+    """The benchmark's plain reference, chunk by chunk, as u16-BE."""
+    keys, vals = bench_bpe.rule_tensors(rules, CPU)
+    return b"".join(t.numpy().astype(">u2").tobytes() for c in chunks
+                    for t in bench_bpe.chunked_multipass(c, keys, vals, max(c.shape[0], 1)))
+
+
+@pytest.mark.parametrize("engine", ["torch", "shard"])
+@pytest.mark.parametrize("cut", list(LEARNED_CHUNKS))
+def test_staged_twin_on_a_learned_table_equals_reference_and_oracle(learned_rules, cut, engine):
+    """The twin route on its stages, on one CPU device or three CPU rows
+    (chunk i on row i % 3): each chunk's tokens are the JAX package's
+    oracle's and the benchmark's plain reference's; every non-empty chunk
+    is one loop, counted under ``mp.twin``."""
+    sizes = LEARNED_CHUNKS[cut]
+    data = recipes.text_corpus(29, 150_000)
+    chunks = _cut(data, sizes)
+    eng = TorchEngine(CPU, depth=2) if engine == "torch" else ShardedTorchEngine([CPU] * 3)
+    multipass_cuda.reset_launches()
+    feeder.stage_stats(reset=True)
+    got = _join(eng.bpe_stream(iter(chunks), MergeTable.build(learned_rules), max(sizes)))
+    oracle = b"".join(tokens_to_be_bytes(bpe_encode_oracle(c.tobytes(), learned_rules))
+                      for c in chunks)
+    assert got == oracle == _reference(learned_rules, chunks)
+    live = [c for c in chunks if c.shape[0]]
+    assert len(multipass_cuda.loop_log) == len(live)
+    stats = feeder.stage_stats()
+    assert (stats["mp.twin"]["items"], stats["mp.twin"]["bytes"]) == (len(live), data.shape[0])
+    assert stats["mp.passes"]["items"] == sum(p for p, _ in multipass_cuda.loop_log)
+    assert "mp.loop" not in stats and {"feed", "d2h", "drain"} <= set(stats)
+
+
+@pytest.mark.parametrize("size", [600_000, 1, 0])
+def test_tokenize_file_on_a_learned_table(learned_rules, size, tmp_path, monkeypatch):
+    """``ByteTokenizer.tokenize_file`` down the engine's own route choice,
+    on a CPU ``TorchEngine``: three 256 KiB chunks, a 1-byte file and an
+    empty one, each the header then the JAX package's oracle's and the
+    benchmark's plain reference's tokens."""
+    monkeypatch.setattr(runner, "select_engine", lambda *a, **k: TorchEngine(CPU, threads=2))
+    data = recipes.text_corpus(31, size) if size else np.empty(0, np.uint8)
+    src, out = tmp_path / "in.txt", tmp_path / "out.bin"
+    src.write_bytes(data.tobytes())
+    ByteTokenizer(merges=learned_rules, content_type="Text", chunk_size="256KB",
+                  threads=2).tokenize_file(str(src), str(out))
+    chunks = _chunks(data, 256 << 10)
+    oracle = b"".join(tokens_to_be_bytes(bpe_encode_oracle(c.tobytes(), learned_rules))
+                      for c in chunks)
+    assert out.read_bytes() == b"\xff\x01" + oracle == b"\xff\x01" + _reference(learned_rules, chunks)

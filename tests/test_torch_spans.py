@@ -21,6 +21,7 @@ from blt_tpu_torch import cli
 from blt_tpu_torch.api import ByteTokenizer
 from blt_tpu_torch.config import ContentType, CoreConfig
 from blt_tpu_torch.merges import MergeTable
+from blt_tpu_torch.ops import multipass_cuda
 from blt_tpu_torch.ops.bpe_numpy import bpe_encode_flat
 from blt_tpu_torch.pipeline import engines, feeder, runner
 from blt_tpu_torch.pipeline.engines import TorchEngine
@@ -333,3 +334,43 @@ def test_direct_upload_spans(tmp_path, monkeypatch):
     data = np.frombuffer((tmp_path / "in.txt").read_bytes(), np.uint8)
     want = bpe_encode_flat(data, MergeTable.build(FLAT)).astype(">u2").tobytes()
     assert run["out"]["plain"][2:] == run["out"]["a"][2:] == run["out"]["b"][2:] == want
+
+
+GENERAL = {(97, 98): 256, (256, 99): 257, (257, 32): 258, (97, 97): 259}
+
+
+@pytest.mark.parametrize("route", ["twin", "loop"])
+def test_multipass_spans_and_counters(route, tmp_path, monkeypatch):
+    """A general table's job under a profiler, through ``tokenize_file``:
+    on either route (the plain twin, or the kernel loop's plain version on
+    the CPU) each chunk's loop is one ``mp.chunk`` span on the feed's
+    thread, each pass's host read an ``mp.read`` span inside one, all with
+    the job's id; ``mp.<route>`` counts the chunks and their bytes,
+    ``mp.passes`` the passes of ``loop_log``."""
+    if route == "twin":
+        monkeypatch.setenv("BLT_MULTIPASS", "xla")
+    monkeypatch.setattr(runner, "select_engine", lambda *a, **k: TorchEngine(CPU, threads=2))
+    src = tmp_path / "in.txt"
+    src.write_bytes(np.random.default_rng(3).choice(
+        np.frombuffer(b"abc aab", np.uint8), 600_000).tobytes())
+    multipass_cuda.reset_launches()
+    feeder.stage_stats(reset=True)
+    spans.snapshot(reset=True)
+    with profile(activities=[ProfilerActivity.CPU]):
+        ByteTokenizer(merges=GENERAL, content_type="Text", chunk_size="256KB",
+                      threads=2).tokenize_file(str(src), str(tmp_path / "o.bin"))
+    record = spans.snapshot(reset=True)
+    stats = feeder.stage_stats(reset=True)
+    job = next(s for s in record if s.name == "job")
+    by_id = {s.id: s for s in record}
+    loops = [s for s in record if s.name == spans.MP_CHUNK]
+    reads = [s for s in record if s.name == spans.MP_READ]
+    feed = {s.thread for s in record if s.name == "feed.item"}
+    assert len(loops) == len(multipass_cuda.loop_log) == 3
+    assert {s.thread for s in loops} == feed and job.thread not in feed
+    assert all(by_id[s.parent].name == spans.MP_CHUNK for s in reads)
+    assert {s.job for s in loops + reads} == {job.job}
+    passes = sum(p for p, _ in multipass_cuda.loop_log)
+    assert len(reads) == passes == stats["mp.passes"]["items"] > 3
+    assert (stats[f"mp.{route}"]["items"], stats[f"mp.{route}"]["bytes"]) == (3, 600_000)
+    assert ("mp.loop" if route == "twin" else "mp.twin") not in stats
