@@ -3,7 +3,9 @@
 //
 // The function of the Pallas kernels' lookup (blt_tpu/ops/bpe_pallas.py,
 // _token_pass_kernel and _token_pass_gap_kernel, over the planes that
-// MergeTable.build_cuckoo32 places):
+// MergeTable.build_cuckoo32 places, or the wide planes that
+// ops/tables.py cuckoo32_placement places for a table of more than 8192
+// rules):
 //   p   = d * 65536 + nxt               (wrapped to int32)
 //   h_j = ((p * a_j) >> shift) & (slots - 1)
 //   hit_j = k_j[h_j] == p && v_j[h_j] >= 0, and plane 1 wins.
@@ -30,7 +32,9 @@ struct Planes {
 };
 
 // Rule value of the pair (d, nx), or -1 when the table has no rule for it
-// (rule values are u16, so -1 is never a value). Both planes' words are
+// (rule values are u16, so -1 is never a value). The planes are read through
+// __ldg: the default 8192 slots' 128 KB stay in the read-only cache, a wide
+// table's 1 MiB (65,536 slots) is read through L2. Both planes' words are
 // loaded before either compare: one round trip to the cache a lookup where
 // plane 1 misses, not two, for two more loads where it hits. The rounds
 // that use it are bound by their lookups, not their bytes, and each ran

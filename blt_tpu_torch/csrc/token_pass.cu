@@ -21,7 +21,8 @@
 // Bound on the H100: the bytes, 4 in and 4 out per position (64 MiB each way
 // at 16 Mi tokens, about 40 us at 3.35 TB/s). Each position also costs one or
 // two dependent gathers into the 128 KB of planes (at 8192 slots), which the
-// read-only cache holds. The Pallas rows_per_block sets nothing here: the
+// read-only cache holds; a wide table's 1 MiB of planes (65,536 slots) is
+// read through L2. The Pallas rows_per_block sets nothing here: the
 // tile is fixed at 4096 tokens and no output depends on it.
 //
 // Design: see token_pass.cuh. The main path's K4 is one launch with a

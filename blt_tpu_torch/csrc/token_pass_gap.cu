@@ -29,8 +29,9 @@
 //
 // Bound on the H100: the bytes, 4 in and 4 out per position (64 MiB each way
 // at 16 Mi tokens, about 40 us at 3.35 TB/s). Each alive position costs one
-// or two dependent gathers into the 128 KB of planes, which the read-only
-// cache holds.
+// or two dependent gathers into the planes: 128 KB at the default 8192
+// slots, which the read-only cache holds; a wide table's 1 MiB at 65,536
+// slots (ops/tables.py cuckoo32_placement) is read through L2.
 //
 // Design: the Pallas grid carries the composition state from block to block
 // in SMEM; CUDA blocks run in no order. So, as K2's look-back pass does for

@@ -22,9 +22,13 @@ round's host read an ``mp.read`` span, and ``bpe_torch.log_loop`` counts it
 under ``mp.loop``: its (rounds, compactions) go to ``loop_log``, which the
 plain twin's loops share.
 
-``PlainTokenEncoder`` is the route for general tables that cuckoo32
-cannot place (more than 8192 rules): chunks upload as ``CudaTokenEncoder``'s
-do and run the plain twin, ``bpe_torch.multipass_encode``, on the device.
+``CudaTokenEncoder`` runs every general table that cuckoo32 places: up to
+8192 rules on the JAX package's planes, and up to 52,428 on the port's
+wide planes of up to 65,536 slots (``tables.cuckoo32_placement``).
+``PlainTokenEncoder`` is the route for the tables neither placement takes,
+and for every table under ``BLT_MULTIPASS=xla``: chunks upload as
+``CudaTokenEncoder``'s do and run the plain twin,
+``bpe_torch.multipass_encode``, on the device.
 
 ``CudaTokenEncoder`` keeps ``PallasTokenEncoder``'s methods and return
 shapes, with an explicit ``torch.device``. The loop's XLA glue becomes
@@ -60,7 +64,7 @@ from blt_tpu_torch.ops.bpe_torch import (
     multipass_encode,
     sparse_table_device,
 )
-from blt_tpu_torch.ops.tables import CuckooPlanes, cuckoo_planes
+from blt_tpu_torch.ops.tables import CuckooPlanes, cuckoo32_placement, cuckoo_planes
 from blt_tpu_torch.utils.logging import MP_CHUNK, MP_READ, get_logger, span
 
 log = get_logger("multipass")
@@ -365,7 +369,7 @@ class CudaTokenEncoder(_Uploader):
 
     @staticmethod
     def supports(table: MergeTable) -> bool:
-        return table.build_cuckoo32() is not None
+        return cuckoo32_placement(table) is not None
 
     @property
     def padded_bytes(self) -> int:
@@ -479,7 +483,8 @@ class CudaTokenEncoder(_Uploader):
 
 class PlainTokenEncoder(_Uploader):
     """The plain twin's multipass for general tables that ``CudaTokenEncoder``
-    cannot place (port of the JAX engine's XLA route): the table's sorted
+    cannot place, more than 52,428 rules, or under ``BLT_MULTIPASS=xla``
+    (port of the JAX engine's XLA route): the table's sorted
     pair keys on ``device``, a chunk of up to ``capacity_tokens`` bytes
     (rounded up to 128) uploaded as ``CudaTokenEncoder`` uploads it, and
     ``bpe_torch.multipass_encode`` over it, whose loop counts under

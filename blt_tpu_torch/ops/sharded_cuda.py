@@ -21,7 +21,8 @@ kernel and then ``pack_slots_batch`` as two dispatches; here one launch a
 slab writes the same packed wire over the slab's payload.
 
 ``CudaShardedTokenEncoder`` holds one ``CudaTokenEncoder`` a row, or with
-``plain`` one ``PlainTokenEncoder`` (a table cuckoo32 cannot place). General
+``plain`` one ``PlainTokenEncoder`` (a table neither cuckoo32 placement
+takes, or ``BLT_MULTIPASS=xla``). General
 tables keep the reference's per-chunk semantics, so rows never stitch: a
 batch of up to B chunks is B independent loops. Each loop reads its alive
 count on the host once a round, so the rows of a batch run one after

@@ -10,7 +10,10 @@ size (``wire_table``).
 General tables: keys are any (u16, u16) pair, too many for a dense table,
 so the token passes keep the JAX package's two-plane cuckoo32 layout
 (``MergeTable.build_cuckoo32``): four int32 planes of ``slots`` entries and
-two hash multipliers (``CuckooPlanes``).
+two hash multipliers (``CuckooPlanes``). A table of more than 8192 rules,
+which that placement refuses, is placed on wider planes of up to 65,536
+slots (``cuckoo32_placement``), which the kernels take as they are: the
+slot count is a launch argument.
 """
 
 from __future__ import annotations
@@ -21,6 +24,14 @@ import numpy as np
 import torch
 
 from blt_tpu_torch.merges import NO_RULE, MergeTable
+from blt_tpu_torch.pipeline import feeder
+
+# The wide cuckoo32 placement (``cuckoo32_placement``): planes of 16,384 to
+# 65,536 slots, at most 0.8 rules a slot of one plane.
+WIDE_MIN_SLOTS = 16384
+WIDE_MAX_SLOTS = 65536
+WIDE_MAX_LOAD = 0.8
+_WIDE_MEMO = "_cuckoo32_wide_memo"
 
 
 def wire_table(dense: np.ndarray, device=None) -> torch.Tensor:
@@ -92,8 +103,43 @@ def planes_from_jax(k1, v1, k2, v2, a1, a2, device=None) -> CuckooPlanes:
                         shift=32 - (slots.bit_length() - 1))
 
 
-def cuckoo_planes(table: MergeTable, device=None):
-    """``table.build_cuckoo32()`` on ``device``, or None when the table
-    cannot be placed (more rules than slots, or every seed failed)."""
+def wide_cuckoo_slots(n_rules: int) -> int | None:
+    """The wide placement's slot count: the smallest power of two from
+    ``WIDE_MIN_SLOTS`` that holds ``n_rules`` at ``WIDE_MAX_LOAD`` a slot or
+    fewer (a two-plane load of at most 0.4), or None past ``WIDE_MAX_SLOTS``
+    (more than 52,428 rules)."""
+    slots = WIDE_MIN_SLOTS
+    while n_rules > int(slots * WIDE_MAX_LOAD):
+        if slots == WIDE_MAX_SLOTS:
+            return None
+        slots *= 2
+    return slots
+
+
+def cuckoo32_placement(table: MergeTable):
+    """The planes the token passes run on, as numpy arrays and ints: the
+    default placement (``table.build_cuckoo32()``, up to 8192 slots, the
+    JAX package's), else the wide one (``build_cuckoo32`` at
+    ``wide_cuckoo_slots``: the same hash, wrap-around and seed sequence,
+    planes the JAX package never makes), else None (the table takes the
+    plain twin). The wide placement is asked for only where the default
+    fails, is memoized on the table as the default build is, and counts
+    each placement made once under ``cuckoo.wide`` (bytes: its four
+    planes) in ``feeder.stage_stats``."""
     built = table.build_cuckoo32()
+    if built is not None:
+        return built
+    if _WIDE_MEMO not in table.__dict__:
+        slots = wide_cuckoo_slots(len(table))
+        wide = None if slots is None else table.build_cuckoo32(slots=slots)
+        if wide is not None:
+            feeder.count("cuckoo.wide", 1, 4 * 4 * slots)
+        table.__dict__[_WIDE_MEMO] = wide
+    return table.__dict__[_WIDE_MEMO]
+
+
+def cuckoo_planes(table: MergeTable, device=None):
+    """``cuckoo32_placement(table)`` on ``device``, or None when neither
+    placement takes the table."""
+    built = cuckoo32_placement(table)
     return None if built is None else planes_from_jax(*built, device=device)

@@ -334,12 +334,14 @@ class TorchEngine:
     ) -> Iterator[np.ndarray]:
         """General (non-flat) tables, per-chunk semantics (port of the JAX
         engine's ``_bpe_multipass_stream``): a device-resident loop a chunk.
-        The kernel loop when cuckoo32 places the table: K3 rounds with a
-        compaction every third round and the gap wire (the u16-BE image
-        plus an alive-flag plane) down, the host dropping the tombstones;
-        ``BLT_MP_COMPACT=sort`` runs the K4 loop. For tables it cannot
-        place, and under ``BLT_MULTIPASS=xla`` (the JAX package's name for
-        its plain route), the plain twin (``multipass_cuda.PlainTokenEncoder``).
+        The kernel loop when cuckoo32 places the table (up to 8192 rules
+        on the default planes, up to 52,428 on the wide planes of up to
+        65,536 slots): K3 rounds with a compaction every third round and
+        the gap wire (the u16-BE image plus an alive-flag plane) down, the
+        host dropping the tombstones; ``BLT_MP_COMPACT=sort`` runs the K4
+        loop. For tables neither placement takes, and under
+        ``BLT_MULTIPASS=xla`` (the JAX package's name for its plain route),
+        the plain twin (``multipass_cuda.PlainTokenEncoder``).
         The table chooses, never a failure. Either route uploads a whole
         chunk on the feed stage and runs its loop there; the D2H stage
         downloads its wire (a compacted prefix: only its tokens), the drain

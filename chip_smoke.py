@@ -37,7 +37,12 @@ imports nothing of JAX or of the JAX package. One JSON line per phase:
    (``exp_chain.widen_call``), held equal to it; K3, and K4 in both
    designs, chained 8 times through their own output at 16 Mi tokens with
    leg 4's table, replayed from a CUDA graph (``exp_gap.gap_row``,
-   ``exp_lookback.k4_rows``);
+   ``exp_lookback.k4_rows``); K3 and K4 also on tables of 9000 and 50,000
+   rules learned as leg 4's is, which the wide placement
+   (``tables.cuckoo32_placement``) puts at 16,384 and 65,536 slots: two
+   rounds at 16 Mi tokens and tombstone runs across tile edges, exactly,
+   then each table's K3 and K4 round timed at 16 Mi tokens beside its
+   bound, and K3 chained 8 times by graph replay at 65,536 slots;
 4. main path: after one small run as set-up (it builds the native host
    library in a fresh checkout), ``blt_tpu_torch.cli.main(... --engine
    torch --type text)`` on a 1 GiB Zipf-text corpus in three legs (basic, BPE with the 500 most
@@ -802,6 +807,22 @@ def phase_multipass_kernels(corpus, rules, rng):
             g[start : start + run] = -1
         check(g, g.shape[0], table8k, f"tombstone runs of {run}", gap=g)
 
+    # the wide placement: tables learned as leg 4's is, past the default
+    # 8192 slots, at the main path's shape, two rounds, then tombstone runs
+    wide = {}
+    for n_rounds, per_round, slots in ((18, 500, 16384), (25, 2000, 65536)):
+        planes = planes_of(exp_gap.hierarchical_rules(corpus, n_rounds, per_round))
+        if planes.slots != slots:
+            fail(f"the {n_rounds * per_round}-rule table placed at {planes.slots} "
+                 f"slots, not {slots}")
+        w1 = check(toks, cap, planes, f"{slots} slots")
+        check(w1, cap, planes, f"{slots} slots, round 2", gap=w1)
+        g = w1[: 64 * 1024].copy()
+        for edge in range(4096, g.shape[0], 4096):
+            g[edge - 2 : edge + 1] = -1
+        check(g, g.shape[0], planes, f"{slots} slots, tombstone runs of 3", gap=g)
+        wide[slots] = planes
+
     # times at a 16 Mi-token capacity: the first round of leg 4's table
     t = on_dev(toks)
     g_out, g_count = mc.token_pass_gap(t, table8k)
@@ -840,6 +861,22 @@ def phase_multipass_kernels(corpus, rules, rng):
     k4_chained = exp_lookback.k4_rows(t, cap, table8k)
     if not all(r["exact"] for r in k4_chained):
         fail("K4 chained 8 times differs from its plain chain")
+    # the wide tables' first rounds at 16 Mi tokens, K3 chained at 65,536
+    wide_ms = {}
+    for slots, planes in wide.items():
+        g_out, g_count = mc.token_pass_gap(t, planes)
+        k_out = mc.token_pass(t, cap, planes)
+        p4 = (planes.k1, planes.v1, planes.k2, planes.v2)
+        wide_ms[slots] = {
+            "token_pass_gap": {"kernel": cuda_ms(lambda: mc.token_pass_gap(t, planes)),
+                               "bound": bound_ms(t, *p4, g_out, g_count)},
+            "token_pass_lookback": {
+                "kernel": cuda_ms(lambda: mc.token_pass(t, cap, planes, mc.K4_FLAGS)),
+                "bound": bound_ms(t, *p4, k_out)},
+        }
+    wide_chained = exp_gap.gap_row(t, wide[65536])
+    if not wide_chained["exact"]:
+        fail("K3 chained 8 times at 65,536 slots differs from its plain chain")
     emit({
         "phase": "multipass_kernels", "cases": cases, "tolerance": 0,
         "max_abs_err": err, "slots": table8k.slots,
@@ -856,6 +893,12 @@ def phase_multipass_kernels(corpus, rules, rng):
                         "eager_ms": r["eager"]["ms_per_launch"]["median"],
                         "bound_ms": r["bound_ms"]} for r in k4_chained},
         "host_read_ms_per_round": host_read_ms,
+        "wide_ms_16mi_tokens": wide_ms,
+        "token_pass_gap_chained_8_at_65536_slots": {
+            "graph_ms": wide_chained["graph"]["ms_per_launch"]["median"],
+            "graph_iqr_ms": wide_chained["graph"]["ms_per_launch"]["iqr"],
+            "eager_ms": wide_chained["eager"]["ms_per_launch"]["median"],
+            "bound_ms": wide_chained["bound_ms"]},
     })
     return err, ms, bounds, token_cases
 

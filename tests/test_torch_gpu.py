@@ -20,7 +20,7 @@ import torch
 from blt_tpu_torch import cli
 from blt_tpu_torch.io.sources import InputSource
 from blt_tpu_torch.merges import MergeTable
-from blt_tpu_torch.ops import _cuda_build, bpe_cuda, multipass_cuda, tools_cuda
+from blt_tpu_torch.ops import _cuda_build, bpe_cuda, bpe_torch, multipass_cuda, tools_cuda
 from blt_tpu_torch.ops.bpe_numpy import bpe_encode_flat, bpe_encode_multipass
 from blt_tpu_torch.ops.sharded_cuda import CudaShardedFlatEncoder, CudaShardedTokenEncoder
 from blt_tpu_torch.ops.tables import cuckoo_planes, wire_table
@@ -48,6 +48,8 @@ from blt_tpu_torch.tools import (
     exp_scan,
     exp_sweep,
 )
+from h100_bench.common import recipes
+from h100_bench.tables import learned
 
 pytestmark = pytest.mark.gpu
 
@@ -246,6 +248,61 @@ def test_multipass_engine_on_the_card(cuda, mode, monkeypatch):
     else:
         kernel = "token_pass_lookback" if mode == "sort" else "token_pass_gap"
         assert multipass_cuda.launches[kernel] == rounds > 0
+
+
+@pytest.fixture(scope="module")
+def wide_table():
+    """The benchmark's ``general50k`` table (``h100_bench/configs``): 50,000
+    learned rules, placed by the wide cuckoo32 placement at 65,536 slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = {"rules": 50_000, "per_round": 500, "sample_bytes": 4 << 20}
+    return MergeTable.build(learned.build(spec, 2**31 + 5, torch.device("cuda", 0)).rules)
+
+
+def test_gap_round_on_the_wide_table_equals_plain_version(cuda, wide_table):
+    """K3 over the 65,536-slot planes at 16 Mi positions of the benchmark's
+    text, in three chained rounds (tombstones from the second on)."""
+    planes = cuckoo_planes(wide_table, cuda)
+    assert planes.slots == 65536
+    toks = torch.from_numpy(recipes.text_corpus(41, 16 << 20).astype(np.int32)).to(cuda)
+    for _ in range(3):
+        out, count = multipass_cuda.token_pass_gap(toks, planes)
+        ref, ref_count = multipass_cuda.token_pass_gap_plain(toks, planes)
+        assert torch.equal(out, ref) and int(count) == int(ref_count)
+        toks = out
+    assert 0 < int(count) < 16 << 20
+
+
+@pytest.mark.parametrize("mode", ["gap", "sort"])
+def test_wide_table_engine_on_the_card(cuda, wide_table, mode, monkeypatch):
+    """A ``TorchEngine`` on the card over 16 MiB chunks of the benchmark's
+    text with the 50,000-rule table: the K3 loop (``BLT_MP_COMPACT=gap``)
+    or the K4 loop (``sort``) on the wide planes, placed once, one launch
+    of the loop's kernel a round, equal chunk by chunk to the plain twin
+    (``bpe_torch.multipass_encode``)."""
+    monkeypatch.setenv("BLT_MP_COMPACT", mode)
+    hint = 16 << 20
+    data = recipes.text_corpus(43, 2 * hint + 4097)
+    chunks = [data[i : i + hint] for i in range(0, data.shape[0], hint)]
+    multipass_cuda.reset_launches()
+    feeder.stage_stats(reset=True)
+    table = MergeTable.build(wide_table.merges)
+    got = _join(TorchEngine(cuda).bpe_stream(iter(chunks), table, hint))
+    stats = feeder.stage_stats(reset=True)
+    assert stats["mp.loop"]["items"] == len(chunks) and "mp.twin" not in stats
+    assert (stats["cuckoo.wide"]["items"], stats["cuckoo.wide"]["bytes"]) == (1, 1 << 20)
+    kernel, other = "token_pass_gap", "token_pass_lookback"
+    if mode == "sort":
+        kernel, other = other, kernel
+    rounds = sum(r for r, _ in multipass_cuda.loop_log)
+    assert multipass_cuda.launches[kernel] == rounds > 0 and multipass_cuda.launches[other] == 0
+    keys, vals = bpe_torch.sparse_table_device(table, cuda)
+    expected = []
+    for c in chunks:
+        toks, m = bpe_torch.multipass_encode(torch.from_numpy(c).to(cuda), c.shape[0], keys, vals)
+        expected.append(toks[: int(m)].cpu().numpy().astype(">u2").tobytes())
+    assert got == b"".join(expected)
 
 
 def test_chain_kernels_equal_plain_versions(cuda):

@@ -31,7 +31,7 @@ from blt_tpu.pipeline.runner import run_tokenizer as jax_run_tokenizer
 from blt_tpu_torch.api import ByteTokenizer
 from blt_tpu_torch.config import CoreConfig
 from blt_tpu_torch.merges import MergeTable
-from blt_tpu_torch.ops import bpe_torch, multipass_cuda
+from blt_tpu_torch.ops import bpe_torch, multipass_cuda, tables
 from blt_tpu_torch.ops.multipass_cuda import (
     CudaTokenEncoder,
     expand_gap_wire_host,
@@ -40,7 +40,7 @@ from blt_tpu_torch.ops.multipass_cuda import (
     token_pass_gap_plain,
     token_pass_plain,
 )
-from blt_tpu_torch.ops.tables import cuckoo_planes, planes_from_jax
+from blt_tpu_torch.ops.tables import cuckoo32_placement, cuckoo_planes, planes_from_jax
 from blt_tpu_torch.pipeline import feeder, runner
 from blt_tpu_torch.pipeline.engines import NumpyEngine, ShardedTorchEngine, TorchEngine
 from blt_tpu_torch.pipeline.runner import run_tokenizer
@@ -501,27 +501,101 @@ def test_torch_engine_multipass_stream_equals_jax_numpy_and_oracle(name, mode, m
     assert port == jax_out == host == jax_host == oracle
 
 
-def test_engine_routes_by_table_never_by_failure():
-    """More rules than 8192 slots cannot be placed: the twin route, chosen
-    by the table. A chunk longer than the capacity is never cut."""
-    merges = _big_table_merges(seed=4, n=9000)
-    table = MergeTable.build(merges)
-    assert not CudaTokenEncoder.supports(table)
+def test_engine_routes_by_table_never_by_failure(monkeypatch):
+    """The table chooses the route. 9000 rules, more than the default 8192
+    slots place, take the kernel loop on the wide placement's 16,384
+    slots; 52,429 rules, more than 65,536 slots hold at 0.8 a slot, take
+    the twin, refused at once: the only placement tried is the default
+    one, which refuses more rules than its 8192 slots before any seed. A
+    chunk longer than the capacity is never cut."""
+    wide = MergeTable.build(_big_table_merges(seed=4, n=9000))
+    assert CudaTokenEncoder.supports(wide)
+    assert cuckoo_planes(wide).slots == 16384
     assert CudaTokenEncoder.supports(MergeTable.build(TABLES["big"]))
     assert cuckoo_planes(MergeTable.build(TABLES["big"])).slots == 8192
+    table = MergeTable.build(_big_table_merges(seed=4, n=52_429))
+    tried = []
+    impl = MergeTable._build_cuckoo32_impl
+
+    def spy(self, slots=None, max_seed_tries=64):
+        tried.append(slots)
+        return impl(self, slots, max_seed_tries)
+
+    monkeypatch.setattr(MergeTable, "_build_cuckoo32_impl", spy)
+    assert not CudaTokenEncoder.supports(table)
+    assert tables.wide_cuckoo_slots(len(table)) is None and tried == [None]
+    monkeypatch.undo()
     rng = np.random.default_rng(19)
     data = rng.integers(0, 600, 2 * HINT).astype(np.uint8)
     chunks = _chunks(data, HINT)
-    multipass_cuda.reset_launches()
-    feeder.stage_stats(reset=True)
-    got = _join(TorchEngine(CPU).bpe_stream(iter(chunks), table, HINT))
-    stats = feeder.stage_stats()  # the twin's loops, one a chunk, and no kernel loop
-    assert stats["mp.twin"]["items"] == len(chunks) and "mp.loop" not in stats
-    assert got == b"".join(bpe_encode_multipass(c, table).astype(">u2").tobytes() for c in chunks)
+    for t, taken, other in ((wide, "mp.loop", "mp.twin"), (table, "mp.twin", "mp.loop")):
+        multipass_cuda.reset_launches()
+        feeder.stage_stats(reset=True)
+        got = _join(TorchEngine(CPU).bpe_stream(iter(chunks), t, HINT))
+        stats = feeder.stage_stats()  # one loop a chunk, on the table's route alone
+        assert stats[taken]["items"] == len(chunks) and other not in stats
+        assert got == b"".join(bpe_encode_multipass(c, t).astype(">u2").tobytes()
+                               for c in chunks)
     with pytest.raises(ValueError, match="never cut"):
         _join(TorchEngine(CPU).bpe_stream(iter([data]), MergeTable.build(HIER), HINT))
     with pytest.raises(ValueError, match="placement failed"):
         CudaTokenEncoder(table, CPU)
+
+
+# --- the wide cuckoo32 placement ---------------------------------------------
+
+
+@pytest.mark.parametrize("n,slots", [(8192, 8192), (8193, 16384), (9000, 16384),
+                                     (50_000, 65536), (52_428, 65536), (52_429, None)])
+def test_placement_slots_by_rule_count(n, slots):
+    """Up to 8192 rules the default placement, the JAX package's; past it
+    the wide one at the smallest power of two from 16,384 that holds the
+    rules at 0.8 a slot; past 65,536 slots none, refused before any seed."""
+    table = MergeTable.build(_big_table_merges(seed=5, n=n))
+    placed = cuckoo_planes(table, CPU)
+    assert (None if placed is None else placed.slots) == slots
+    assert (table.build_cuckoo32() is not None) == (n <= 8192)
+    assert tables.wide_cuckoo_slots(n) == (None if n > 52_428 else max(slots, 16384))
+    assert CudaTokenEncoder.supports(table) == (slots is not None)
+
+
+@pytest.mark.parametrize("n", [9000, 50_000])
+def test_wide_planes_hold_every_rule_and_no_other_pair(n):
+    """``_lookup`` over the wide planes finds every rule's value, and no
+    pair the table lacks (tokens 0..599 and 0xFFFF, which wraps the key)."""
+    merges = _big_table_merges(seed=6, n=n)
+    planes = cuckoo_planes(MergeTable.build(merges), CPU)
+    assert planes.slots > 8192
+    keys = np.array(list(merges), np.int32)
+    hit, val = multipass_cuda._lookup(torch.from_numpy(keys[:, 0]),
+                                      torch.from_numpy(keys[:, 1]), planes)
+    assert bool(hit.all()) and val.tolist() == list(merges.values())
+    rng = np.random.default_rng(7)
+    pairs = np.concatenate([rng.integers(0, 600, (20_000, 2)),
+                            [[0xFFFF, 97], [97, 0xFFFF], [0xFFFF, 0xFFFF]]]).astype(np.int32)
+    absent = np.array([(int(a), int(b)) not in merges for a, b in pairs])
+    hit, _ = multipass_cuda._lookup(torch.from_numpy(pairs[absent, 0]),
+                                    torch.from_numpy(pairs[absent, 1]), planes)
+    assert absent.sum() > 10_000 and not bool(hit.any())
+
+
+def test_wide_placement_is_memoized_and_counted_once():
+    """The wide build is cached on the table, and ``cuckoo.wide`` counts one
+    placement (its four planes' bytes) over a stream's ``supports`` and
+    each of its three rows' ``__init__``; the default build stays None."""
+    table = MergeTable.build(_big_table_merges(seed=8, n=9000))
+    feeder.stage_stats(reset=True)
+    eng = ShardedTorchEngine([CPU] * 3)
+    data = np.random.default_rng(9).integers(0, 600, 3 * HINT).astype(np.uint8)
+    got = _join(eng.bpe_stream(iter(_chunks(data, HINT)), table, HINT))
+    assert got == b"".join(bpe_encode_multipass(c, table).astype(">u2").tobytes()
+                           for c in _chunks(data, HINT))
+    built = cuckoo32_placement(table)
+    assert cuckoo32_placement(table) is built and cuckoo_planes(table, CPU).slots == 16384
+    assert built[0].shape == (16384,) and table.build_cuckoo32() is None
+    stats = feeder.stage_stats(reset=True)
+    assert (stats["cuckoo.wide"]["items"], stats["cuckoo.wide"]["bytes"]) == (1, 4 * 4 * 16384)
+    assert stats["mp.loop"]["items"] == 3
 
 
 def test_run_tokenizer_general_table_equals_jax_runner(tmp_path):
@@ -552,7 +626,7 @@ def test_run_tokenizer_general_table_equals_jax_runner(tmp_path):
     assert outs["port"] == expected
 
 
-# --- the staged twin on a learned table of more than 8192 rules --------------
+# --- a learned table of more than 8192 rules: the kernel loop and the twin --
 
 # chunk sizes cycled over the input: a stream of 1, 4 or 64 KiB chunks, and
 # one of ragged chunks with 1-byte and empty ones among them
@@ -563,11 +637,11 @@ LEARNED_CHUNKS = {"1k": (1024,), "4k": (4096,), "64k": (65536,),
 @pytest.fixture(scope="module")
 def learned_rules():
     """The benchmark's learned recipe at a 256 KiB sample: 9000 rules on
-    merged tokens, more than cuckoo32's 8192 slots place."""
+    merged tokens, more than cuckoo32's default 8192 slots place."""
     rules = learned.build({"rules": 9000, "per_round": 500, "sample_bytes": 256 << 10},
                           11, CPU).rules
     table = MergeTable.build(rules)
-    assert not table.flat and not CudaTokenEncoder.supports(table)
+    assert not table.flat and table.build_cuckoo32() is None
     return rules
 
 
@@ -587,29 +661,71 @@ def _reference(rules, chunks) -> bytes:
                     for t in bench_bpe.chunked_multipass(c, keys, vals, max(c.shape[0], 1)))
 
 
-@pytest.mark.parametrize("engine", ["torch", "shard"])
-@pytest.mark.parametrize("cut", list(LEARNED_CHUNKS))
-def test_staged_twin_on_a_learned_table_equals_reference_and_oracle(learned_rules, cut, engine):
-    """The twin route on its stages, on one CPU device or three CPU rows
+def _learned_stream(rules, cut, engine, route):
+    """The learned table's stream on one CPU device or three CPU rows
     (chunk i on row i % 3): each chunk's tokens are the JAX package's
     oracle's and the benchmark's plain reference's; every non-empty chunk
-    is one loop, counted under ``mp.twin``."""
+    is one loop, counted under ``mp.<route>`` alone."""
     sizes = LEARNED_CHUNKS[cut]
     data = recipes.text_corpus(29, 150_000)
     chunks = _cut(data, sizes)
     eng = TorchEngine(CPU, depth=2) if engine == "torch" else ShardedTorchEngine([CPU] * 3)
     multipass_cuda.reset_launches()
     feeder.stage_stats(reset=True)
-    got = _join(eng.bpe_stream(iter(chunks), MergeTable.build(learned_rules), max(sizes)))
-    oracle = b"".join(tokens_to_be_bytes(bpe_encode_oracle(c.tobytes(), learned_rules))
+    got = _join(eng.bpe_stream(iter(chunks), MergeTable.build(rules), max(sizes)))
+    oracle = b"".join(tokens_to_be_bytes(bpe_encode_oracle(c.tobytes(), rules))
                       for c in chunks)
-    assert got == oracle == _reference(learned_rules, chunks)
+    assert got == oracle == _reference(rules, chunks)
     live = [c for c in chunks if c.shape[0]]
     assert len(multipass_cuda.loop_log) == len(live)
     stats = feeder.stage_stats()
-    assert (stats["mp.twin"]["items"], stats["mp.twin"]["bytes"]) == (len(live), data.shape[0])
+    taken = f"mp.{route}"
+    assert (stats[taken]["items"], stats[taken]["bytes"]) == (len(live), data.shape[0])
     assert stats["mp.passes"]["items"] == sum(p for p, _ in multipass_cuda.loop_log)
-    assert "mp.loop" not in stats and {"feed", "d2h", "drain"} <= set(stats)
+    assert {"feed", "d2h", "drain"} <= set(stats)
+    return stats
+
+
+@pytest.mark.parametrize("engine", ["torch", "shard"])
+@pytest.mark.parametrize("cut", list(LEARNED_CHUNKS))
+def test_staged_twin_on_a_learned_table_equals_reference_and_oracle(
+        learned_rules, cut, engine, monkeypatch):
+    """The twin route on its stages, forced by ``BLT_MULTIPASS=xla``: no
+    kernel loop and no wide placement."""
+    monkeypatch.setenv("BLT_MULTIPASS", "xla")
+    stats = _learned_stream(learned_rules, cut, engine, "twin")
+    assert "mp.loop" not in stats and "cuckoo.wide" not in stats
+
+
+@pytest.mark.parametrize("engine", ["torch", "shard"])
+@pytest.mark.parametrize("cut", list(LEARNED_CHUNKS))
+@pytest.mark.parametrize("compact", ["gap", "sort"])
+def test_kernel_loop_on_a_learned_table_equals_reference_and_oracle(
+        learned_rules, cut, engine, compact, monkeypatch):
+    """The engine's own choice for the table, under each
+    ``BLT_MP_COMPACT``: the K3 loop (``gap``) or the K4 loop (``sort``) on
+    the wide placement's 16,384 slots, placed once for the whole stream,
+    whatever its rows. On CPU rows each round is the wrapper's plain
+    version over the wide planes; every round the loops count is one call
+    of that loop's round, ``token_pass_gap`` or ``token_pass``, and none
+    of the other's."""
+    monkeypatch.setenv("BLT_MP_COMPACT", compact)
+    calls = {"token_pass_gap": 0, "token_pass": 0}
+    for name in calls:
+        def spy(*args, _round=getattr(multipass_cuda, name), _name=name):
+            calls[_name] += 1
+            return _round(*args)
+        monkeypatch.setattr(multipass_cuda, name, spy)
+    stats = _learned_stream(learned_rules, cut, engine, "loop")
+    assert "mp.twin" not in stats
+    assert (stats["cuckoo.wide"]["items"], stats["cuckoo.wide"]["bytes"]) == (1, 16 * 16384)
+    rounds = sum(r for r, _ in multipass_cuda.loop_log)
+    taken, other = "token_pass_gap", "token_pass"
+    if compact == "sort":
+        taken, other = other, taken
+    assert calls[taken] == rounds > 0 and calls[other] == 0
+    if compact == "sort":  # K4's loop compacts after every round
+        assert all(r == c for r, c in multipass_cuda.loop_log)
 
 
 @pytest.mark.parametrize("size", [600_000, 1, 0])
