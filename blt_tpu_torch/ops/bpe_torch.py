@@ -19,9 +19,10 @@ loops of ``multipass_cuda`` count theirs.
 
 This module serves two purposes: it is the torch engine's twin route for
 tables that the kernel encoders reject (flat tables with rule values below
-256; general tables that cuckoo32 cannot place, or ``BLT_MULTIPASS=xla``),
+256; general tables that cuckoo32 cannot place, more than 52,428 rules),
 and it is a second CPU reference, independent of the kernels' plain
-versions.
+versions. ``_compact`` is also the kernel loops' compaction, and
+``tokens_to_be_bytes_device`` the general route's wire.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""General-table (multipass) kernels and their encoder (port of the Pallas
+"""General-table (multipass) kernels and their encoders (port of the Pallas
 token passes and ``PallasTokenEncoder`` in ``blt_tpu/ops/bpe_pallas.py``).
 
 Two wrappers launch hand-written CUDA kernels (``blt_tpu_torch/csrc``):
@@ -22,22 +22,25 @@ round's host read an ``mp.read`` span, and ``bpe_torch.log_loop`` counts it
 under ``mp.loop``: its (rounds, compactions) go to ``loop_log``, which the
 plain twin's loops share.
 
-``CudaTokenEncoder`` runs every general table that cuckoo32 places: up to
-8192 rules on the JAX package's planes, and up to 52,428 on the port's
-wide planes of up to 65,536 slots (``tables.cuckoo32_placement``).
-``PlainTokenEncoder`` is the route for the tables neither placement takes,
-and for every table under ``BLT_MULTIPASS=xla``: chunks upload as
-``CudaTokenEncoder``'s do and run the plain twin,
-``bpe_torch.multipass_encode``, on the device.
+``token_encoder`` chooses a general table's route, from the table alone:
+``CudaTokenEncoder`` for every table that cuckoo32 places (up to 8192
+rules on the JAX package's planes, up to 52,428 on the port's wide planes
+of up to 65,536 slots: ``tables.cuckoo32_placement``), else
+``PlainTokenEncoder``, whose chunks upload as ``CudaTokenEncoder``'s do
+and run the plain twin, ``bpe_torch.multipass_encode``, on the device.
+Either one's ``encode_resident_dispatch`` returns a chunk's tokens as a
+compacted prefix on the device and their count.
 
 ``CudaTokenEncoder`` keeps ``PallasTokenEncoder``'s methods and return
 shapes, with an explicit ``torch.device``. The loop's XLA glue becomes
 torch ops: ``lax.while_loop`` a Python loop that reads the round's alive
 count on the host (4 bytes, one sync per round); the stable compaction
-(``sort_key_val``) the cumsum-and-scatter of ``bpe_torch._compact``; the
-wire's byteswap and flag plane plain tensor ops. The Pallas buffers' 8
-halo rows (sort loop) and prefetched halos (gap loop) are BlockSpec
-artefacts and are dropped: a buffer is ``capacity`` tokens.
+(``sort_key_val``) the cumsum-and-scatter of ``bpe_torch._compact``. The
+Pallas buffers' 8 halo rows (sort loop) and prefetched halos (gap loop)
+are BlockSpec artefacts and are dropped: a buffer is ``capacity`` tokens.
+The JAX package's gap wire (the u16-BE image of every position and an
+alive-flag plane, expanded on the host) is not the port's: only the
+device-rate tool ``tools/exp_gap.py`` builds it, to time that design.
 """
 
 from __future__ import annotations
@@ -318,33 +321,6 @@ def token_pass_gap(
     return out, scratch[-1]
 
 
-# --- the wire ----------------------------------------------------------------
-
-
-def _gap_tokens_to_wire(toks: torch.Tensor, capacity: int) -> torch.Tensor:
-    """Tombstoned int32 tokens -> one uint8 wire: the u16-BE image of every
-    position (2 * capacity bytes) followed by the LSB-first alive-flag
-    plane (capacity // 8 bytes). Host expansion: ``expand_gap_wire_host``."""
-    t = toks.reshape(-1)[:capacity]
-    data8 = torch.stack([(t >> 8) & 0xFF, t & 0xFF], dim=1).reshape(-1)
-    flag = (t >= 0).to(torch.int32).reshape(-1, 8)
-    weights = 1 << torch.arange(8, dtype=torch.int32, device=t.device)
-    fbytes = (flag * weights).sum(1)
-    return torch.cat([data8.to(torch.uint8), fbytes.to(torch.uint8)])
-
-
-def expand_gap_wire_host(wire: np.ndarray, capacity: int) -> np.ndarray:
-    """Host expansion of the gap wire (copy of the JAX package's): drops
-    the tombstoned entries. Returns byteswapped u16 tokens (LE image ==
-    u16-BE wire stream)."""
-    data = wire[: 2 * capacity]
-    flags = wire[2 * capacity :]
-    mask = np.unpackbits(
-        np.ascontiguousarray(flags), bitorder="little"
-    )[:capacity].astype(bool)
-    return data.view(np.uint16)[mask]
-
-
 # --- the encoder --------------------------------------------------------------
 
 
@@ -414,22 +390,27 @@ class CudaTokenEncoder(_Uploader):
 
     def _gap_loop(self, data):
         """K3 rounds until one merges nothing, compacting every third round
-        when another round will run (``_multipass_gap_resident_call``)."""
+        when another round will run (``_multipass_gap_resident_call``).
+        Returns (int32[capacity] with -1 tombstones, the alive count as an
+        int32 tensor, whether a round since the last compaction merged:
+        whether tombstones lie between the alive tokens)."""
         with span(log, MP_CHUNK):
             buf, n, _ = self._buffer(data, -1)
             m, prev, rounds, compactions = n, n + 1, 0, 0
-            count = None
+            count, gapped = None, False
             while count is None or (m < prev and m > 1):
                 buf, count = token_pass_gap(buf, self.planes)
                 with span(log, MP_READ):
                     m2 = int(count)  # the round's one host read
                 rounds += 1
+                gapped = gapped or m2 < m
                 if rounds % GAP_COMPACT_EVERY == 0 and m2 < m and m2 > 1:
                     buf, _ = _compact(buf, buf >= 0, fill=-1)
                     compactions += 1
+                    gapped = False
                 prev, m = m, m2
         log_loop("loop", n, rounds, compactions)
-        return buf, count
+        return buf, count, gapped
 
     def _sort_loop(self, data):
         """K4 rounds with a compaction after each (``_multipass_resident_call``)."""
@@ -448,47 +429,31 @@ class CudaTokenEncoder(_Uploader):
         return buf, count
 
     def encode_resident_dispatch(self, data):
-        """The device-resident multipass of one chunk. Returns (tokens
-        int32[capacity] on the device, the count as an int32 tensor).
-
-        With the default gap loop (``BLT_MP_COMPACT=gap``) the tokens hold
-        -1 tombstones between the count's alive entries; under
-        ``BLT_MP_COMPACT=sort`` they are a compacted prefix.
-        """
+        """The device-resident multipass of one chunk. Returns (its tokens
+        as a compacted int32[capacity] prefix on the device, the count as
+        an int32 tensor): the K3 gap loop, compacted once more when its
+        last rounds left tombstones, or under ``BLT_MP_COMPACT=sort`` the
+        K4 loop, which compacts after every round."""
         if mp_compact_mode() == "sort":
             return self._sort_loop(data)
-        return self._gap_loop(data)
-
-    def encode_resident_wire_dispatch(self, data):
-        """The gap loop plus its wire. Returns (wire uint8[2 * capacity +
-        capacity // 8] on the device, the count, capacity); expand on the
-        host with ``expand_gap_wire_host``."""
-        toks, m = self._gap_loop(data)
-        capacity = toks.shape[0]
-        return _gap_tokens_to_wire(toks, capacity), m, capacity
+        toks, count, gapped = self._gap_loop(data)
+        return _compact(toks, toks >= 0, fill=-1) if gapped else (toks, count)
 
     def encode_resident(self, data: np.ndarray) -> np.ndarray:
         """Full multipass encode, the repeat-until-done loop on the device."""
         if data.shape[0] <= 1:
             return data.astype(np.int32)
-        toks_d, m_d = self.encode_resident_dispatch(data)
-        toks = toks_d.cpu().numpy()
-        if mp_compact_mode() == "sort":
-            return toks[: int(m_d)]
-        out = toks[toks >= 0]
-        if out.shape[0] != int(m_d):
-            raise RuntimeError(f"{out.shape[0]} alive tokens, count says {int(m_d)}")
-        return out
+        toks, m = self.encode_resident_dispatch(data)
+        return toks[: int(m)].cpu().numpy()
 
 
 class PlainTokenEncoder(_Uploader):
-    """The plain twin's multipass for general tables that ``CudaTokenEncoder``
-    cannot place, more than 52,428 rules, or under ``BLT_MULTIPASS=xla``
-    (port of the JAX engine's XLA route): the table's sorted
-    pair keys on ``device``, a chunk of up to ``capacity_tokens`` bytes
-    (rounded up to 128) uploaded as ``CudaTokenEncoder`` uploads it, and
-    ``bpe_torch.multipass_encode`` over it, whose loop counts under
-    ``mp.twin``."""
+    """The plain twin's multipass for general tables that cuckoo32 cannot
+    place, more than 52,428 rules (port of the JAX engine's XLA route):
+    the table's sorted pair keys on ``device``, a chunk of up to
+    ``capacity_tokens`` bytes (rounded up to 128) uploaded as
+    ``CudaTokenEncoder`` uploads it, and ``bpe_torch.multipass_encode``
+    over it, whose loop counts under ``mp.twin``."""
 
     def __init__(self, table: MergeTable, device, capacity_tokens: int):
         super().__init__(device)
@@ -498,5 +463,13 @@ class PlainTokenEncoder(_Uploader):
     def encode_resident_dispatch(self, data: torch.Tensor):
         """One chunk (a 1-D uint8 tensor on the device) -> (its tokens int32
         as a compacted prefix on the device, the count as an int32 tensor),
-        as ``CudaTokenEncoder``'s sort loop returns them."""
+        as ``CudaTokenEncoder``'s loops return them."""
         return multipass_encode(data, data.shape[0], self.keys, self.vals)
+
+
+def token_encoder(table: MergeTable, device, capacity_tokens: int):
+    """A general table's encoder on ``device``, chosen by the table alone:
+    ``CudaTokenEncoder`` when cuckoo32 places it, else ``PlainTokenEncoder``."""
+    if CudaTokenEncoder.supports(table):
+        return CudaTokenEncoder(table, device, capacity_tokens)
+    return PlainTokenEncoder(table, device, capacity_tokens)

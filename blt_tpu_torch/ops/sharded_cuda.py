@@ -3,11 +3,11 @@
 
 Row r of a batch runs on ``mesh[r]`` (``parallel/mesh.py``) through the
 main path's kernel wrappers, on that device's current stream: K2 fused with
-its pack (``bpe_cuda.flat_encode_packed``) for a flat slab, the K3 gap loop
-or, under ``BLT_MP_COMPACT=sort``, the K4 loop for a general table's chunk
-(``multipass_cuda.CudaTokenEncoder``). A CPU row runs the wrappers' plain
-versions, as the single-device encoders do. Nothing catches a failure to
-build or launch a kernel.
+its pack (``bpe_cuda.flat_encode_packed``) for a flat slab, and for a
+general table's chunk the encoder ``multipass_cuda.token_encoder`` chooses
+(the K3 gap loop, the K4 loop under ``BLT_MP_COMPACT=sort``, or the plain
+twin). A CPU row runs the wrappers' plain versions, as the single-device
+encoders do. Nothing catches a failure to build or launch a kernel.
 
 ``CudaShardedFlatEncoder`` is the JAX package's halo convergence: each slab
 is ``HALO`` bytes of the stream before it, then its payload, encoded from
@@ -20,13 +20,12 @@ sends a batch whose halo holds none to the exact carry-composition path
 kernel and then ``pack_slots_batch`` as two dispatches; here one launch a
 slab writes the same packed wire over the slab's payload.
 
-``CudaShardedTokenEncoder`` holds one ``CudaTokenEncoder`` a row, or with
-``plain`` one ``PlainTokenEncoder`` (a table neither cuckoo32 placement
-takes, or ``BLT_MULTIPASS=xla``). General
+``CudaShardedTokenEncoder`` holds one ``token_encoder`` a row. General
 tables keep the reference's per-chunk semantics, so rows never stitch: a
 batch of up to B chunks is B independent loops. Each loop reads its alive
 count on the host once a round, so the rows of a batch run one after
-another from the calling thread.
+another from the calling thread. Every route's wire is the u16-BE image of
+the loop's compacted prefix: its first ``2 * count`` bytes are the output.
 """
 
 from __future__ import annotations
@@ -43,12 +42,7 @@ from blt_tpu_torch.ops.bpe_cuda import (
     flat_encode_packed,
 )
 from blt_tpu_torch.ops.bpe_torch import tokens_to_be_bytes_device
-from blt_tpu_torch.ops.multipass_cuda import (
-    CudaTokenEncoder,
-    PlainTokenEncoder,
-    expand_gap_wire_host,
-    mp_compact_mode,
-)
+from blt_tpu_torch.ops.multipass_cuda import token_encoder
 from blt_tpu_torch.ops.tables import wire_table
 from blt_tpu_torch.parallel.mesh import make_mesh
 from blt_tpu_torch.pipeline.feeder import upload
@@ -145,23 +139,15 @@ class CudaShardedFlatEncoder:
 
 class CudaShardedTokenEncoder:
     """Row-parallel multipass for general tables over a mesh: one
-    ``CudaTokenEncoder`` a row; with ``plain``, one ``PlainTokenEncoder``,
-    whose rows only ``dispatch``."""
+    ``token_encoder`` a row (a ``PlainTokenEncoder`` row only ``dispatch``es)."""
 
-    def __init__(self, table: MergeTable, mesh=None, capacity_tokens: int = 0,
-                 plain: bool = False):
+    def __init__(self, table: MergeTable, mesh=None, capacity_tokens: int = 0):
         self.mesh = make_mesh(mesh)
         self.n_rows = len(self.mesh)
         if not capacity_tokens:
             raise ValueError("CudaShardedTokenEncoder requires a fixed capacity")
-        row = PlainTokenEncoder if plain else CudaTokenEncoder
-        self.rows = [row(table, d, capacity_tokens) for d in self.mesh]
+        self.rows = [token_encoder(table, d, capacity_tokens) for d in self.mesh]
         self.capacity = self.rows[0].capacity
-        self.plain = plain
-
-    @staticmethod
-    def supports(table: MergeTable) -> bool:
-        return CudaTokenEncoder.supports(table)
 
     def _check(self, chunks: list) -> None:
         if len(chunks) > self.n_rows:
@@ -192,44 +178,23 @@ class CudaShardedTokenEncoder:
 
     def dispatch(self, r: int, data):
         """Row r's device-resident loop over one chunk (numpy bytes, or a
-        1-D tensor on its device). Returns (uint8 wire on the device, the
-        alive count as a tensor, capacity): the gap loop's wire, expanded on
-        the host by ``expand_gap_wire_host``; under ``BLT_MP_COMPACT=sort``
-        or ``plain`` the u16-BE image of the loop's compacted prefix as
-        bytes and capacity None (the count's first tokens are the output)."""
-        enc = self.rows[r]
-        if self.plain or mp_compact_mode() == "sort":
-            toks, m = enc.encode_resident_dispatch(data)
-            return tokens_to_be_bytes_device(toks).view(torch.uint8), m, None
-        return enc.encode_resident_wire_dispatch(data)
+        1-D tensor on its device). Returns (the u16-BE image of the loop's
+        compacted prefix as uint8 on the device, the count as a tensor)."""
+        toks, m = self.rows[r].encode_resident_dispatch(data)
+        return tokens_to_be_bytes_device(toks).view(torch.uint8), m
 
     @staticmethod
-    def download(wire: torch.Tensor, m, capacity):
-        """A ``dispatch`` result -> (its wire on the host, the count as an
-        int): the whole gap wire, or the compacted prefix's ``2 m`` bytes."""
-        m = int(m)
-        if capacity is None:
-            wire = wire[: 2 * m]
-        return wire.cpu().numpy(), m
-
-    @staticmethod
-    def expand(wire: np.ndarray, m: int, capacity) -> np.ndarray:
-        """A ``download``ed wire -> byteswapped u16 tokens (LE image = the
-        u16-BE wire stream)."""
-        if capacity is None:
-            return wire.view(np.uint16)[:m]
-        toks = expand_gap_wire_host(wire, capacity)
-        if toks.shape[0] != m:
-            raise RuntimeError(f"{toks.shape[0]} alive tokens, count says {m}")
-        return toks
+    def download(wire: torch.Tensor, m) -> np.ndarray:
+        """A ``dispatch`` result -> its ``2 m`` bytes on the host as
+        byteswapped u16 tokens (LE image = the u16-BE wire stream)."""
+        return wire[: 2 * int(m)].cpu().numpy().view(np.uint16)
 
     def encode_batch_resident_wire(self, chunks: list) -> List[np.ndarray]:
         """Full multipass of up to n_rows chunks, one device-resident loop a
         row (one upload and one download a chunk). Returns byteswapped u16
         rows whose LE image is the u16-BE wire stream."""
         self._check(chunks)
-        outs = [self.dispatch(r, c) for r, c in enumerate(chunks)]
-        return [self.expand(*self.download(w, m, cap), cap) for w, m, cap in outs]
+        return [self.download(*self.dispatch(r, c)) for r, c in enumerate(chunks)]
 
     def encode_batch_resident(self, chunks: list) -> List[np.ndarray]:
         """Full multipass of up to n_rows chunks -> int32 token arrays (the

@@ -14,8 +14,11 @@ CPU. ``PayloadAutoEngine`` picks one of them per in-memory payload, as the
 server's ``--engine auto`` does.
 
 Pipelining is the JAX engine's: feed (pack into a pinned buffer, upload,
-launch), device-to-host copy, and host drain each run on their own thread
-(``prefetch_iter``). A batch of a file mapping skips the pack on a CUDA
+launch), device-to-host copy, and host drain each run on their own thread,
+chained by ``TorchEngine._stages``; ``_with_next_byte`` gives each batch of
+a stream the first byte of the next, which BPE's stitching reads. A
+general table's stream has no drain: its wire is its output. A batch of a
+file mapping skips the pack on a CUDA
 device: it is copied from the mapping (``feeder.MappedWindows``). The BPE
 carry and the previous raw slot stay on the device between batches: the
 kernels read and write them by pointer, so no batch waits on the host for
@@ -24,11 +27,10 @@ them.
 
 from __future__ import annotations
 
-import collections
 import itertools
 import os
 import threading
-from typing import Iterable, Iterator, Optional
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +43,6 @@ from blt_tpu_torch.ops.bpe_cuda import (
     CudaFlatEncoder,
     unpack_slots_host,
 )
-from blt_tpu_torch.ops.multipass_cuda import CudaTokenEncoder
 from blt_tpu_torch.ops.sharded_cuda import (
     CudaShardedFlatEncoder,
     CudaShardedTokenEncoder,
@@ -109,6 +110,20 @@ def _whole_chunks(chunks: Iterable[np.ndarray], capacity: int) -> Iterator[np.nd
             yield chunk
 
 
+def _with_next_byte(batches: Iterable[np.ndarray]) -> Iterator[Tuple[np.ndarray, int]]:
+    """Each non-empty batch with the first byte of the one after it, -1
+    after the last: a batch is dispatched once the next one is known."""
+    prev: Optional[np.ndarray] = None
+    for batch in batches:
+        if batch.shape[0] == 0:
+            continue
+        if prev is not None:
+            yield prev, int(batch[0])
+        prev = batch
+    if prev is not None:
+        yield prev, -1
+
+
 class NumpyEngine:
     """Vectorized host engine (copy of the JAX package's ``NumpyEngine``).
 
@@ -155,27 +170,16 @@ class NumpyEngine:
         self, chunks: Iterable[np.ndarray], table: MergeTable
     ) -> Iterator[bytes]:
         carry = False
-        prev: Optional[np.ndarray] = None
-
-        def encode(data: np.ndarray, carry_in: bool, next_byte: int):
+        for data, next_byte in _with_next_byte(chunks):
             if self._native is not None:
-                return self._native.flat_bpe(
-                    data, table.dense, carry_in, next_byte, self.threads
+                wire, carry = self._native.flat_bpe(
+                    data, table.dense, carry, next_byte, self.threads
                 )
-            toks, c = bpe_numpy.bpe_encode_flat_carry(
-                data, table, carry_in, next_byte
-            )
-            return toks.astype(">u2"), c
-
-        for chunk in chunks:
-            if chunk.shape[0] == 0:
-                continue
-            if prev is not None:
-                wire, carry = encode(prev, carry, int(chunk[0]))
-                yield wire
-            prev = chunk
-        if prev is not None:
-            wire, _ = encode(prev, carry, -1)
+            else:
+                toks, carry = bpe_numpy.bpe_encode_flat_carry(
+                    data, table, carry, next_byte
+                )
+                wire = toks.astype(">u2")
             yield wire
 
 
@@ -191,6 +195,15 @@ class TorchEngine:
         self.mesh = (self.device,)  # the rows a general table's chunks cycle over
         self.depth = depth
         self.threads = threads if threads > 0 else (os.cpu_count() or 1)
+
+    def _stages(self, feed: Iterator, *steps) -> Iterator:
+        """The stage chain: ``feed`` on a thread named ``feed``, then each
+        ``(name, step)`` on a thread of its own, ``step`` taking the items of
+        the stage before it; ``depth`` items in flight between each two."""
+        items = prefetch_iter(feed, self.depth, "feed")
+        for name, step in steps:
+            items = prefetch_iter(step(items), self.depth, name)
+        return items
 
     def basic_stream(
         self, chunks: Iterable[np.ndarray], chunk_hint: int
@@ -212,9 +225,7 @@ class TorchEngine:
                 # u16 image; little-endian b << 8 is the BE wire
                 yield out.reshape(-1)[:n].cpu().numpy()
 
-        yield from prefetch_iter(
-            drain(prefetch_iter(feed(), self.depth, "feed")), self.depth, "drain"
-        )
+        yield from self._stages(feed(), ("drain", drain))
 
     def passthrough_stream(
         self, chunks: Iterable[np.ndarray], chunk_hint: int
@@ -249,24 +260,14 @@ class TorchEngine:
         def feed():
             carry = 0  # device tensors after the first batch
             prev_slot = 0
-            prev_batch: Optional[np.ndarray] = None
-
-            def dispatch(data: np.ndarray, next_byte: int):
-                nonlocal carry, prev_slot
-                dev, n = encoder.upload(data, staging, threads, windows)
-                with span(log, "feed.launch"):
-                    wire, carry, prev_slot = encoder.encode_packed_device(
-                        dev, n, carry, next_byte, prev_slot
-                    )
-                return wire, n
-
             with MappedWindows(self.device) as windows:
-                for batch in _batches(chunks, cap):
-                    if prev_batch is not None:
-                        yield dispatch(prev_batch, int(batch[0]))
-                    prev_batch = batch
-                if prev_batch is not None:
-                    yield dispatch(prev_batch, -1)
+                for batch, next_byte in _with_next_byte(_batches(chunks, cap)):
+                    dev, n = encoder.upload(batch, staging, threads, windows)
+                    with span(log, "feed.launch"):
+                        wire, carry, prev_slot = encoder.encode_packed_device(
+                            dev, n, carry, next_byte, prev_slot
+                        )
+                    yield wire, n
 
         def d2h(items):
             for wire, n in items:
@@ -280,79 +281,50 @@ class TorchEngine:
                 else:
                     yield unpack_slots_host(packed, flags, n)
 
-        yield from prefetch_iter(
-            drain(
-                prefetch_iter(
-                    d2h(prefetch_iter(feed(), self.depth, "feed")),
-                    self.depth,
-                    "d2h",
-                )
-            ),
-            self.depth,
-            "drain",
-        )
+        yield from self._stages(feed(), ("d2h", d2h), ("drain", drain))
 
     def _bpe_twin_stream(
         self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
     ) -> Iterator[np.ndarray]:
         """Flat tables the kernel rejects (values < 256): plain torch ops
         (``bpe_torch.flat_encode``) on the engine's device, as the JAX
-        engine's ``_bpe_xla_stream``."""
+        engine's ``_bpe_xla_stream``, on the stages feed and d2h: the
+        u16-BE image of the batch's tokens is its output."""
         dense = torch.from_numpy(table.dense).to(self.device)
         n_static = align_up(max(chunk_hint, 1))
-        carry = torch.zeros((), dtype=torch.bool, device=self.device)
-        pending: collections.deque = collections.deque()
 
-        def dispatch(chunk: np.ndarray, next_byte: int):
-            nonlocal carry
-            buf = np.zeros(n_static, np.uint8)
-            buf[: chunk.shape[0]] = chunk
-            dev = torch.from_numpy(buf).to(self.device)
-            _, count, carry, be = bpe_torch.flat_encode(
-                dev, chunk.shape[0], dense, carry, next_byte
-            )
-            pending.append((count, be))
+        def feed():
+            carry = torch.zeros((), dtype=torch.bool, device=self.device)
+            for batch, next_byte in _with_next_byte(_batches(chunks, n_static)):
+                buf = np.zeros(n_static, np.uint8)
+                buf[: batch.shape[0]] = batch
+                dev = torch.from_numpy(buf).to(self.device)
+                _, count, carry, be = bpe_torch.flat_encode(
+                    dev, batch.shape[0], dense, carry, next_byte
+                )
+                yield count, be
 
-        def drain() -> np.ndarray:
-            count, be = pending.popleft()
-            return be[: int(count)].cpu().numpy()
+        def d2h(items):
+            for count, be in items:
+                yield be[: int(count)].cpu().numpy()
 
-        prev: Optional[np.ndarray] = None
-        for batch in _batches(chunks, n_static):
-            if prev is not None:
-                dispatch(prev, int(batch[0]))
-                if len(pending) > self.depth:
-                    yield drain()
-            prev = batch
-        if prev is not None:
-            dispatch(prev, -1)
-        while pending:
-            yield drain()
+        yield from self._stages(feed(), ("d2h", d2h))
 
     def _bpe_multipass_stream(
         self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
     ) -> Iterator[np.ndarray]:
         """General (non-flat) tables, per-chunk semantics (port of the JAX
-        engine's ``_bpe_multipass_stream``): a device-resident loop a chunk.
-        The kernel loop when cuckoo32 places the table (up to 8192 rules
-        on the default planes, up to 52,428 on the wide planes of up to
-        65,536 slots): K3 rounds with a compaction every third round and
-        the gap wire (the u16-BE image plus an alive-flag plane) down, the
-        host dropping the tombstones; ``BLT_MP_COMPACT=sort`` runs the K4
-        loop. For tables neither placement takes, and under
-        ``BLT_MULTIPASS=xla`` (the JAX package's name for its plain route),
-        the plain twin (``multipass_cuda.PlainTokenEncoder``).
-        The table chooses, never a failure. Either route uploads a whole
-        chunk on the feed stage and runs its loop there; the D2H stage
-        downloads its wire (a compacted prefix: only its tokens), the drain
-        expands it, ``depth`` chunks in flight. The encoder is sized from
-        the chunk size, and a chunk is never cut. Chunk i runs on row
-        ``i % B`` of the engine's mesh (one row for this engine)."""
-        plain = os.environ.get("BLT_MULTIPASS", "pallas") == "xla" or (
-            not CudaTokenEncoder.supports(table)
-        )
+        engine's ``_bpe_multipass_stream``): a device-resident loop a chunk,
+        on the route ``multipass_cuda.token_encoder`` chooses from the table
+        (the kernel loop when cuckoo32 places it, else the plain twin). The
+        feed stage uploads a whole chunk and runs its loop; the D2H stage
+        downloads the u16-BE image of the loop's compacted prefix, its
+        ``2 * count`` bytes, which is the chunk's output. ``depth`` chunks
+        in flight. The encoder is sized from the chunk size, and a chunk is
+        never cut. Chunk i runs on row ``i % B`` of the engine's mesh (one
+        row for this engine)."""
         enc = CudaShardedTokenEncoder(
-            table, self.mesh, capacity_tokens=align_up(max(chunk_hint, 1)), plain=plain
+            table, self.mesh, capacity_tokens=align_up(max(chunk_hint, 1))
         )
         staging = pinned_buffer(enc.rows[0].padded_bytes, self.device)
         threads = self.threads
@@ -365,24 +337,10 @@ class TorchEngine:
                     yield enc.dispatch(r, dev.reshape(-1)[:n])
 
         def d2h(items):
-            for out, m, capacity in items:
-                yield (*enc.download(out, m, capacity), capacity)
+            for wire, m in items:
+                yield enc.download(wire, m)
 
-        def drain(items):
-            for host, m, capacity in items:
-                yield enc.expand(host, m, capacity)
-
-        yield from prefetch_iter(
-            drain(
-                prefetch_iter(
-                    d2h(prefetch_iter(feed(), self.depth, "feed")),
-                    self.depth,
-                    "d2h",
-                )
-            ),
-            self.depth,
-            "drain",
-        )
+        yield from self._stages(feed(), ("d2h", d2h))
 
 
 class ShardedTorchEngine(TorchEngine):
@@ -461,9 +419,7 @@ class ShardedTorchEngine(TorchEngine):
                 for out, n in zip(outs, lengths):
                     yield out[:n].cpu().numpy()  # u16 image; b << 8 LE is the BE wire
 
-        yield from prefetch_iter(
-            drain(prefetch_iter(feed(), self.depth, "feed")), self.depth, "drain"
-        )
+        yield from self._stages(feed(), ("drain", drain))
 
     def bpe_stream(
         self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
@@ -597,13 +553,8 @@ class ShardedTorchEngine(TorchEngine):
                 self.counts["carry_batches"] += 1
                 return "x", tokens, counts, prefix
 
-            prev: Optional[np.ndarray] = None
-            for batch in _batches(chunks, d_rows * payload):
-                if prev is not None:
-                    yield dispatch(prev, int(batch[0]))
-                prev = batch
-            if prev is not None:
-                yield dispatch(prev, -1)
+            for batch, next_byte in _with_next_byte(_batches(chunks, d_rows * payload)):
+                yield dispatch(batch, next_byte)
 
         cap = enc.capacity
 
@@ -638,12 +589,7 @@ class ShardedTorchEngine(TorchEngine):
                     else:
                         yield unpack_slots_host(packed, flags, cnt, start)
 
-        yield from prefetch_iter(
-            drain(prefetch_iter(d2h(prefetch_iter(feed(), self.depth, "feed")),
-                                self.depth, "d2h")),
-            self.depth,
-            "drain",
-        )
+        yield from self._stages(feed(), ("d2h", d2h), ("drain", drain))
 
     def _bpe_flat_carry_stream(
         self, chunks: Iterable[np.ndarray], table: MergeTable, chunk_hint: int
@@ -657,29 +603,17 @@ class ShardedTorchEngine(TorchEngine):
 
         def feed():
             carry = False  # a device tensor after the first batch
-            prev: Optional[np.ndarray] = None
-
-            def dispatch(data: np.ndarray, next_byte: int):
-                nonlocal carry
+            for batch, next_byte in _with_next_byte(_batches(chunks, self.n_rows * row_bytes)):
                 tokens, counts, carry = self._carry_dispatch(
-                    data, row_bytes, staging, dense_d, carry, next_byte
+                    batch, row_bytes, staging, dense_d, carry, next_byte
                 )
-                return tokens, counts
-
-            for batch in _batches(chunks, self.n_rows * row_bytes):
-                if prev is not None:
-                    yield dispatch(prev, int(batch[0]))
-                prev = batch
-            if prev is not None:
-                yield dispatch(prev, -1)
+                yield tokens, counts
 
         def drain(items):
             for tokens, counts in items:
                 yield self._carry_host(tokens, counts)
 
-        yield from prefetch_iter(
-            drain(prefetch_iter(feed(), self.depth, "feed")), self.depth, "drain"
-        )
+        yield from self._stages(feed(), ("drain", drain))
 
 
 def _probe_device_engine(threads: int = 0) -> Optional[TorchEngine]:

@@ -23,11 +23,14 @@ The JAX tool's rows (``loop_rows``) run on min(``--size-mib``, 8) MiB of
 the corpus (its 8 MB) with its four-rule table (``exp_mp_ablate.HIER``),
 each loop ``CudaTokenEncoder``'s with the input already on the card:
 
-- ``gap_wire_loop``: ``encode_resident_wire_dispatch`` (K3 rounds, a
-  compaction every third, then the wire), its wire expanded on the host by
-  ``expand_gap_wire_host`` and held to ``bpe_numpy.bpe_encode_multipass``
-  byte for byte, with the count; ``expand_host_ms``: that expansion, 3
-  calls (the mean, the original's figure, and their spread);
+- ``gap_wire_loop``: ``gap_wire_dispatch`` (``CudaTokenEncoder._gap_loop``:
+  K3 rounds, a compaction every third; then the JAX package's gap wire,
+  the u16-BE image of every position and an alive-flag plane, which only
+  this tool builds since the port ships the loop's compacted prefix), its
+  wire expanded on the host by ``expand_gap_wire_host`` and held to
+  ``bpe_numpy.bpe_encode_multipass`` byte for byte, with the count;
+  ``expand_host_ms``: that expansion, 3 calls (the mean, the original's
+  figure, and their spread);
 - ``gap_wire_loop`` at ``rpb`` 1024: the original's rows_per_block sweep.
   The port's tile is fixed (``multipass_cuda._TILE``), so the row runs the
   same loop again and its ``rpb`` says only which of the original's rows it
@@ -57,7 +60,7 @@ import torch
 from blt_tpu_torch.merges import MergeTable
 from blt_tpu_torch.ops import multipass_cuda
 from blt_tpu_torch.ops.bpe_numpy import bpe_encode_multipass
-from blt_tpu_torch.ops.multipass_cuda import CudaTokenEncoder, expand_gap_wire_host
+from blt_tpu_torch.ops.multipass_cuda import CudaTokenEncoder
 from blt_tpu_torch.ops.tables import cuckoo_planes
 from blt_tpu_torch.tools import _common as C
 from blt_tpu_torch.tools.exp_mp import sort_loop
@@ -84,6 +87,39 @@ def hierarchical_rules(corpus: np.ndarray, rounds: int = 16, per_round: int = 50
             rules[(int(p) >> 16, int(p) & 0xFFFF)] = 256 + len(rules)
         toks = bpe_encode_multipass(toks, MergeTable.build(rules)).astype(np.int64)
     return rules
+
+
+def _gap_tokens_to_wire(toks: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Tombstoned int32 tokens -> one uint8 wire: the u16-BE image of every
+    position (2 * capacity bytes) followed by the LSB-first alive-flag
+    plane (capacity // 8 bytes). Host expansion: ``expand_gap_wire_host``."""
+    t = toks.reshape(-1)[:capacity]
+    data8 = torch.stack([(t >> 8) & 0xFF, t & 0xFF], dim=1).reshape(-1)
+    flag = (t >= 0).to(torch.int32).reshape(-1, 8)
+    weights = 1 << torch.arange(8, dtype=torch.int32, device=t.device)
+    fbytes = (flag * weights).sum(1)
+    return torch.cat([data8.to(torch.uint8), fbytes.to(torch.uint8)])
+
+
+def expand_gap_wire_host(wire: np.ndarray, capacity: int) -> np.ndarray:
+    """Host expansion of the gap wire (copy of the JAX package's): drops
+    the tombstoned entries. Returns byteswapped u16 tokens (LE image ==
+    u16-BE wire stream)."""
+    data = wire[: 2 * capacity]
+    flags = wire[2 * capacity :]
+    mask = np.unpackbits(
+        np.ascontiguousarray(flags), bitorder="little"
+    )[:capacity].astype(bool)
+    return data.view(np.uint16)[mask]
+
+
+def gap_wire_dispatch(enc: CudaTokenEncoder, data):
+    """The gap loop plus its wire (the JAX package's
+    ``encode_resident_wire_dispatch``). Returns (wire uint8[2 * capacity +
+    capacity // 8] on the device, the count, capacity)."""
+    toks, m, _ = enc._gap_loop(data)
+    capacity = toks.shape[0]
+    return _gap_tokens_to_wire(toks, capacity), m, capacity
 
 
 def gap_row(tokens: torch.Tensor, planes, k: int = K) -> dict:
@@ -117,7 +153,7 @@ def loop_rows(host: np.ndarray, device: torch.device):
     x = torch.from_numpy(host.astype(np.int32)).to(device)  # resident, as the original's
 
     def gap():
-        return enc.encode_resident_wire_dispatch(x)
+        return gap_wire_dispatch(enc, x)
 
     def gap_exact(out) -> bool:
         wire, m, cap = out

@@ -75,7 +75,7 @@ def loop_variant(enc: CudaTokenEncoder, data, glue: str):
 def run(enc: CudaTokenEncoder, data, variant: str):
     """One loop of ``variant`` (A-D or ``port``)."""
     if variant == "port":
-        return enc._gap_loop(data)
+        return enc._gap_loop(data)[:2]
     return loop_variant(enc, data, variant)
 
 

@@ -14,8 +14,10 @@ the first batch of a fresh process pays instead is:
 ``warm_shapes`` pays these ahead: for each capacity it streams one small
 payload through the torch engine on the run's device in the run's mode,
 which launches each kernel that mode dispatches (K1; K2 fused with its
-pack for a flat table; the K3 loop, or the K4 loop under
-``BLT_MP_COMPACT=sort``, for a general one) at that capacity's buffers.
+pack for a flat table; for a general one the K3 loop, or the K4 loop under
+``BLT_MP_COMPACT=sort``, or for a table cuckoo32 cannot place the plain
+twin, with the torch ops of their compactions and wire) at that
+capacity's buffers.
 A failure raises: a kernel that cannot build or launch fails the run where
 it is found (the JAX package's ``warm_for_run`` logs and carries on).
 

@@ -11,7 +11,6 @@ exact; inputs come from numpy ``default_rng(seed)``.
 import ctypes
 import io
 import mmap
-import os
 import sys
 import time
 import types
@@ -106,6 +105,21 @@ def test_twin_route_for_tables_the_kernel_rejects():
     assert table.flat and not bpe_cuda.CudaFlatEncoder.supports(table)
     data = _data(9, 3 * HINT + 11)
     got = _join(TorchEngine(CPU).bpe_stream(iter(_chunks(data, HINT)), table, HINT))
+    assert got == tokens_to_be_bytes(bpe_encode_oracle(data.tobytes(), merges))
+
+
+def test_flat_twin_stream_runs_on_the_feed_and_d2h_stages():
+    """The flat twin's batches run on the engine's stage chain: the feed
+    launches them, the d2h stage hands on each batch's u16-BE tokens, which
+    are the output; there is no drain."""
+    merges = {(97, 98): 90, (98, 99): 7}
+    data = _data(9, 3 * HINT + 11)
+    feeder.stage_stats(reset=True)
+    got = _join(TorchEngine(CPU).bpe_stream(iter(_chunks(data, HINT)),
+                                            MergeTable.build(merges), HINT))
+    stats = feeder.stage_stats()
+    assert stats["feed"]["items"] == stats["d2h"]["items"] == 4
+    assert stats["d2h"]["bytes"] == len(got) and "drain" not in stats
     assert got == tokens_to_be_bytes(bpe_encode_oracle(data.tobytes(), merges))
 
 
@@ -251,7 +265,8 @@ STREAMS = {
 def _twin_stream(engine, chunks):
     """The general stream on the plain twin, the route of a table cuckoo32
     cannot place."""
-    with mock.patch.dict(os.environ, {"BLT_MULTIPASS": "xla"}):
+    with mock.patch.object(multipass_cuda.CudaTokenEncoder, "supports",
+                           staticmethod(lambda table: False)):
         yield from engine.bpe_stream(chunks, MergeTable.build(GENERAL), HINT)
 
 

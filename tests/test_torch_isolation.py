@@ -147,12 +147,17 @@ for merges in (None, m):
     for passthrough in (False, True):
         config = CoreConfig.new_from_cli(input=src, output=out, merges=merges, passthrough=passthrough)
         run_tokenizer(config, engine=cpu)
-for env in ({{}}, {{"BLT_MP_COMPACT": "sort"}}, {{"BLT_MULTIPASS": "xla"}}):
-    os.environ.update(env)
+from blt_tpu_torch.ops.multipass_cuda import CudaTokenEncoder
+def general_run():
     config = CoreConfig.new_from_cli(input=src, output=out, chunksize="256KB")
     run_tokenizer(config.with_merges(general), engine=cpu)
-    for k in env:
-        del os.environ[k]
+general_run()  # the K3 loop
+os.environ["BLT_MP_COMPACT"] = "sort"
+general_run()  # the K4 loop
+del os.environ["BLT_MP_COMPACT"]
+# the plain twin, the route of a table cuckoo32 cannot place
+CudaTokenEncoder.supports = staticmethod(lambda table: False)
+general_run()
 assert cli.main(["-i", src, "-o", out, "--engine", "numpy", "--merges", m, "--type", "text"]) == 0
 assert cli.main(["-i", out, "-o", out + ".d", "--decode", "--merges", m, "--type", "text"]) == 0
 assert open(out + ".d", "rb").read() == open(src, "rb").read()

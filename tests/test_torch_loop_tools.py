@@ -45,7 +45,7 @@ from blt_tpu.pipeline.runner import run_tokenizer as jax_run_tokenizer
 from blt_tpu.utils import compcache
 from blt_tpu_torch.merges import MergeTable
 from blt_tpu_torch.ops import bpe_cuda, bpe_torch, multipass_cuda
-from blt_tpu_torch.ops.multipass_cuda import CudaTokenEncoder, expand_gap_wire_host
+from blt_tpu_torch.ops.multipass_cuda import CudaTokenEncoder
 from blt_tpu_torch.ops.tables import wire_table
 from blt_tpu_torch.pipeline.engines import TorchEngine
 from blt_tpu_torch.tools import (
@@ -218,8 +218,8 @@ def test_gap_wire_and_sort_loops_equal_pallas(n):
     assert want.shape[0] == m
     enc = CudaTokenEncoder(MergeTable.build(HIER), CPU, capacity_tokens=n)
     x = torch.from_numpy(data.astype(np.int32))
-    pwire, pm, pcap = enc.encode_resident_wire_dispatch(x)
-    got = expand_gap_wire_host(pwire.numpy(), pcap)
+    pwire, pm, pcap = exp_gap.gap_wire_dispatch(enc, x)
+    got = exp_gap.expand_gap_wire_host(pwire.numpy(), pcap)
     assert int(pm) == m and got.tobytes() == want.tobytes()
     sort_want, sort_m = _jax_sort_resident(data, HIER)
     toks, count = exp_mp.sort_loop(enc, x)

@@ -34,7 +34,6 @@ from blt_tpu_torch.merges import MergeTable
 from blt_tpu_torch.ops import bpe_torch, multipass_cuda, tables
 from blt_tpu_torch.ops.multipass_cuda import (
     CudaTokenEncoder,
-    expand_gap_wire_host,
     token_pass,
     token_pass_gap,
     token_pass_gap_plain,
@@ -44,6 +43,7 @@ from blt_tpu_torch.ops.tables import cuckoo32_placement, cuckoo_planes, planes_f
 from blt_tpu_torch.pipeline import feeder, runner
 from blt_tpu_torch.pipeline.engines import NumpyEngine, ShardedTorchEngine, TorchEngine
 from blt_tpu_torch.pipeline.runner import run_tokenizer
+from blt_tpu_torch.tools import exp_gap
 from h100_bench.common import recipes
 from h100_bench.reference import bpe as bench_bpe
 from h100_bench.tables import learned
@@ -399,19 +399,26 @@ def test_encode_resident_equals_pallas(mode, monkeypatch):
 
 
 def test_resident_gap_tokens_and_wire_equal_pallas():
-    """The gap loop's tombstoned buffer, its count and the wire, whole."""
+    """The gap loop's tombstoned buffer and its count, whole; the resident
+    dispatch's compacted prefix of the same tokens; and ``exp_gap``'s wire
+    of the loop (the JAX package's gap wire), whole."""
     jax_enc, port = _encoders(CHAIN)
     rng = np.random.default_rng(9)
     for data in (np.full(CAP - 5, 97, np.uint8), _bytes(rng, 3000, b"aaab"),
                  np.zeros(0, np.uint8)):
         j_toks, j_m = jax_enc.encode_resident_dispatch(data)
-        p_toks, p_m = port.encode_resident_dispatch(data)
+        p_toks, p_m, _ = port._gap_loop(data)
         assert np.array_equal(p_toks.numpy(), np.asarray(j_toks)) and int(p_m) == int(j_m)
+        c_toks, c_m = port.encode_resident_dispatch(data)
+        j_alive = np.asarray(j_toks)[np.asarray(j_toks) >= 0]
+        assert tuple(c_toks.shape) == (CAP,) and int(c_m) == j_alive.shape[0]
+        assert np.array_equal(c_toks[: int(c_m)].numpy(), j_alive)
+        assert (c_toks[int(c_m):] == -1).all()
         j_wire, j_m, j_cap = jax_enc.encode_resident_wire_dispatch(data)
-        p_wire, p_m, p_cap = port.encode_resident_wire_dispatch(data)
+        p_wire, p_m, p_cap = exp_gap.gap_wire_dispatch(port, data)
         assert p_cap == j_cap == CAP and p_wire.dtype == torch.uint8
         assert np.array_equal(p_wire.numpy(), np.asarray(j_wire))
-        expanded = expand_gap_wire_host(p_wire.numpy(), p_cap)
+        expanded = exp_gap.expand_gap_wire_host(p_wire.numpy(), p_cap)
         assert expanded.shape[0] == int(p_m)
         assert np.array_equal(expanded, bp.expand_gap_wire_host(np.asarray(j_wire), j_cap))
 
@@ -477,8 +484,8 @@ def _chunks(data, size):
 @pytest.mark.parametrize("mode", ["gap", "sort", "twin"])
 @pytest.mark.parametrize("name", ["hier", "chain"])
 def test_torch_engine_multipass_stream_equals_jax_numpy_and_oracle(name, mode, monkeypatch):
-    if mode == "twin":
-        monkeypatch.setenv("BLT_MULTIPASS", "xla")
+    if mode == "twin":  # the route of a table cuckoo32 cannot place
+        monkeypatch.setattr(CudaTokenEncoder, "supports", staticmethod(lambda table: False))
     else:
         monkeypatch.setenv("BLT_MP_COMPACT", mode)
     merges = TABLES[name]
@@ -499,6 +506,26 @@ def test_torch_engine_multipass_stream_equals_jax_numpy_and_oracle(name, mode, m
     jax_host = _join(JaxNumpyEngine(1).bpe_stream(iter(chunks), jt, HINT))
     oracle = b"".join(tokens_to_be_bytes(bpe_encode_oracle(c.tobytes(), merges)) for c in chunks)
     assert port == jax_out == host == jax_host == oracle
+
+
+@pytest.mark.parametrize("engine", ["torch", "shard"])
+@pytest.mark.parametrize("route", ["loop", "twin"])
+def test_general_stream_ships_its_tokens_alone(route, engine, monkeypatch):
+    """One wire on either route: the d2h stage hands on 2 bytes a token,
+    which are the output, and the stream has no drain stage."""
+    if route == "twin":  # the route of a table cuckoo32 cannot place
+        monkeypatch.setattr(CudaTokenEncoder, "supports", staticmethod(lambda table: False))
+    data = _bytes(np.random.default_rng(37), 3 * HINT + 77)
+    chunks = _chunks(data, HINT)
+    eng = TorchEngine(CPU, depth=2) if engine == "torch" else ShardedTorchEngine([CPU] * 3)
+    feeder.stage_stats(reset=True)
+    got = _join(eng.bpe_stream(iter(chunks), MergeTable.build(HIER), HINT))
+    stats = feeder.stage_stats()
+    assert stats[f"mp.{route}"]["items"] == len(chunks)
+    assert (stats["d2h"]["items"], stats["d2h"]["bytes"]) == (len(chunks), len(got))
+    assert "drain" not in stats
+    assert got == b"".join(bpe_encode_multipass(c, JaxMergeTable.build(HIER)).astype(">u2")
+                           .tobytes() for c in chunks)
 
 
 def test_engine_routes_by_table_never_by_failure(monkeypatch):
@@ -682,7 +709,7 @@ def _learned_stream(rules, cut, engine, route):
     taken = f"mp.{route}"
     assert (stats[taken]["items"], stats[taken]["bytes"]) == (len(live), data.shape[0])
     assert stats["mp.passes"]["items"] == sum(p for p, _ in multipass_cuda.loop_log)
-    assert {"feed", "d2h", "drain"} <= set(stats)
+    assert {"feed", "d2h"} <= set(stats) and "drain" not in stats
     return stats
 
 
@@ -690,11 +717,20 @@ def _learned_stream(rules, cut, engine, route):
 @pytest.mark.parametrize("cut", list(LEARNED_CHUNKS))
 def test_staged_twin_on_a_learned_table_equals_reference_and_oracle(
         learned_rules, cut, engine, monkeypatch):
-    """The twin route on its stages, forced by ``BLT_MULTIPASS=xla``: no
-    kernel loop and no wide placement."""
-    monkeypatch.setenv("BLT_MULTIPASS", "xla")
+    """The twin route on its stages, forced as for a table cuckoo32 cannot
+    place: no kernel loop and no wide placement."""
+    monkeypatch.setattr(CudaTokenEncoder, "supports", staticmethod(lambda table: False))
     stats = _learned_stream(learned_rules, cut, engine, "twin")
     assert "mp.loop" not in stats and "cuckoo.wide" not in stats
+
+
+def test_the_environment_chooses_no_route(learned_rules, monkeypatch):
+    """The table alone chooses the route: ``BLT_MULTIPASS=xla``, the JAX
+    package's switch to its plain route, leaves a 9000-rule table, which
+    the wide placement takes, on the kernel loop."""
+    monkeypatch.setenv("BLT_MULTIPASS", "xla")
+    stats = _learned_stream(learned_rules, "64k", "torch", "loop")
+    assert "mp.twin" not in stats and stats["cuckoo.wide"]["items"] == 1
 
 
 @pytest.mark.parametrize("engine", ["torch", "shard"])
